@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so any fault exits non-zero):
+  1. the device: name, count, and nvidia-smi's name and power limit;
+  2. build every CUDA kernel of the path from ``src/repro_torch/kernels/
+     csrc`` (one nvcc per source, in parallel), printing the build time
+     and ptxas's registers / shared memory / spills per kernel;
+  3. hold each kernel against its plain PyTorch version on the card, on
+     inputs made from a numpy seed: at the main-path shape (n=400,000,
+     d=784, k=50), at k=1, k=257 and an unaligned n, kernel 1 also in
+     bf16. Tolerances are those of tests/test_kernels.py: f32 rtol 1e-5
+     (atol 1e-4), bf16 rtol 2e-2; labels may differ only where the two
+     distances tie within 100x the tolerance. Sums over many rows are
+     held to their rtol (1e-5 for cluster_sum, 1e-4 for the fused
+     round's sums, as tests/test_kernels.py holds them) relative to their
+     L1 mass (sum of |w x| per entry), the scale of f32 rounding in a
+     sum of that many terms;
+  4. the main path at full size: ``NestedKMeans(FitConfig(k=50, b0=5000,
+     algorithm="tb", rho=inf, bounds="hamerly2")).fit`` on 400,000
+     ``infmnist_like`` rows (the paper's infMNIST experiment) with 10,000
+     validation rows, then ``predict``. Each kernel's launch count is set
+     to 0 just before and read just after; all three must be > 0. A
+     second identical fit must give bit-identical centroids and labels,
+     and the same fit with ``kernel_backend="ref"`` (plain versions on
+     the card) must reach a final validation MSE within 1e-3 relative;
+  5. time each kernel at its main-path shape with CUDA events after a
+     warm-up, beside its plain version, one PyTorch library call where
+     one computes the same function, and its bound on an H100 SXM (the
+     larger of bytes over 3.35 TB/s and f32 operations over 67 TFLOP/s).
+
+The last two lines are a JSON object of the kernels and the JSON result
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+rest of the repository beside it, the script exits non-zero and prints
+no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+N, D, K = 400_000, 784, 50           # KMEANS_INFMNIST
+N_VAL = 10_000
+PEAK_BYTES_S = 3.35e12               # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12               # H100 SXM f32, no tensor cores
+TOL = {"f32": 1e-5, "bf16": 2e-2}
+DEV = "cuda"
+REPLACES = {
+    "assign_top2": "src/repro/kernels/kmeans_assign.py:73",
+    "cluster_sum": "src/repro/kernels/cluster_sum.py:56",
+    "fused_nested_round": "src/repro/kernels/fused_round.py:225",
+}
+SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+class Failure(RuntimeError):
+    pass
+
+
+def need(cond: bool, what: str) -> None:
+    if not cond:
+        raise Failure(what)
+
+
+# ---------------------------------------------------------------- phase 1
+
+def device_phase() -> dict:
+    need(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"[1] device: {name} (count {count}), torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    log(smi)
+    need(not torch.backends.cuda.matmul.allow_tf32,
+         "TF32 matmuls are on; the plain versions are f32")
+    return {"name": name, "count": count, "smi": smi}
+
+
+# ---------------------------------------------------------------- phase 2
+
+def build_phase() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    report = _build.build(force=True)
+    log(f"[2] built {len(report)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    for name, (secs, ptxas) in report.items():
+        log(f"    {name}.cu: nvcc {secs:.1f} s")
+        for line in ptxas.splitlines():
+            if "Compiling entry" in line or "Used" in line \
+                    or "spill" in line:
+                log("      " + line.split("ptxas info    : ")[-1])
+
+
+# ---------------------------------------------------------------- phase 3
+
+def _x_c(n, d, k, seed, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    c = torch.from_numpy((rng.normal(size=(k, d)) * 2).astype(np.float32))
+    return x.to(DEV, dtype), c.to(DEV, dtype)
+
+
+def _labels_ok(a_got, a_want, d2m, tol) -> int:
+    """Labels equal but for ties within 100x tol; returns the count of
+    tied rows that differ."""
+    diff = torch.nonzero(a_got != a_want)[:, 0]
+    if diff.numel():
+        gap = (d2m[diff, a_got[diff].long()]
+               - d2m[diff, a_want[diff].long()]).abs()
+        need(bool((gap < tol * 100).all()),
+             f"labels differ beyond a tie at {diff.numel()} rows")
+    return int(diff.numel())
+
+
+def _close(got, want, rtol, atol, what) -> float:
+    # equal values (+inf included) have no error
+    err = torch.where(got == want, 0.0, (got - want).abs())
+    top = float(err.max()) if err.numel() else 0.0
+    need(bool((err <= atol + rtol * want.abs()).all()),
+         f"{what}: max abs err {top}")
+    return top
+
+
+def _mass_close(got, want, mass, what, rtol=1e-5) -> float:
+    """|got - want| <= rtol * mass + 1e-4 (mass: sum of |terms|)."""
+    err = (got - want).abs()
+    top = float(err.max()) if err.numel() else 0.0
+    need(bool((err <= rtol * mass + 1e-4).all()),
+         f"{what}: max abs err {top}")
+    return top
+
+
+def check_assign(n, d, k, dtype) -> float:
+    from repro_torch.kernels import kmeans_assign, ref
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, c = _x_c(n, d, k, n + k, tdt)
+    got = kmeans_assign.assign_top2_cuda(x, c)
+    torch.cuda.synchronize()
+    want = ref.assign_top2_ref(x, c)
+    tol = TOL[dtype]
+    need(got[0].dtype == torch.int32, "labels are not int32")
+    e1 = _close(got[1], want[1], tol, tol * 10, "d1")
+    if k == 1:
+        need(bool(torch.isinf(got[2]).all()), "k=1: d2 is not +inf")
+        e2 = 0.0
+    else:
+        e2 = _close(got[2], want[2], tol, tol * 10, "d2")
+    ties = _labels_ok(got[0], want[0], ref.pairwise_dist2(x, c), tol)
+    log(f"    assign_top2 {dtype} n={n} d={d} k={k}: max abs err d1 {e1:.3g}"
+        f" d2 {e2:.3g}, tied labels {ties}")
+    return max(e1, e2)
+
+
+def _weights(n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], n).astype(
+        np.float32)).to(DEV)
+
+
+def check_cluster_sum(n, d, k) -> float:
+    from repro_torch.kernels import cluster_sum, ref
+    x, _ = _x_c(n, d, 1, n + d, torch.float32)
+    rng = np.random.default_rng(n + k)
+    a = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(DEV)
+    w = _weights(n, n)
+    S, v = cluster_sum.cluster_sum_cuda(x, a, k, weights=w)
+    torch.cuda.synchronize()
+    S_r, v_r = ref.cluster_sum_ref(x, a, k, weights=w)
+    mass, vmass = ref.cluster_sum_ref(x.abs(), a, k, weights=w.abs())
+    e = max(_mass_close(S, S_r, mass, "S"),
+            _mass_close(v, v_r, vmass, "v"))
+    S2, v2 = cluster_sum.cluster_sum_cuda(x, a, k, weights=w)
+    need(torch.equal(S, S2) and torch.equal(v, v2),
+         "cluster_sum is not deterministic")
+    log(f"    cluster_sum n={n} d={d} k={k} (+1/0/-1 weights): max abs err "
+        f"{e:.3g}, second run bit-identical")
+    return e
+
+
+def _nested_inputs(n, d, k):
+    """A mixed mask: ~20% unseen, ~30% of the seen settled, ~10% invalid."""
+    x, c = _x_c(n, d, k, 7 * n + k, torch.float32)
+    rng = np.random.default_rng(n * 3 + k)
+    a_prev = rng.integers(0, k, n).astype(np.int32)
+    a_prev[rng.random(n) < 0.2] = -1
+    settled = (rng.random(n) < 0.3) & (a_prev >= 0)
+    d_keep = rng.random(n).astype(np.float32)
+    lb_keep = rng.random(n).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    host = (a_prev, settled, d_keep, lb_keep, valid)
+    return [x, c] + [torch.from_numpy(h).to(DEV) for h in host]
+
+
+def check_fused(n, d, k) -> float:
+    from repro_torch.kernels import fused_round, ref
+    args = _nested_inputs(n, d, k)
+    got = fused_round.fused_nested_round_cuda(*args)
+    torch.cuda.synchronize()
+    want = fused_round.fused_nested_round_ref(*args)
+    x, c, a_prev = args[:3]
+    ties = _labels_ok(got[0], want[0], ref.pairwise_dist2(x, c),
+                      TOL["f32"])
+    e = max(_close(got[1], want[1], 1e-5, 1e-4, "d_new"),
+            _close(got[2], want[2], 1e-5, 1e-4, "lb_new"))
+    # the sums against the plain sums over the kernel's own labels (one
+    # may differ from the plain label at a tie, moving a whole row)
+    sums = fused_round.delta_sums(x, a_prev, got[0], got[1], k)
+    new, old = got[0].clamp(0, k - 1), a_prev.clamp(0, k - 1)
+    mass = (ref.cluster_sum_ref(x.abs(), new, k)[0]
+            + ref.cluster_sum_ref(x.abs(), old, k)[0],
+            ref.cluster_sum_ref(x[:, :0], new, k)[1]
+            + ref.cluster_sum_ref(x[:, :0], old, k)[1],
+            sums[2])
+    for g, w, m, what in zip(got[3:], sums, mass, ("dS", "dv", "sse")):
+        e = max(e, _mass_close(g, w, m, what, rtol=1e-4))
+    # which of the two f32 sums is nearer the float64 one
+    exact = torch.zeros(k, dtype=torch.float64, device=x.device).index_add_(
+        0, new.long(), got[1].double() ** 2)
+    log(f"    fused sse vs float64: kernel max abs err "
+        f"{float((got[5].double() - exact).abs().max()):.4g}, plain "
+        f"{float((sums[2].double() - exact).abs().max()):.4g}")
+    again = fused_round.fused_nested_round_cuda(*args)
+    need(all(torch.equal(g, a) for g, a in zip(got, again)),
+         "fused_nested_round is not deterministic")
+    log(f"    fused_nested_round n={n} d={d} k={k}: max abs err {e:.3g}, "
+        f"tied labels {ties}, second run bit-identical")
+    return e
+
+
+def compare_phase() -> dict:
+    log("[3] kernels against their plain versions on the card")
+    err = {
+        "assign_top2": check_assign(N, D, K, "f32"),
+        "cluster_sum": check_cluster_sum(N, D, K),
+        "fused_nested_round": check_fused(N, D, K),
+    }
+    check_assign(N, D, K, "bf16")
+    for n, d, k in ((4099, D, 1), (4099, D, 257), (1000, 200, 257),
+                    (777, 33, 50)):
+        check_assign(n, d, k, "f32")
+        check_cluster_sum(n, d, k)
+        check_fused(n, d, k)
+    check_cluster_sum(5000, 0, K)        # counts only
+    return err
+
+
+# ---------------------------------------------------------------- phase 4
+
+def profile_report(prof, wall_s: float, wall_profiled_s: float) -> None:
+    """The profiled fit's device work (kernels and copies, each counted
+    once: an operator's own entry would count its kernels again), its
+    share of the fit's wall time, and the host calls that took longest."""
+    events = prof.key_averages()
+    dev = sorted((e for e in events if str(e.device_type).endswith("CUDA")),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    log(f"    profile: device busy {busy_ms:.1f} ms = "
+        f"{busy_ms / 10 / wall_profiled_s:.1f} % of the profiled fit's wall "
+        f"{wall_profiled_s:.2f} s ({busy_ms / 10 / wall_s:.1f} % of the "
+        f"unprofiled fit's {wall_s:.2f} s)")
+    for e in dev[:12]:
+        log(f"      device {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:7d}x  {e.key[:90]}")
+    host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    for e in host[:8]:
+        log(f"      host   {e.self_cpu_time_total / 1e3:9.2f} ms "
+            f"{e.count:7d}x  {e.key[:90]}")
+
+
+def fit_once(X, Xv, **kw):
+    from repro_torch.api import FitConfig, NestedKMeans
+    cfg = FitConfig(k=K, b0=5000, algorithm="tb", rho=math.inf,
+                    bounds="hamerly2", seed=0, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km = NestedKMeans(cfg, device=DEV).fit(X, X_val=Xv)
+    torch.cuda.synchronize()
+    return km, time.perf_counter() - t0
+
+
+def _schedule(km) -> str:
+    return " ".join(f"{r.b}:{r.n_recomputed}" for r in km.telemetry_
+                    if r.batch_mse is not None)
+
+
+def main_path_phase() -> dict:
+    from repro_torch.data.synthetic import infmnist_like
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    X = infmnist_like(N, seed=0)
+    Xv = infmnist_like(N_VAL, seed=1)
+    log(f"[4] data: infmnist_like {X.shape} + {Xv.shape} in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    km, wall = fit_once(X, Xv)
+    labels = km.predict(X)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tel = [r for r in km.telemetry_ if r.batch_mse is not None]
+    log(f"    cuda fit: {km.n_rounds_} records, {len(tel)} rounds, final b "
+        f"{km.telemetry_[-1].b}, sum n_recomputed "
+        f"{sum(r.n_recomputed for r in tel)}, converged {km.converged_}, "
+        f"final val MSE {km.final_mse_!r}, wall {wall:.2f} s, peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB")
+    log(f"    launches on the main path (fit + predict): {launches}")
+    for name, n in launches.items():
+        need(n > 0, f"{name} was never launched on the main path")
+
+    C = km.cluster_centers_
+    need(C.shape == (K, D) and bool(np.isfinite(C).all()),
+         "centroids are not finite (k, d)")
+    need(labels.shape == (N,) and labels.dtype == np.int32
+         and labels.min() >= 0 and labels.max() < K, "predict labels")
+    need(km.labels_.shape == (N,) and (km.labels_ >= 0).all(),
+         "fit labels")
+    agree = float((labels == km.labels_).mean())
+    log(f"    predict(X) agrees with the fit's labels on {agree:.6f} of rows")
+    need(km.converged_ is False or agree == 1.0,
+         "a converged fit's labels differ from predict")
+    # predict against the plain assignment on a small input
+    xs = torch.from_numpy(X[:2000]).to(DEV)
+    a_ref = ref.assign_top2_ref(xs, torch.from_numpy(C).to(DEV))[0]
+    need(bool((a_ref.cpu().numpy() == labels[:2000]).mean() > 0.999),
+         "predict disagrees with the plain assignment")
+
+    # the second fit runs under torch.profiler: where the fit's time goes
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        km2, wall2 = fit_once(X, Xv)
+    same = np.array_equal(km2.cluster_centers_, C) \
+        and np.array_equal(km2.labels_, km.labels_)
+    log(f"    second cuda fit (profiled): wall {wall2:.2f} s, bit-identical "
+        f"centroids and labels: {same}")
+    need(same, "a second identical fit is not bit-identical")
+    profile_report(prof, wall, wall2)
+
+    kmr, wallr = fit_once(X, Xv, kernel_backend="ref")
+    rel = abs(kmr.final_mse_ - km.final_mse_) / abs(kmr.final_mse_)
+    log(f"    ref fit (plain versions on the card): {kmr.n_rounds_} records,"
+        f" final val MSE {kmr.final_mse_!r}, wall {wallr:.2f} s, relative "
+        f"gap {rel:.3g}")
+    log(f"    schedule cuda (b:n_recomputed): {_schedule(km)}")
+    log(f"    schedule ref  (b:n_recomputed): {_schedule(kmr)}")
+    need(rel <= 1e-3, "cuda and ref fits differ in val MSE beyond 1e-3")
+    return {"launches": launches, "X": X}
+
+
+# ---------------------------------------------------------------- phase 5
+
+def time_ms(fn, iters: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, flops: float):
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timing_phase(X) -> dict:
+    from repro_torch.kernels import cluster_sum, fused_round, kmeans_assign
+    from repro_torch.kernels import ref
+    log("[5] kernel times at the main-path shape (CUDA events, mean of 10 "
+        "after one warm-up)")
+    x = torch.from_numpy(X).to(DEV)
+    c = x[:K].clone()
+    out = {}
+
+    b, how = bound(N * D * 4 + K * D * 4 + N * 12, 2.0 * N * K * D)
+    out["assign_top2"] = dict(
+        ms=time_ms(lambda: kmeans_assign.assign_top2_cuda(x, c)),
+        plain_ms=time_ms(lambda: ref.assign_top2_ref(x, c)),
+        library_ms=None, bound_ms=b, bound_by=how)
+
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.integers(0, K, N).astype(np.int32)).to(DEV)
+    w = _weights(N, 2)
+    nz = int((w != 0).sum())
+    b, how = bound(nz * D * 4 + N * 8 + (K * D + K) * 4, 2.0 * nz * D)
+    a64 = a.long()
+    xw = x * w[:, None]
+    S0 = torch.zeros(K, D, device=DEV)
+    out["cluster_sum"] = dict(
+        ms=time_ms(lambda: cluster_sum.cluster_sum_cuda(
+            x, a, K, weights=w)),
+        plain_ms=time_ms(lambda: ref.cluster_sum_ref(
+            x, a, K, weights=w)),
+        library_ms=time_ms(lambda: S0.index_add_(0, a64, xw)),
+        bound_ms=b, bound_by=how)
+    del xw
+
+    args = [x, c] + _nested_inputs(N, 1, K)[2:]
+    a_prev = args[2]
+    a_new = fused_round.fused_nested_round_cuda(*args)[0]
+    # rows that add to dS: joins, new rows and leaves
+    moved = int((((a_prev < 0) & (a_new >= 0))
+                 | ((a_prev >= 0) & (a_new != a_prev))).sum())
+    b, how = bound(N * D * 4 + K * D * 4 + N * (14 + 12)
+                   + (K * D + 2 * K) * 4, 2.0 * N * K * D + 2.0 * moved * D)
+    out["fused_nested_round"] = dict(
+        ms=time_ms(lambda: fused_round.fused_nested_round_cuda(*args)),
+        plain_ms=time_ms(lambda: fused_round.fused_nested_round_ref(
+            *args)),
+        library_ms=None, bound_ms=b, bound_by=how)
+    for name, r in out.items():
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f} ms")
+        log(f"    {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
+            f" ms, library {lib}, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails without the repository)
+
+    t0 = time.perf_counter()
+    dev = device_phase()
+    build_phase()
+    errs = compare_phase()
+    main = main_path_phase()
+    times = timing_phase(main["X"])
+    kernels = [dict(name=name, route="cuda", source=SOURCE.format(name),
+                    replaces=REPLACES[name],
+                    launches=main["launches"][name],
+                    max_abs_err=errs[name], **times[name])
+               for name in REPLACES]
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(dev["smi"])
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,26 @@
+"""repro_torch.api — the public surface of the port.
+
+    from repro_torch.api import FitConfig, NestedKMeans
+
+    km = NestedKMeans(FitConfig(k=50, b0=5000)).fit(X_train, X_val=X_val)
+    labels = km.predict(X_new)
+
+`NestedKMeans` runs on ``device="cuda"`` unless told otherwise.
+"""
+from __future__ import annotations
+
+from repro_torch.api.config import (ALGORITHMS, BACKENDS, BOUNDS,
+                                    CheckpointConfig, FitConfig)
+from repro_torch.api.engines import Engine, EngineRun, LocalEngine, make_engine
+from repro_torch.api.estimator import NestedKMeans, NotFittedError
+from repro_torch.api.loop import (FitOutcome, HostRoundInfo, cap_bucket,
+                                  fetch_round_info, next_pow2, run_loop)
+from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
+
+__all__ = [
+    "FitConfig", "CheckpointConfig", "NestedKMeans", "NotFittedError",
+    "Engine", "EngineRun", "LocalEngine", "make_engine",
+    "run_loop", "FitOutcome", "HostRoundInfo", "fetch_round_info",
+    "Telemetry", "RoundCallback", "final_val_mse", "cap_bucket",
+    "next_pow2", "ALGORITHMS", "BOUNDS", "BACKENDS",
+]

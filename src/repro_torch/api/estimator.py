@@ -1,0 +1,225 @@
+"""`NestedKMeans`: the sklearn-style front door of the port.
+
+    from repro_torch.api import FitConfig, NestedKMeans
+
+    km = NestedKMeans(FitConfig(k=50, b0=5000)).fit(X_train, X_val=X_val)
+    labels = km.predict(X_new)
+
+Port of `repro/api/estimator.py`. The estimator runs on ``device``,
+"cuda" unless the caller asks for another: with no card it raises, it
+never falls back to the CPU. `partial_fit` folds one batch into the
+running statistics with one nested round, as in the JAX package.
+Resuming from a checkpoint is ROADMAP Queue 1 item 6.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import FitConfig
+from repro_torch.api.engines import Engine, make_engine
+from repro_torch.api.loop import (FitOutcome, check_ported,
+                                  fetch_round_info, run_loop)
+from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
+from repro_torch.core import rounds
+from repro_torch.core.state import ClusterStats, full_mse, init_state
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.plan import resolve_plan
+
+
+class NotFittedError(RuntimeError):
+    pass
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
+class NestedKMeans:
+    """Estimator over a `FitConfig` on one torch device.
+
+    After `fit` / `partial_fit`:
+      cluster_centers_   (k, d) float32 ndarray
+      labels_            (n,) assignments of the fitted data (fit only)
+      inertia_           batch MSE at the last round
+      telemetry_         List[Telemetry], one per host round
+      converged_         bool
+      n_rounds_          len(telemetry_)
+
+    `fit` / `partial_fit` serialise on an internal lock; `predict` and
+    `transform` read the stats once and never take it.
+    """
+
+    def __init__(self, config: FitConfig, *, device="cuda",
+                 engine: Optional[Engine] = None,
+                 on_round: Optional[RoundCallback] = None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.engine = engine or make_engine(config)
+        self.on_round = on_round
+        self.telemetry_: List[Telemetry] = []
+        self._outcome: Optional[FitOutcome] = None
+        self._stats: Optional[ClusterStats] = None
+        self._outcome_stale = False
+        self._lock = threading.RLock()
+
+    # -- fitting ------------------------------------------------------------
+
+    def fit(self, X, *, X_val=None, init_C: Optional[np.ndarray] = None,
+            resume: bool = False) -> "NestedKMeans":
+        """Run the configured algorithm to convergence / budget."""
+        if resume:
+            raise NotImplementedError(
+                "resume is not ported to repro_torch yet (ROADMAP Queue 1 "
+                "item 6)")
+        with self._lock:
+            cfg = self.config.resolve(len(X))
+            check_ported(cfg)
+            run = self.engine.begin(X, cfg, X_val=X_val, init_C=init_C,
+                                    device=self.device)
+            out = run_loop(run, cfg, on_round=self.on_round)
+            self._outcome = out
+            self._stats = run.fetch_stats(out.state)
+            self._outcome_stale = False
+            self.telemetry_ = list(out.telemetry)
+            return self
+
+    def partial_fit(self, X) -> "NestedKMeans":
+        """Fold one streaming batch into the codebook (one nested round).
+
+        The incoming points enter unseen (``a == -1``): the round assigns
+        them, adds them to S/v and moves the centroids to the updated
+        means.
+        """
+        with self._lock:
+            X = np.asarray(X)
+            cfg = self.config.resolve(int(X.shape[0]))
+            check_ported(cfg)
+            if self._stats is None and X.shape[0] < cfg.k:
+                raise ValueError(f"first partial_fit batch must have >= "
+                                 f"k={cfg.k} rows")
+            t_prev = self.telemetry_[-1].t if self.telemetry_ else 0.0
+            t0 = time.perf_counter()
+            Xd = torch.from_numpy(np.ascontiguousarray(
+                X, dtype=np.float32)).to(self.device)
+            state = init_state(Xd, cfg.k)
+            if self._stats is not None:
+                # carry the running statistics; the bounds restart per
+                # batch (new points have no history to bound against)
+                state = dataclasses.replace(state, stats=self._stats)
+            plan = resolve_plan(cfg.kernel_backend, b=int(X.shape[0]),
+                                k=cfg.k, d=int(X.shape[1]),
+                                device=self.device, bounds=cfg.bounds)
+            new_state, info = rounds.nested_round(
+                Xd, state, b=int(X.shape[0]), rho=cfg.rho,
+                bounds=cfg.bounds, capacity=None, use_shalf=cfg.use_shalf,
+                plan=plan)
+            hinfo = fetch_round_info(info)
+            self._stats = new_state.stats
+            if self._outcome is not None:
+                self._outcome_stale = True
+            rec = Telemetry.from_round(
+                hinfo, round=len(self.telemetry_),
+                t=t_prev + time.perf_counter() - t0)
+            self.telemetry_.append(rec)
+            if self.on_round:
+                self.on_round(rec)
+            return self
+
+    # -- fitted attributes --------------------------------------------------
+
+    def _require_fitted(self) -> ClusterStats:
+        stats = self._stats
+        if stats is None:
+            raise NotFittedError("call fit() or partial_fit() first")
+        return stats
+
+    @property
+    def cluster_centers_(self) -> np.ndarray:
+        return self._require_fitted().C.cpu().numpy()
+
+    @property
+    def counts_(self) -> np.ndarray:
+        """Per-cluster membership counts v (codebook occupancy)."""
+        return self._require_fitted().v.cpu().numpy()
+
+    def _require_fresh_outcome(self, what: str) -> FitOutcome:
+        if self._outcome is None:
+            raise NotFittedError(f"{what} requires a full fit()")
+        if self._outcome_stale:
+            raise NotFittedError(
+                f"{what} is stale: partial_fit() has moved the centroids "
+                f"since fit(); use predict(X) for fresh assignments")
+        return self._outcome
+
+    @property
+    def labels_(self) -> np.ndarray:
+        """Assignments of the fitted data, in the caller's row order
+        (-1 = row never entered the nested batch)."""
+        self._require_fitted()
+        return self._require_fresh_outcome("labels_").labels
+
+    @property
+    def inertia_(self) -> float:
+        self._require_fitted()
+        for rec in reversed(self.telemetry_):
+            if rec.batch_mse is not None:
+                return rec.batch_mse
+        return float("nan")
+
+    @property
+    def converged_(self) -> bool:
+        return self._outcome.converged if self._outcome else False
+
+    @property
+    def n_rounds_(self) -> int:
+        return len(self.telemetry_)
+
+    @property
+    def outcome_(self) -> FitOutcome:
+        self._require_fitted()
+        return self._require_fresh_outcome("outcome_")
+
+    @property
+    def final_mse_(self) -> float:
+        return final_val_mse(self.telemetry_)
+
+    # -- inference ----------------------------------------------------------
+
+    def _on_device(self, X) -> torch.Tensor:
+        if isinstance(X, torch.Tensor):
+            return X.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
+
+    def predict(self, X) -> np.ndarray:
+        """Nearest-centroid index (int32) for each row of ``X``."""
+        stats = self._require_fitted()
+        Xd = self._on_device(X).float()
+        plan = resolve_plan(self.config.kernel_backend, b=Xd.shape[0],
+                            k=stats.C.shape[0], d=Xd.shape[1],
+                            device=self.device)
+        a, _, _ = ops.assign_top2(Xd, stats.C, plan=plan)
+        return a.cpu().numpy()
+
+    def transform(self, X) -> np.ndarray:
+        """Euclidean distance of each row to every centroid: (n, k)."""
+        stats = self._require_fitted()
+        d2 = ref.pairwise_dist2(self._on_device(X), stats.C)
+        return torch.sqrt(torch.clamp_min(d2, 0.0)).cpu().numpy()
+
+    def score(self, X) -> float:
+        """Negative inertia (-sum of squared distances), sklearn-style."""
+        stats = self._require_fitted()
+        Xd = self._on_device(X)
+        return -float(full_mse(Xd, stats.C)) * int(Xd.shape[0])

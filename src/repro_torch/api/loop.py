@@ -1,0 +1,211 @@
+"""The host control loop: growth schedule, capacity bucketing, overflow
+retry and convergence patience.
+
+Port of `repro/api/loop.py::run_loop` for one process. Every per-round
+decision branches only on `HostRoundInfo`, the round's scalars landed on
+the host by `fetch_round_info` in ONE transfer per round (one per
+overflow attempt), or on the resolved config. In-loop checkpoints and
+tracing are not ported yet: a config that sets ``checkpoint`` or
+``trace_dir`` is refused (ROADMAP Queue 1 items 6 and 8), as are the
+algorithms and backends other than tb on "local".
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import FitConfig
+from repro_torch.api.engines.base import EngineRun
+from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
+from repro_torch.core.rounds import PORTED_BOUNDS, not_ported
+from repro_torch.core.state import KMeansState, RoundInfo
+from repro_torch.kernels.plan import next_pow2
+
+
+def check_ported(config: FitConfig) -> None:
+    """Raise `NotImplementedError` for a resolved config this slice of
+    the port cannot run yet."""
+    if config.algorithm != "tb":
+        raise not_ported(f"algorithm={config.algorithm!r}")
+    if config.bounds not in PORTED_BOUNDS:
+        raise not_ported(f"bounds={config.bounds!r}")
+    if config.backend != "local":
+        raise NotImplementedError(
+            f"backend={config.backend!r} is not ported to repro_torch yet "
+            f"(ROADMAP Queue 1 item 9)")
+    if config.checkpoint is not None or config.data_source is not None:
+        raise NotImplementedError(
+            "checkpoints and chunk stores are not ported to repro_torch "
+            "yet (ROADMAP Queue 1 item 6)")
+    if config.trace_dir is not None:
+        raise NotImplementedError(
+            "tracing is not ported to repro_torch yet (ROADMAP Queue 1 "
+            "item 8)")
+
+
+# --------------------------------------------------------------------------
+# the ONE steady-state device->host crossing
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HostRoundInfo:
+    """`RoundInfo` landed on the host: plain Python scalars."""
+    batch_mse: float
+    n_changed: int
+    n_recomputed: int
+    n_active: int
+    overflow: bool
+    grow: bool
+    r_median: float
+    p_max: float
+
+
+_FIELDS = [f.name for f in dataclasses.fields(RoundInfo)]
+
+
+def fetch_round_info(info: RoundInfo) -> HostRoundInfo:
+    """Land the round's scalars on the host in ONE transfer.
+
+    The scalars are stacked as float64 (exact for the f32 floats and the
+    int32 counts) and copied with one ``.cpu()``, which also waits for
+    the round to finish.
+    """
+    host = torch.stack([getattr(info, f).to(torch.float64)
+                        for f in _FIELDS]).cpu().tolist()
+    v = dict(zip(_FIELDS, host))
+    return HostRoundInfo(
+        batch_mse=v["batch_mse"], n_changed=int(v["n_changed"]),
+        n_recomputed=int(v["n_recomputed"]), n_active=int(v["n_active"]),
+        overflow=bool(v["overflow"]), grow=bool(v["grow"]),
+        r_median=v["r_median"], p_max=v["p_max"])
+
+
+# --------------------------------------------------------------------------
+# result record
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FitOutcome:
+    """What a fit produces: centroids + full state + telemetry.
+
+    ``labels`` is in the CALLER's row order; ``-1`` marks rows the nested
+    batch never reached.
+    """
+    C: np.ndarray
+    state: KMeansState
+    labels: np.ndarray
+    telemetry: List[Telemetry]
+    converged: bool
+    algorithm: str
+    config: FitConfig
+    kernel_plan: Optional[Dict[str, Any]] = None
+
+    @property
+    def final_mse(self) -> float:
+        return final_val_mse(self.telemetry)
+
+
+# --------------------------------------------------------------------------
+# capacity policy
+# --------------------------------------------------------------------------
+
+def cap_bucket(need: int, b: int, floor: int) -> Optional[int]:
+    """Power-of-two capacity with 2x slack; None == recompute everything."""
+    cap = max(floor, next_pow2(2 * max(need, 1)))
+    return None if cap >= b else cap
+
+
+# --------------------------------------------------------------------------
+# the host loop
+# --------------------------------------------------------------------------
+
+def run_loop(run: EngineRun, config: FitConfig, *,
+             on_round: Optional[RoundCallback] = None) -> FitOutcome:
+    """Growth schedule + capacity bucketing + overflow retry + patience.
+
+    ``config`` must already be `resolve()`d (no alias algorithms).
+    """
+    check_ported(config)
+    bounds = config.bounds
+    state = run.state
+    b = run.b
+    capacity: Optional[int] = None
+    telemetry: List[Telemetry] = []
+    t_work = 0.0
+    quiet_rounds = 0
+    converged = False
+
+    def record(hinfo: HostRoundInfo) -> None:
+        val_mse = None
+        if len(telemetry) % config.eval_every == 0:
+            val_mse = run.eval_mse(state)
+        rec = Telemetry.from_round(hinfo, round=len(telemetry), t=t_work,
+                                   val_mse=val_mse)
+        telemetry.append(rec)
+        if on_round:
+            on_round(rec)
+
+    for _ in range(config.max_rounds):
+        if math.isfinite(config.time_budget_s) \
+                and t_work >= config.time_budget_s:
+            break
+        t0 = time.perf_counter()
+        while True:
+            new_state, info = run.nested_step(state, b, capacity)
+            hinfo = fetch_round_info(info)
+            if not hinfo.overflow:
+                break
+            # overflow retry: same input state, doubled bucket —
+            # exactness is never traded for speed
+            capacity = (None if capacity is None or 2 * capacity >= b
+                        else 2 * capacity)
+        t_work += time.perf_counter() - t0
+        state = new_state
+        record(hinfo)
+
+        if bounds == "hamerly2":
+            need = -(-hinfo.n_recomputed // run.n_shards)
+            if hinfo.grow and b < run.b_max:
+                # a doubling adds b new points that always need a full
+                # pass: start the grown bucket dense
+                capacity = None
+            else:
+                capacity = cap_bucket(need, b, config.capacity_floor)
+        if hinfo.grow:
+            b = min(2 * b, run.b_max)
+        if (hinfo.n_active >= run.n_active_target
+                and hinfo.n_changed == 0 and hinfo.p_max == 0.0):
+            quiet_rounds += 1
+        else:
+            quiet_rounds = 0
+        if quiet_rounds >= config.converge_patience:
+            converged = True
+            break
+
+    # final validation point, unless the last round already evaluated
+    if not (telemetry and telemetry[-1].val_mse is not None):
+        final = run.eval_mse(state)
+        if final is not None:
+            telemetry.append(Telemetry(
+                round=len(telemetry), t=t_work,
+                b=min(b * run.n_shards, run.n_points), batch_mse=None,
+                n_changed=0, n_recomputed=0, grow=False, r_median=None,
+                val_mse=final))
+
+    # un-shuffle the final assignments back to the caller's row order
+    a = run.host_points(state)
+    labels = np.full(run.n_points, -1, np.int32)
+    valid = run.orig_index >= 0
+    labels[run.orig_index[valid]] = a[valid]
+
+    stats = run.fetch_stats(state)
+    plan = run.kernel_plan
+    return FitOutcome(C=stats.C.cpu().numpy(), state=state, labels=labels,
+                      telemetry=telemetry, converged=converged,
+                      algorithm=config.algorithm, config=config,
+                      kernel_plan=plan.to_dict() if plan else None)

@@ -1,0 +1,76 @@
+"""Synthetic stand-ins for the paper's datasets.
+
+The port's own copy of `repro/data/synthetic.py` (`infmnist_like`,
+`gaussian_blobs`), so the port and `chip_smoke.py` make data without
+importing the JAX package. Same seeds, same numbers.
+
+* ``infmnist_like``  — dense 784-d: k* prototype "digits" (smooth random
+  blobs) + per-sample smooth deformation fields + pixel noise, matching
+  the generative recipe of Loosli et al.'s infinite-MNIST.
+* ``gaussian_blobs`` — a simple mixture for tests.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def _prototypes(rng: np.random.Generator, k: int, side: int = 28
+                ) -> np.ndarray:
+    """Smooth random 'digit' prototypes on a side x side grid."""
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
+    protos = np.zeros((k, side, side), np.float32)
+    for i in range(k):
+        n_strokes = rng.integers(2, 5)
+        img = np.zeros((side, side), np.float32)
+        for _ in range(n_strokes):
+            cx, cy = rng.uniform(0.2, 0.8, 2)
+            sx, sy = rng.uniform(0.05, 0.25, 2)
+            th = rng.uniform(0, np.pi)
+            dx, dy = xx - cx, yy - cy
+            rx = dx * np.cos(th) + dy * np.sin(th)
+            ry = -dx * np.sin(th) + dy * np.cos(th)
+            img += np.exp(-(rx ** 2 / (2 * sx ** 2)
+                            + ry ** 2 / (2 * sy ** 2)))
+        protos[i] = img / max(img.max(), 1e-6)
+    return protos
+
+
+def infmnist_like(n: int, *, n_classes: int = 10, seed: int = 0,
+                  side: int = 28, deform: float = 1.5,
+                  noise: float = 0.05, chunk: int = 50_000) -> np.ndarray:
+    """(n, side*side) f32 deformed-prototype images in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    protos = _prototypes(rng, n_classes, side)
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32)
+    out = np.empty((n, side * side), np.float32)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        m = hi - lo
+        cls = rng.integers(0, n_classes, m)
+        # smooth per-sample deformation: low-freq sin/cos displacement
+        ph = rng.uniform(0, 2 * np.pi, (m, 4)).astype(np.float32)
+        amp = rng.uniform(0, deform, (m, 2)).astype(np.float32)
+        fx = (xx[None] + amp[:, 0, None, None]
+              * np.sin(yy[None] / side * 2 * np.pi + ph[:, 0, None, None]))
+        fy = (yy[None] + amp[:, 1, None, None]
+              * np.sin(xx[None] / side * 2 * np.pi + ph[:, 1, None, None]))
+        xi = np.clip(fx, 0, side - 1).astype(np.int32)
+        yi = np.clip(fy, 0, side - 1).astype(np.int32)
+        img = protos[cls][np.arange(m)[:, None, None], yi, xi]
+        img += noise * rng.standard_normal((m, side, side)).astype(
+            np.float32)
+        out[lo:hi] = np.clip(img, 0, 1).reshape(m, -1)
+    return out
+
+
+def gaussian_blobs(n: int, *, k: int = 50, dim: int = 64,
+                   spread: float = 5.0, seed: int = 0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Simple mixture (data, true_centers) for tests."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k, dim)).astype(np.float32) * spread
+    X = (centers[rng.integers(0, k, n)]
+         + rng.normal(size=(n, dim)).astype(np.float32))
+    return X.astype(np.float32), centers

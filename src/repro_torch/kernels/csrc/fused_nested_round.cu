@@ -1,0 +1,62 @@
+// One dense nested round over the prefix x (b, d): top-2 assignment, the
+// caller's keep-select, the signed delta S/v and the per-cluster sse.
+//
+// Replaces repro/kernels/fused_round.py::fused_nested_round_pallas (body
+// _nested_kernel). Outputs, as there: a_new (-1 on invalid rows), d_new
+// and lb_new (euclidean; kept rows pass d_keep / lb_keep through), dS
+// (k, d) and dv (k) with +1 at a_new for joins and new rows and -1 at
+// a_prev for leaves, and sse (k) = sum of d_new^2 at a_new over every
+// valid row, kept rows too.
+//
+// The TPU kernel keeps the whole (k_pad, d) centroid block in VMEM and
+// folds dS into a second MXU matmul of a signed coefficient matrix. On
+// the H100 a block has 227 KB of shared memory, which holds k=50, d=784
+// in f32 (157 KB) but not k_pad=128 nor large k*d, so the centroids are
+// tiled over k exactly as in assign_top2 (common.cuh), with the keep
+// select and sqrt in the row epilogue. Each row then adds at most two
+// signed rows of x to dS: that is the deterministic chunked scatter of
+// cluster_sum, reading x again only for rows that join, leave or are new.
+// Grid pad rows do not exist (rows beyond b are never touched) and
+// invalid rows add nothing. No float atomics.
+//
+// Bound on the H100: as assign_top2, 2*b*k*d f32 FMA work (31.4 GFLOP,
+// 0.47 ms at b=400,000, d=784, k=50) against one read of x (1.25 GB,
+// 0.37 ms): compute bound. The second read of x for the delta rows is
+// what this design pays beyond the TPU kernel's single pass.
+#include "common.cuh"
+
+// cn: scratch of k floats; partial: scratch of n_chunks * (k*d + 2k)
+// floats, n_chunks = ceil(n / chunk_rows); out: k*d + 2k floats, dS, dv,
+// then sse. settled and valid are bytes (torch.bool).
+extern "C" int fused_nested_round_f32(
+    const void* x, const void* c, const void* a_prev, const void* settled,
+    const void* d_keep, const void* lb_keep, const void* valid, void* a_new,
+    void* d_new, void* lb_new, void* cn, void* partial, void* out, int n,
+    int k, int d, int chunk_rows, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  nkm::NestedArgs nest{static_cast<const int*>(a_prev),
+                       static_cast<const uint8_t*>(settled),
+                       static_cast<const float*>(d_keep),
+                       static_cast<const float*>(lb_keep),
+                       static_cast<const uint8_t*>(valid),
+                       static_cast<int*>(a_new),
+                       static_cast<float*>(d_new),
+                       static_cast<float*>(lb_new)};
+  nkm::launch_assign<float, true>(static_cast<const float*>(x),
+                                  static_cast<const float*>(c),
+                                  static_cast<float*>(cn), n, k, d,
+                                  nkm::Top2Out{}, nest, s);
+  nkm::ScatterArgs p{};
+  p.x = static_cast<const float*>(x);
+  p.n = n;
+  p.k = k;
+  p.d = d;
+  p.a_prev = static_cast<const int*>(a_prev);
+  p.a_new = static_cast<const int*>(a_new);
+  p.d_new = static_cast<const float*>(d_new);
+  p.partial = static_cast<float*>(partial);
+  p.chunk_rows = chunk_rows;
+  p.stride = k * d + 2 * k;
+  nkm::launch_scatter<nkm::SCATTER_NESTED>(p, static_cast<float*>(out), s);
+  return static_cast<int>(cudaGetLastError());
+}

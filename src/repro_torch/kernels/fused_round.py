@@ -1,0 +1,104 @@
+"""The fused dense nested round: the CUDA kernel's wrapper and its plain
+version.
+
+Port of `repro/kernels/fused_round.py`: `fused_nested_round_pallas` (the
+kernel is ``csrc/fused_nested_round.cu``) and `fused_nested_round_ref`.
+The one-shot `fused_round_pallas` is not ported yet.
+
+Both take the prefix x (b, d), the centroids c (k, d), the previous
+assignment a_prev (b,) int32, the caller's ``settled`` mask, the retained
+euclidean distance ``d_keep`` and decayed lower bound ``lb_keep`` of the
+settled rows, and the ``valid`` row mask, and return (a_new, d_new,
+lb_new, dS, dv, sse): -1 / 0 / 0 on invalid rows, the signed delta of the
+cluster sums and counts (+1 at a_new for joins and new rows, -1 at a_prev
+for leaves), and the per-cluster sum of d_new^2 over every valid row.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.plan import chunk_rows
+
+#: launches of the CUDA kernel in this process
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    return _build.bind("fused_nested_round", "fused_nested_round_f32", 13, 4)
+
+
+def fused_nested_round_cuda(x, c, a_prev, settled, d_keep, lb_keep, valid):
+    """The fused round on the card (f32 x and c; bool masks)."""
+    global launches
+    dev = _build.require_cuda(x, c, a_prev, settled, d_keep, lb_keep, valid)
+    if x.dtype != torch.float32 or c.dtype != torch.float32 \
+            or a_prev.dtype != torch.int32 \
+            or settled.dtype != torch.bool or valid.dtype != torch.bool \
+            or d_keep.dtype != torch.float32 \
+            or lb_keep.dtype != torch.float32:
+        raise TypeError("fused_nested_round takes f32 x, c, d_keep, "
+                        "lb_keep, int32 a_prev and bool settled, valid")
+    n, d = x.shape
+    k = c.shape[0]
+    if c.shape != (k, d) or k < 1 or any(
+            t.shape != (n,) for t in (a_prev, settled, d_keep, lb_keep,
+                                      valid)):
+        raise ValueError(f"bad shapes x {tuple(x.shape)}, c "
+                         f"{tuple(c.shape)}")
+    a_new = torch.empty(n, dtype=torch.int32, device=dev)
+    d_new = torch.empty(n, dtype=torch.float32, device=dev)
+    lb_new = torch.empty(n, dtype=torch.float32, device=dev)
+    out = torch.zeros(k * d + 2 * k, dtype=torch.float32, device=dev)
+    if n > 0:
+        rows = chunk_rows(n)
+        n_chunks = -(-n // rows)
+        cn = torch.empty(k, dtype=torch.float32, device=dev)
+        partial = torch.empty(n_chunks * (k * d + 2 * k),
+                              dtype=torch.float32, device=dev)
+        err = _fn()(x.data_ptr(), c.data_ptr(), a_prev.data_ptr(),
+                    settled.data_ptr(), d_keep.data_ptr(),
+                    lb_keep.data_ptr(), valid.data_ptr(), a_new.data_ptr(),
+                    d_new.data_ptr(), lb_new.data_ptr(), cn.data_ptr(),
+                    partial.data_ptr(), out.data_ptr(), n, k, d, rows,
+                    _build.stream(dev))
+        _build.check(err, "fused_nested_round", "fused_nested_round_f32")
+        launches += 1
+    kd = k * d
+    return (a_new, d_new, lb_new, out[:kd].view(k, d), out[kd:kd + k],
+            out[kd + k:])
+
+
+def fused_nested_round_ref(x, c, a_prev, settled, d_keep, lb_keep, valid):
+    """Plain version, op for op the unfused round path."""
+    k = c.shape[0]
+    af, d1sq, d2sq = ref.assign_top2_ref(x, c)
+    d1 = torch.sqrt(torch.clamp_min(d1sq, 0.0))
+    d2 = torch.sqrt(torch.clamp_min(d2sq, 0.0))
+    settled = settled.bool()
+    valid = valid.bool()
+    minus1 = torch.full_like(af, -1)
+    zero = torch.zeros_like(d1)
+    a_new = torch.where(valid, torch.where(settled, a_prev, af), minus1)
+    d_new = torch.where(valid, torch.where(settled, d_keep, d1), zero)
+    lb_new = torch.where(valid, torch.where(settled, lb_keep, d2), zero)
+    return (a_new, d_new, lb_new) + delta_sums(x, a_prev, a_new, d_new, k)
+
+
+def delta_sums(x, a_prev, a_new, d_new, k: int):
+    """(dS, dv, sse) of a nested round, plain: +x at a_new for joins and
+    new rows, -x at a_prev for leaves, d_new^2 at a_new for every row."""
+    seen = a_prev >= 0
+    changed = seen & (a_new != a_prev)
+    w_rm = changed.float()
+    w_add = ((changed | ~seen) & (a_new >= 0)).float()
+    S_rm, v_rm = ref.cluster_sum_ref(x, a_prev.clamp(0, k - 1), k,
+                                     weights=w_rm)
+    S_add, v_add = ref.cluster_sum_ref(x, a_new.clamp(0, k - 1), k,
+                                       weights=w_add)
+    _, sse = ref.cluster_sum_ref(x[:, :0], a_new.clamp(0, k - 1), k,
+                                 weights=d_new * d_new)
+    return S_add - S_rm, v_add - v_rm, sse

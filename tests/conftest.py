@@ -9,6 +9,9 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test, excluded from the scripts/ci_tier1.sh "
         "fast subset")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skips where there is none")
 
 
 @pytest.fixture(scope="session")

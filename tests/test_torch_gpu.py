@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here is marked ``gpu`` and skips where there is no CUDA
+device; the file imports no JAX, so it runs on a machine with a card and
+PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances are those of tests/test_kernels.py (f32 rtol 1e-5, bf16
+2e-2); labels may differ only where two distances tie within 100x the
+tolerance. Each kernel must also give the same bits twice.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fused_round, ops, ref
+
+SHAPES = [(64, 7, 5), (256, 32, 50), (300, 784, 50), (512, 128, 128),
+          (1000, 200, 257), (130, 9, 1), (4099, 784, 50)]
+TOL = {"f32": 1e-5, "bf16": 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(n, d, k, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    c = torch.from_numpy((rng.normal(size=(k, d)) * 2).astype(np.float32))
+    return x.to(device, dtype), c.to(device, dtype)
+
+
+def _assert_labels(a_got, a_want, d2m, tol):
+    diff = torch.nonzero(a_got != a_want)[:, 0]
+    gap = (d2m[diff, a_got[diff].long()] - d2m[diff, a_want[diff].long()])
+    assert bool((gap.abs() < tol * 100).all()), diff
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_assign_top2_kernel_matches_plain(cuda, n, d, k, dtype):
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, c = _inputs(n, d, k, n + k, cuda, tdt)
+    before = ops.launch_counts()["assign_top2"]
+    got = ops.assign_top2(x, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["assign_top2"] == before + 1
+    want = ref.assign_top2_ref(x, c)
+    tol = TOL[dtype]
+    assert got[0].dtype == torch.int32
+    torch.testing.assert_close(got[1], want[1], rtol=tol, atol=tol * 10)
+    torch.testing.assert_close(got[2], want[2], rtol=tol, atol=tol * 10)
+    _assert_labels(got[0], want[0], ref.pairwise_dist2(x, c), tol)
+    for g, a in zip(got, ops.assign_top2(x, c)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+def test_assign_top2_kernel_exact_ties(cuda):
+    x, c = _inputs(500, 16, 6, 11, cuda)
+    c[4] = c[1]
+    c[5] = c[1]
+    a, d1, d2 = ops.assign_top2(x, c)
+    assert not bool(torch.isin(a, torch.tensor([4, 5], device=cuda)).any())
+    won = a == 1
+    assert bool(won.any()) and torch.equal(d2[won], d1[won])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", SHAPES + [(3000, 0, 7)])
+def test_cluster_sum_kernel_matches_plain(cuda, n, d, k):
+    rng = np.random.default_rng(n + d + k)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    a = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], n).astype(
+        np.float32)).to(cuda)
+    got = ops.cluster_sum(x, a, k, weights=w)
+    want = ref.cluster_sum_ref(x, a, k, weights=w)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    again = ops.cluster_sum(x, a, k, weights=w)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", SHAPES + [(64, 129, 7)])
+def test_fused_nested_round_kernel_matches_plain(cuda, n, d, k):
+    rng = np.random.default_rng(n * 3 + k)
+    x, c = _inputs(n, d, k, n + k, cuda)
+    a_prev = rng.integers(-1, k, size=n).astype(np.int32)
+    host = (a_prev, (rng.random(n) < 0.3) & (a_prev >= 0),
+            rng.random(n).astype(np.float32),
+            rng.random(n).astype(np.float32), rng.random(n) < 0.9)
+    args = [x, c] + [torch.from_numpy(h).to(cuda) for h in host]
+    got = ops.fused_nested_round(*args)
+    want = fused_round.fused_nested_round_ref(*args)
+    _assert_labels(got[0], want[0], ref.pairwise_dist2(x, c), 1e-5)
+    for g, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    # the sums against the plain sums over the kernel's own labels (one
+    # may differ from the plain label at a tie)
+    sums = fused_round.delta_sums(x, args[2], got[0], got[1], k)
+    for g, w in zip(got[3:], sums):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
+    for g, a in zip(got, ops.fused_nested_round(*args)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+def test_fit_on_card_matches_cpu(cuda):
+    """A small fit through the kernels gives the labels and schedule of
+    the plain versions on the CPU, and the same bits twice."""
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.data.synthetic import gaussian_blobs
+    X, _ = gaussian_blobs(4000, k=8, dim=16, spread=5.0, seed=0)
+    cfg = FitConfig(k=8, b0=1000)
+    ops.reset_launch_counts()
+    gpu = NestedKMeans(cfg, device=cuda).fit(X)
+    assert all(n > 0 for n in ops.launch_counts().values())
+    cpu = NestedKMeans(cfg, device="cpu").fit(X)
+    np.testing.assert_array_equal(gpu.labels_, cpu.labels_)
+    np.testing.assert_array_equal(gpu.predict(X), cpu.predict(X))
+    np.testing.assert_allclose(gpu.cluster_centers_, cpu.cluster_centers_,
+                               rtol=1e-5, atol=1e-5)
+    again = NestedKMeans(cfg, device=cuda).fit(X)
+    assert np.array_equal(again.cluster_centers_, gpu.cluster_centers_)

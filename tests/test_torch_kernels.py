@@ -1,0 +1,218 @@
+"""The port's kernel layer against the JAX package.
+
+On the CPU: the port's plain versions (`repro_torch.kernels.ref`,
+`fused_round.fused_nested_round_ref`) against the JAX Pallas kernels in
+interpret mode and against the JAX oracles, on the same numpy inputs,
+at the tolerances of tests/test_kernels.py (f32 rtol 1e-5, bf16 2e-2;
+labels may differ only where two distances tie within tolerance). Plus
+the dispatch rules of `plan` and `ops`, and the rule that the port
+imports nothing of JAX or of the JAX package.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_gpu.py.
+"""
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.cluster_sum import cluster_sum_pallas
+from repro.kernels.fused_round import (fused_nested_round_pallas,
+                                       fused_nested_round_ref as jfused_ref)
+from repro.kernels.kmeans_assign import assign_top2_pallas
+from repro_torch.kernels import ops, plan as tplan
+from repro_torch.kernels import ref as tref
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+SHAPES = [
+    (64, 7, 5),          # tiny, heavy padding
+    (256, 32, 50),       # paper k
+    (300, 784, 50),      # infMNIST dims, unaligned n
+    (512, 128, 128),     # aligned everything
+    (1000, 200, 257),    # k crosses one block boundary
+    (130, 9, 1),         # k == 1: second distance is +inf
+]
+TOL = {"f32": 1e-5, "bf16": 2e-2}
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().float().numpy() if t.is_floating_point() \
+            else t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _inputs(n, d, k, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    c = (rng.normal(size=(k, d)) * 2).astype(np.float32)
+    return x, c
+
+
+def _assert_labels(a_got, a_want, d2m, tol):
+    """Labels equal, except where the two picks tie within tolerance."""
+    a_got, a_want, d2m = _np(a_got), _np(a_want), _np(d2m)
+    assert a_got.dtype == np.int32 or a_got.dtype == a_want.dtype
+    for i in np.where(a_got != a_want)[0]:
+        assert abs(d2m[i, a_got[i]] - d2m[i, a_want[i]]) < tol * 100, i
+
+
+def _assert_top2(got, want, d2m, tol):
+    a_g, d1_g, d2_g = got
+    a_w, d1_w, d2_w = want
+    np.testing.assert_allclose(_np(d1_g), _np(d1_w), rtol=tol, atol=tol * 10)
+    np.testing.assert_allclose(_np(d2_g), _np(d2_w), rtol=tol, atol=tol * 10)
+    _assert_labels(a_g, a_w, d2m, tol)
+
+
+# -- plain versions against JAX ----------------------------------------------
+
+@pytest.mark.parametrize("n,d,k", SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_assign_top2_matches_jax(n, d, k, dtype):
+    x, c = _inputs(n, d, k, n + d + k)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    xj, cj = jnp.asarray(x, jdt), jnp.asarray(c, jdt)
+    xt, ct = torch.from_numpy(x).to(tdt), torch.from_numpy(c).to(tdt)
+    got = ops.assign_top2(xt, ct)
+    assert got[0].dtype == torch.int32
+    assert got[1].dtype == got[2].dtype == torch.float32
+    tol = TOL[dtype]
+    d2m = jref.pairwise_dist2(xj, cj)
+    _assert_top2(got, assign_top2_pallas(xj, cj, bn=128, bk=128,
+                                         interpret=True), d2m, tol)
+    _assert_top2(got, jref.assign_top2_ref(xj, cj), d2m, tol)
+    if k == 1:
+        assert np.all(np.isinf(_np(got[2])))
+
+
+def test_assign_top2_exact_ties():
+    """Duplicate centroids: the lower index wins, and the 2nd-min is the
+    tied value (a duplicate of the min counts)."""
+    x, c = _inputs(200, 16, 6, 11)
+    c[4] = c[1]
+    c[5] = c[1]
+    got = ops.assign_top2(torch.from_numpy(x), torch.from_numpy(c))
+    want = jref.assign_top2_ref(jnp.asarray(x), jnp.asarray(c))
+    np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
+    np.testing.assert_allclose(_np(got[1]), _np(want[1]), rtol=1e-5,
+                               atol=1e-4)
+    won_dup = _np(got[0]) == 1
+    assert won_dup.any() and not np.isin(_np(got[0]), [4, 5]).any()
+    np.testing.assert_array_equal(_np(got[2])[won_dup], _np(got[1])[won_dup])
+    np.testing.assert_allclose(_np(got[2]), _np(want[2]), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("n,d,k", SHAPES)
+def test_cluster_sum_matches_jax(n, d, k):
+    rng = np.random.default_rng(n * 7 + d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    a = rng.integers(0, k, n).astype(np.int32)
+    w = rng.choice([-1.0, 0.0, 1.0], n).astype(np.float32)
+    s_t, v_t = ops.cluster_sum(torch.from_numpy(x), torch.from_numpy(a), k,
+                               weights=torch.from_numpy(w))
+    xj, aj, wj = jnp.asarray(x), jnp.asarray(a), jnp.asarray(w)
+    kp = k + (-k % 128)
+    s_p, v_p = cluster_sum_pallas(xj, aj, kp, weights=wj, bn=128, bd=128,
+                                  interpret=True)
+    s_r, v_r = jref.cluster_sum_ref(xj, aj, k, weights=wj)
+    for s_w, v_w in ((s_p[:k], v_p[:k]), (s_r, v_r)):
+        np.testing.assert_allclose(_np(s_t), _np(s_w), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(_np(v_t), _np(v_w), rtol=1e-5, atol=1e-5)
+
+
+def _nested_inputs(n, d, k, seed):
+    rng = np.random.default_rng(seed)
+    x, c = _inputs(n, d, k, seed + 1)
+    a_prev = rng.integers(-1, k, size=n).astype(np.int32)
+    settled = (rng.random(n) < 0.3) & (a_prev >= 0)
+    d_keep = rng.random(n).astype(np.float32)
+    lb_keep = rng.random(n).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    return x, c, a_prev, settled, d_keep, lb_keep, valid
+
+
+@pytest.mark.parametrize("n,d,k", [(64, 7, 5), (300, 784, 50),
+                                   (1000, 200, 257), (64, 129, 7),
+                                   (100, 16, 1)])
+def test_fused_nested_round_matches_jax(n, d, k):
+    """Keep-select, -1 on invalid rows, signed delta S/v and sse over
+    every valid row, against the Pallas kernel and the JAX oracle."""
+    args = _nested_inputs(n, d, k, n * 3 + k)
+    got = ops.fused_nested_round(*[torch.from_numpy(a) for a in args])
+    jargs = [jnp.asarray(a) for a in args]
+    d2m = jref.pairwise_dist2(jargs[0], jargs[1])
+    for want in (fused_nested_round_pallas(*jargs, bn=64, interpret=True),
+                 jfused_ref(*jargs)):
+        _assert_labels(got[0], want[0], d2m, 1e-5)
+        np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
+        for g, w in zip(got[1:3], want[1:3]):
+            np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(_np(got[3]), _np(want[3]), rtol=1e-4,
+                                   atol=1e-3)
+        np.testing.assert_allclose(_np(got[4]), _np(want[4]), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(_np(got[5]), _np(want[5]), rtol=1e-4,
+                                   atol=1e-3)
+    invalid = ~args[6]
+    assert np.all(_np(got[0])[invalid] == -1)
+    keep = args[3] & args[6]
+    np.testing.assert_array_equal(_np(got[0])[keep], args[2][keep])
+    np.testing.assert_array_equal(_np(got[1])[keep], args[4][keep])
+
+
+# -- dispatch ----------------------------------------------------------------
+
+def test_resolve_plan_rules():
+    p = tplan.resolve_plan(None, b=1000, k=13, d=5, device="cpu")
+    assert p.backend == "ref" and p.bucket == (1024, 16, 8)
+    assert tplan.resolve_plan("ref", b=8, k=2, d=2, device="cpu"
+                              ).backend == "ref"
+    with pytest.raises(ValueError, match="CUDA device"):
+        tplan.resolve_plan("cuda", b=8, k=2, d=2, device="cpu")
+    with pytest.raises(ValueError, match="unknown kernel_backend"):
+        tplan.resolve_plan("pallas", b=8, k=2, d=2, device="cpu")
+    assert p.to_dict() == {"backend": "ref", "bucket": [1024, 16, 8],
+                           "family": "unset"}
+    assert hash(p) == hash(tplan.KernelPlan("ref", (1024, 16, 8)))
+    assert [tplan.chunk_rows(n) for n in (1, 5000, 400_000, 2 ** 20)] == \
+        [256, 256, 2048, 4096]
+
+
+def test_ops_take_plain_versions_on_cpu():
+    """A CPU tensor takes the plain version even under a "cuda" plan, and
+    no kernel launch is counted."""
+    ops.reset_launch_counts()
+    x, c = _inputs(50, 6, 3, 0)
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    cuda_plan = tplan.KernelPlan("cuda", (64, 4, 8))
+    a, _, _ = ops.assign_top2(xt, ct, plan=cuda_plan)
+    torch.testing.assert_close(a, tref.assign_top2_ref(xt, ct)[0])
+    ops.cluster_sum(xt, a, 3, plan=cuda_plan)
+    assert ops.launch_counts() == {"assign_top2": 0, "cluster_sum": 0,
+                                   "fused_nested_round": 0}
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 15
+    bad = [(f.relative_to(REPO).as_posix(), m) for f in files
+           for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == []
