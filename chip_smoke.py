@@ -5,9 +5,9 @@
 
 Phases (each raises on failure, so any fault exits non-zero):
   1. the device: name, count, and nvidia-smi's name and power limit;
-  2. build every CUDA kernel of the path from ``src/repro_torch/kernels/
-     csrc`` (one nvcc per source, in parallel), printing the build time
-     and ptxas's registers / shared memory / spills per kernel;
+  2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+     nvcc per source, in parallel), printing the build time and ptxas's
+     registers / shared memory / spills per kernel;
   3. hold each kernel against its plain PyTorch version on the card, on
      inputs made from a numpy seed: at the main-path shape (n=400,000,
      d=784, k=50), at k=1, k=257 and an unaligned n, kernel 1 also in
@@ -15,9 +15,9 @@ Phases (each raises on failure, so any fault exits non-zero):
      (atol 1e-4), bf16 rtol 2e-2; labels may differ only where the two
      distances tie within 100x the tolerance. Sums over many rows are
      held to their rtol (1e-5 for cluster_sum, 1e-4 for the fused
-     round's sums, as tests/test_kernels.py holds them) relative to their
+     rounds' sums, as tests/test_kernels.py holds them) relative to their
      L1 mass (sum of |w x| per entry), the scale of f32 rounding in a
-     sum of that many terms;
+     sum of that many terms. Each kernel must give the same bits twice;
   4. the main path at full size: ``NestedKMeans(FitConfig(k=50, b0=5000,
      algorithm="tb", rho=inf, bounds="hamerly2")).fit`` on 400,000
      ``infmnist_like`` rows (the paper's infMNIST experiment) with 10,000
@@ -29,7 +29,20 @@ Phases (each raises on failure, so any fault exits non-zero):
   5. time each kernel at its main-path shape with CUDA events after a
      warm-up, beside its plain version, one PyTorch library call where
      one computes the same function, and its bound on an H100 SXM (the
-     larger of bytes over 3.35 TB/s and f32 operations over 67 TFLOP/s).
+     larger of bytes over 3.35 TB/s and f32 operations over 67 TFLOP/s);
+  6. the kmeans_xl data-parallel round at full width on one card's share
+     of the rows: n=2^22 (2^30 points over 256 chips), d=1024, k=4096,
+     f32, Gaussian blobs made on the card. Kernel 4 (the one-shot round)
+     is held against its plain version as in phase 3 on the last 65,536
+     rows, and its sums over all rows against plain sums taken in row
+     chunks. Then, with the launch counts set to 0 just before and read
+     just after: ``make_dp_round(mesh=None, fused=True)`` runs 3 Lloyd
+     steps (the batch MSE may not rise beyond 1e-6 relative), two steps
+     under a one-rank NCCL `DeviceMesh` must give the same bits as
+     ``mesh=None``, and one unfused step (kernels 1 and 2) must give the
+     same labels but for near-ties and C within 1e-4 relative. Last,
+     kernel 4 is timed at that shape (mean of 3 after a warm-up) beside
+     its plain version on a 2^18-row slice and its bound.
 
 The last two lines are a JSON object of the kernels and the JSON result
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -38,6 +51,7 @@ no result.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import os
@@ -57,10 +71,14 @@ PEAK_BYTES_S = 3.35e12               # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12               # H100 SXM f32, no tensor cores
 TOL = {"f32": 1e-5, "bf16": 2e-2}
 DEV = "cuda"
+N_XL, D_XL, K_XL = 2 ** 22, 1024, 4096  # KMEANS_XL, one chip's rows
+XL_PLAIN_ROWS = 2 ** 18               # rows the plain round is run on
+XL_CHECK_ROWS = 65_536                # last rows whose top-2 is checked
 REPLACES = {
     "assign_top2": "src/repro/kernels/kmeans_assign.py:73",
     "cluster_sum": "src/repro/kernels/cluster_sum.py:56",
     "fused_nested_round": "src/repro/kernels/fused_round.py:225",
+    "fused_round": "src/repro/kernels/fused_round.py:78",
 }
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 
@@ -121,14 +139,15 @@ def _x_c(n, d, k, seed, dtype):
     return x.to(DEV, dtype), c.to(DEV, dtype)
 
 
-def _labels_ok(a_got, a_want, d2m, tol) -> int:
-    """Labels equal but for ties within 100x tol; returns the count of
-    tied rows that differ."""
+def _labels_ok(a_got, a_want, d2m, tol, relative=False) -> int:
+    """Labels equal but for ties within 100x tol (times the distance if
+    ``relative``); returns the count of tied rows that differ."""
     diff = torch.nonzero(a_got != a_want)[:, 0]
     if diff.numel():
-        gap = (d2m[diff, a_got[diff].long()]
-               - d2m[diff, a_want[diff].long()]).abs()
-        need(bool((gap < tol * 100).all()),
+        want = d2m[diff, a_want[diff].long()]
+        gap = (d2m[diff, a_got[diff].long()] - want).abs()
+        scale = want.abs().clamp_min(1.0) if relative else 1.0
+        need(bool((gap < tol * 100 * scale).all()),
              f"labels differ beyond a tie at {diff.numel()} rows")
     return int(diff.numel())
 
@@ -248,6 +267,64 @@ def check_fused(n, d, k) -> float:
     return e
 
 
+def _chunked_sums(x, a, d1, k, rows=XL_PLAIN_ROWS):
+    """Plain S, v, sse and the L1 mass of S over all rows of x by label
+    a, summed over row chunks (the plain version cannot take all rows of
+    the full-width round at once)."""
+    from repro_torch.kernels import ref
+    S = torch.zeros(k, x.shape[1], device=DEV)
+    mass = torch.zeros_like(S)
+    v = torch.zeros(k, device=DEV)
+    sse = torch.zeros(k, device=DEV)
+    for lo in range(0, x.shape[0], rows):
+        xs, al = x[lo:lo + rows], a[lo:lo + rows]
+        s, vv = ref.cluster_sum_ref(xs, al, k)
+        S += s
+        v += vv
+        mass += ref.cluster_sum_ref(xs.abs(), al, k)[0]
+        sse += ref.cluster_sum_ref(xs[:, :0], al, k,
+                                   weights=d1[lo:lo + rows])[1]
+    return S, v, sse, mass
+
+
+def check_fused_round(x, c, plain_rows=None) -> float:
+    """Kernel 4 against its plain version: the top-2 on the last
+    ``plain_rows`` rows (all rows if None), the sums over all rows."""
+    from repro_torch.kernels import fused_round
+    n, k = x.shape[0], c.shape[0]
+    got = fused_round.fused_round_cuda(x, c)
+    torch.cuda.synchronize()
+    lo = 0 if plain_rows is None else n - plain_rows
+    want = fused_round.fused_round_ref(x[lo:], c)
+    a, d1, d2 = (t[lo:] for t in got[:3])
+    need(a.dtype == torch.int32, "labels are not int32")
+    # the kernel's distances are the partial distance plus |x|^2, which
+    # is what the tie gap is measured in
+    pd = torch.mm(x[lo:], c.T).mul_(-2.0).add_((c * c).sum(1)).add_(
+        (x[lo:] * x[lo:]).sum(1)[:, None])
+    ties = _labels_ok(a, want[0], pd, TOL["f32"], relative=True)
+    del pd
+    e = _close(d1, want[1], TOL["f32"], 1e-4, "d1")
+    if k == 1:
+        need(bool(torch.isinf(d2).all()), "k=1: d2 is not +inf")
+    else:
+        e = max(e, _close(d2, want[2], TOL["f32"], 1e-4, "d2"))
+    # the sums against plain sums over the kernel's own labels (one may
+    # differ from the plain label at a tie, moving a whole row)
+    S, v, sse, mass = _chunked_sums(x, got[0], got[1], k)
+    for g, w, m, what in zip(got[3:], (S, v, sse), (mass, v, sse),
+                             ("S", "v", "sse")):
+        e = max(e, _mass_close(g, w, m, what, rtol=1e-4))
+    again = fused_round.fused_round_cuda(x, c)
+    need(all(torch.equal(g, a2) for g, a2 in zip(got, again)),
+         "fused_round is not deterministic")
+    rows = "all" if plain_rows is None else f"the last {plain_rows}"
+    log(f"    fused_round n={n} d={x.shape[1]} k={k} (top-2 on {rows} rows)"
+        f": max abs err {e:.3g}, tied labels {ties}, second run "
+        f"bit-identical")
+    return e
+
+
 def compare_phase() -> dict:
     log("[3] kernels against their plain versions on the card")
     err = {
@@ -262,23 +339,30 @@ def compare_phase() -> dict:
         check_cluster_sum(n, d, k)
         check_fused(n, d, k)
     check_cluster_sum(5000, 0, K)        # counts only
+    for n, d, k in ((4099, D, 1), (4099, D, 257), (777, 33, 50),
+                    (N, D, K)):
+        check_fused_round(*_x_c(n, d, k, 5 * n + k, torch.float32))
     return err
 
 
 # ---------------------------------------------------------------- phase 4
 
-def profile_report(prof, wall_s: float, wall_profiled_s: float) -> None:
-    """The profiled fit's device work (kernels and copies, each counted
+def profile_report(prof, wall_s: float, wall_profiled_s: float,
+                   what: str = "fit") -> None:
+    """The profiled run's device work (kernels and copies, each counted
     once: an operator's own entry would count its kernels again), its
-    share of the fit's wall time, and the host calls that took longest."""
+    share of the run's wall time, and the host calls that took longest.
+    ``wall_s`` is the wall time of the same run unprofiled."""
     events = prof.key_averages()
-    dev = sorted((e for e in events if str(e.device_type).endswith("CUDA")),
+    # a schedule's step span is a range on the device, not device work
+    dev = sorted((e for e in events if str(e.device_type).endswith("CUDA")
+                  and not e.key.startswith("ProfilerStep")),
                  key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     log(f"    profile: device busy {busy_ms:.1f} ms = "
-        f"{busy_ms / 10 / wall_profiled_s:.1f} % of the profiled fit's wall "
-        f"{wall_profiled_s:.2f} s ({busy_ms / 10 / wall_s:.1f} % of the "
-        f"unprofiled fit's {wall_s:.2f} s)")
+        f"{busy_ms / 10 / wall_profiled_s:.1f} % of the profiled {what}'s "
+        f"wall {wall_profiled_s:.2f} s ({busy_ms / 10 / wall_s:.1f} % of "
+        f"the unprofiled {what}'s {wall_s:.2f} s)")
     for e in dev[:12]:
         log(f"      device {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:7d}x  {e.key[:90]}")
@@ -328,8 +412,9 @@ def main_path_phase() -> dict:
         f"final val MSE {km.final_mse_!r}, wall {wall:.2f} s, peak device "
         f"memory {peak / 2 ** 30:.2f} GiB")
     log(f"    launches on the main path (fit + predict): {launches}")
-    for name, n in launches.items():
-        need(n > 0, f"{name} was never launched on the main path")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched on the main "
+             f"path")
 
     C = km.cluster_centers_
     need(C.shape == (K, D) and bool(np.isfinite(C).all()),
@@ -446,6 +531,166 @@ def timing_phase(X) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 6
+
+def xl_data(seed: int = 0):
+    """Gaussian blobs on the card, the recipe of ``gaussian_blobs``
+    (centres N(0, 5^2), unit noise): 4096 centres, then the labels, then
+    the noise, to which each row's centre is added in place, so the peak
+    stays near the 16 GiB of X. C0 is the first k rows (the paper's
+    init)."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    centres = torch.randn(K_XL, D_XL, generator=g, device=DEV) * 5.0
+    labels = torch.randint(0, K_XL, (N_XL,), generator=g, device=DEV)
+    X = torch.randn(N_XL, D_XL, generator=g, device=DEV)
+    for lo in range(0, N_XL, XL_PLAIN_ROWS):
+        X[lo:lo + XL_PLAIN_ROWS] += centres[labels[lo:lo + XL_PLAIN_ROWS]]
+    return X, X[:K_XL].clone()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _timed(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _near_ties(X, C, a_f, a_u) -> int:
+    """Rows whose two labels differ must be near-ties: their float64
+    distances to the two centroids within 1e-3 relative (100x the f32
+    rtol). Returns the count of such rows."""
+    diff = torch.nonzero(a_f != a_u)[:, 0]
+    if diff.numel():
+        x = X[diff].double()
+        df = ((x - C[a_f[diff].long()].double()) ** 2).sum(1)
+        du = ((x - C[a_u[diff].long()].double()) ** 2).sum(1)
+        need(bool(((df - du).abs() <= 1e-3 * df).all()),
+             f"fused and unfused labels differ beyond a near-tie at "
+             f"{diff.numel()} rows")
+    return int(diff.numel())
+
+
+def dp_round_phase(X, C0) -> dict:
+    """The data-parallel round at full width: 3 fused Lloyd steps, two
+    steps under a one-rank NCCL mesh, one unfused step; returns the
+    launch counts of that run."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import make_dp_round
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fused = make_dp_round(None, fused=True)
+    C, mses, walls = C0, [], []
+    # where the step's time goes: step 0 runs untraced, step 1 warms the
+    # tracer up, step 2 is traced and reported. A step launched at the
+    # very start of a trace lost its first kernels (the 1.3 s top-2
+    # among them) in some runs, so the traced step waits a moment first.
+    prof = profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=1, warmup=1, active=1),
+        on_trace_ready=lambda p: profile_report(p, walls[0], walls[2],
+                                                what="dp step"))
+    with prof:
+        for i in range(3):
+            if i == 2:
+                time.sleep(0.2)
+            out, wall = _timed(fused, X, C)
+            C_in, C = C, out[0]
+            mses.append(float(out[7]))
+            walls.append(wall)
+            need(C.shape == (K_XL, D_XL) and bool(torch.isfinite(C).all()),
+                 "dp round: centroids are not finite (k, d)")
+            need(out[3].shape == (N_XL,) and int(out[3].min()) >= 0
+                 and int(out[3].max()) < K_XL, "dp round: labels")
+            log(f"    fused dp step {i}: batch MSE {mses[-1]!r}, wall "
+                f"{wall:.3f} s")
+            prof.step()
+    for m0, m1 in zip(mses, mses[1:]):
+        need(m1 <= m0 * (1 + 1e-6), "the batch MSE rose in a Lloyd step")
+
+    # one rank over NCCL: the collective path must give the same bits
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh_step = make_dp_round(make_host_mesh((1,), ("data",)),
+                                  fused=True)
+        # the first collective also sets NCCL's communicator up
+        runs = [_timed(mesh_step, X, C_in) for _ in range(2)]
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(g, w) for on_mesh, _ in runs
+               for g, w in zip(on_mesh, out))
+    log(f"    one-rank NCCL mesh steps: wall {runs[0][1]:.3f} s (first, "
+        f"with NCCL's set-up), {runs[1][1]:.3f} s; bit-identical to "
+        f"mesh=None: {same}")
+    need(same, "the one-rank NCCL dp step differs from mesh=None")
+
+    unfused, wall_u = _timed(make_dp_round(None, fused=False), X, C_in)
+    ties = _near_ties(X, C_in, out[3], unfused[3])
+    moved = torch.unique(torch.cat([out[3][out[3] != unfused[3]],
+                                    unfused[3][out[3] != unfused[3]]]))
+    kept = torch.ones(K_XL, dtype=torch.bool, device=DEV)
+    kept[moved.long()] = False
+    rel = float(torch.linalg.norm(unfused[0] - out[0])
+                / torch.linalg.norm(out[0]))
+    log(f"    unfused dp step (kernels 1 + 2): wall {wall_u:.3f} s, labels "
+        f"differ at {ties} near-tied rows, C relative gap {rel:.3g}, "
+        f"C bit-identical on the {int(kept.sum())} clusters no such row "
+        f"touches")
+    need(rel <= 1e-4, "fused and unfused C differ beyond 1e-4 relative")
+    need(torch.equal(unfused[0][kept], out[0][kept]),
+         "fused and unfused C differ on clusters with the same rows")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"    launches on the dp path (3 fused + 2 mesh + 1 unfused step): "
+        f"{launches}; peak device memory {peak / 2 ** 30:.2f} GiB")
+    need(launches["fused_round"] > 0,
+         "fused_round was never launched on the dp path")
+    return launches
+
+
+def xl_phase() -> dict:
+    from repro_torch.kernels import fused_round
+    t0 = time.perf_counter()
+    X, C0 = xl_data()
+    torch.cuda.synchronize()
+    log(f"[6] kmeans_xl: X {tuple(X.shape)} f32 "
+        f"({X.numel() * 4 / 2 ** 30:.1f} GiB) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    err = check_fused_round(X, C0, plain_rows=XL_CHECK_ROWS)
+    launches = dp_round_phase(X, C0)
+
+    n, d, k = N_XL, D_XL, K_XL
+    b, how = bound(n * d * 4 + k * d * 4 + n * 12 + (k * d + 2 * k) * 4,
+                   2.0 * n * k * d + 1.0 * n * d)
+    xs = X[:XL_PLAIN_ROWS]
+    t = dict(
+        ms=time_ms(lambda: fused_round.fused_round_cuda(X, C0), iters=3),
+        plain_ms=time_ms(lambda: fused_round.fused_round_ref(xs, C0),
+                         iters=3),
+        library_ms=None, bound_ms=b, bound_by=how)
+    log(f"    fused_round at n={n} d={d} k={k}: kernel {t['ms']:.3f} ms "
+        f"(mean of 3 after a warm-up), bound {b:.3f} ms ({how}), "
+        f"{b / t['ms'] * 100:.1f} % of it; plain {t['plain_ms']:.3f} ms on "
+        f"a ({XL_PLAIN_ROWS}, {d}) slice, library n/a")
+    return {"err": err, "launches": launches, "times": t}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -458,10 +703,15 @@ def main() -> int:
     build_phase()
     errs = compare_phase()
     main = main_path_phase()
-    times = timing_phase(main["X"])
+    times = timing_phase(main.pop("X"))
+    xl = xl_phase()
+    # each kernel's launches come from the run of the path it serves
+    launches = dict(main["launches"], fused_round=xl["launches"][
+        "fused_round"])
+    errs["fused_round"] = xl["err"]
+    times["fused_round"] = xl["times"]
     kernels = [dict(name=name, route="cuda", source=SOURCE.format(name),
-                    replaces=REPLACES[name],
-                    launches=main["launches"][name],
+                    replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], **times[name])
                for name in REPLACES]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")

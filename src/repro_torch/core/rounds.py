@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import controller
+from repro_torch.core import collectives, controller
 from repro_torch.core.state import KMeansState, RoundInfo, centroid_update
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.plan import KernelPlan
@@ -55,8 +55,8 @@ def _half_intercentroid(C: torch.Tensor) -> torch.Tensor:
     return 0.5 * _euclid(torch.min(d2, dim=1).values)
 
 
-def _segment_scalar(vals: torch.Tensor, ids: torch.Tensor, k: int,
-                    plan: Optional[KernelPlan]) -> torch.Tensor:
+def segment_sum(vals: torch.Tensor, ids: torch.Tensor, k: int,
+                plan: Optional[KernelPlan] = None) -> torch.Tensor:
     """Per-cluster sum of a per-row scalar: the counts output of
     `ops.cluster_sum` over zero feature columns, weighted by ``vals``."""
     _, v = ops.cluster_sum(vals.new_empty((vals.shape[0], 0)),
@@ -83,7 +83,7 @@ def _delta_sv(x: torch.Tensor, a_prev: torch.Tensor, a_new: torch.Tensor,
 def _refresh_sse(d_act: torch.Tensor, a_act: torch.Tensor, k: int,
                  plan: Optional[KernelPlan]) -> torch.Tensor:
     """sse(j) = sum of d(i)^2 over active members (exact, no staleness)."""
-    return _segment_scalar(d_act * d_act, a_act, k, plan)
+    return segment_sum(d_act * d_act, a_act, k, plan)
 
 
 def _scalar(x, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
@@ -203,7 +203,8 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
                  rho: float, bounds: str = "hamerly2",
                  capacity: Optional[int] = None, use_shalf: bool = True,
                  plan: Optional[KernelPlan] = None,
-                 n_valid: Optional[int] = None
+                 n_valid: Optional[int] = None,
+                 mesh=None, data_axes: Tuple[str, ...] = ()
                  ) -> Tuple[KMeansState, RoundInfo]:
     """One gb/tb round over the nested prefix ``X[:b]``.
 
@@ -214,6 +215,13 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
     ``n_valid``: rows at positions >= n_valid are structural pads: held
     out of the assignment (``a == -1``), contributing nothing to
     S/v/sse/mse, and excluded from n_active/n_changed.
+
+    ``mesh`` and ``data_axes``: when each rank holds a slice of the
+    points, sharded over these named dims of a `DeviceMesh` (b is the
+    LOCAL prefix; the global batch is the union of the ranks' prefixes),
+    the S/v/sse deltas and the RoundInfo sums are all-reduced over them
+    before the stats update, so the replicated stats, and with them the
+    growth decision, are the same bits on every rank.
 
     ``plan``: the fit's `KernelPlan`. A "cuda" plan routes the dense
     shapes (gb, or tb with capacity covering the batch) through the fused
@@ -258,11 +266,14 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
         dS, dv = _delta_sv(x, a_prev, a_new, k, plan)
         sse = _refresh_sse(d_new, a_new, k, plan)
     mse_num = torch.sum(d_new * d_new)
-    mse_den = (_scalar(float(b), x, torch.float32) if valid is None
-               else valid.sum(dtype=torch.float32))
     n_changed = ((a_prev >= 0) & (a_new != a_prev)).sum(dtype=torch.int32)
     n_active = (_scalar(b, x) if valid is None
                 else valid.sum(dtype=torch.int32))
+    # the batch MSE's denominator is n_active: a count, reduced with the
+    # integers, where f32 would be exact only to 2^24 rows
+    dS, dv, sse, mse_num, n_changed, n_active, n_rec, overflow = \
+        collectives.psum((dS, dv, sse, mse_num, n_changed, n_active, n_rec,
+                          overflow), mesh, data_axes)
 
     stats = dataclasses.replace(state.stats, S=state.stats.S + dS,
                                 v=state.stats.v + dv, sse=sse)
@@ -278,7 +289,7 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
     points = dataclasses.replace(state.points, a=a_all, d=d_all, lb=lb_all)
 
     info = RoundInfo(
-        batch_mse=mse_num / torch.clamp_min(mse_den, 1.0),
+        batch_mse=mse_num / torch.clamp_min(n_active.float(), 1.0),
         n_changed=n_changed, n_recomputed=n_rec.to(torch.int32),
         n_active=n_active, overflow=overflow.to(torch.bool), grow=grow,
         r_median=r_med, p_max=torch.max(stats.p))

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("assign_top2", "cluster_sum", "fused_nested_round")
+SOURCES = ("assign_top2", "cluster_sum", "fused_nested_round",
+           "fused_round")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,14 @@
-// Device code shared by the three k-means kernels (sm_90a).
+// Device code shared by the four k-means kernels (sm_90a).
 //
-//  * assign_kernel<T, NESTED>: blocks of BM rows; each block walks k in
-//    tiles of BN centroids and keeps a running (min, 2nd-min, argmin)
+//  * assign_kernel<T, NESTED, PARTIAL>: blocks of BM rows; each block walks
+//    k in tiles of BN centroids and keeps a running (min, 2nd-min, argmin)
 //    per row in registers. The x.c products are full f32 FMAs on the CUDA
 //    cores (no TF32: the reference is f32), staged through shared memory
-//    in BK-wide feature slices, 4x4 outputs per thread. NESTED adds the
-//    nested round's keep-select and sqrt in the row epilogue.
+//    in BK-wide feature slices, 4x4 outputs per thread. The candidate is
+//    the ref expression max(|x|^2 - 2 x.c + |c|^2, 0), or with PARTIAL the
+//    one-shot round's partial distance |c|^2 - 2 x.c, to which the row
+//    epilogue adds |x|^2 and clamps (the two round differently at ties).
+//    NESTED adds the nested round's keep-select and sqrt in the epilogue.
 //  * scatter_partials<MODE> + reduce_chunks: a deterministic weighted
 //    per-cluster sum. Pass 1 splits the rows into chunks whose size is
 //    fixed by the row count (never by the device); each block owns one
@@ -104,7 +107,7 @@ __global__ void row_sqnorm_kernel(const T* __restrict__ c, int k, int d,
   if (lane == 0) out[row] = s;
 }
 
-template <typename T, bool NESTED>
+template <typename T, bool NESTED, bool PARTIAL>
 __global__ void __launch_bounds__(ASSIGN_THREADS)
 assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
               const float* __restrict__ cn, int n, int k, int d, Top2Out out,
@@ -190,7 +193,9 @@ assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
       for (int j = 0; j < TN; ++j) {
         const int col = k0 + tx * TN + j;
         if (col < k) {  // index beyond k: never a candidate
-          const float v = fmaxf(xn[i] - 2.f * acc[i][j] + cns[tx * TN + j], 0.f);
+          const float v =
+              PARTIAL ? cns[tx * TN + j] - 2.f * acc[i][j]
+                      : fmaxf(xn[i] - 2.f * acc[i][j] + cns[tx * TN + j], 0.f);
           top2_push(t, v, col);
         }
       }
@@ -211,6 +216,10 @@ assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
   for (int i = 0; i < TM; ++i) {
     const int r = row0 + ty * TM + i;
     if (tx != i || r >= n) continue;
+    if constexpr (PARTIAL) {  // squared distances; +inf stays +inf (k == 1)
+      run[i].m1 = fmaxf(run[i].m1 + xn[i], 0.f);
+      run[i].m2 = fmaxf(run[i].m2 + xn[i], 0.f);
+    }
     if constexpr (NESTED) {
       int an;
       float dn, lbn;
@@ -238,12 +247,12 @@ assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
   }
 }
 
-template <typename T, bool NESTED>
+template <typename T, bool NESTED, bool PARTIAL = false>
 void launch_assign(const T* x, const T* c, float* cn, int n, int k, int d,
                    Top2Out out, NestedArgs nest, cudaStream_t s) {
   if (k <= 0 || n <= 0) return;
   row_sqnorm_kernel<T><<<(k * 32 + 255) / 256, 256, 0, s>>>(c, k, d, cn);
-  assign_kernel<T, NESTED><<<(n + BM - 1) / BM, ASSIGN_THREADS, 0, s>>>(
+  assign_kernel<T, NESTED, PARTIAL><<<(n + BM - 1) / BM, ASSIGN_THREADS, 0, s>>>(
       x, c, cn, n, k, d, out, nest);
 }
 
@@ -253,7 +262,7 @@ constexpr int SD = 128;  // feature columns per block (one per thread)
 constexpr int SK = 64;   // clusters per block
 constexpr int SU = 4;    // rows whose loads are in flight together
 
-enum ScatterMode { SCATTER_SUM = 0, SCATTER_NESTED = 1 };
+enum ScatterMode { SCATTER_SUM = 0, SCATTER_NESTED = 1, SCATTER_ROUND = 2 };
 
 struct ScatterArgs {
   const float* x;
@@ -266,6 +275,9 @@ struct ScatterArgs {
   const int* a_prev;
   const int* a_new;
   const float* d_new;
+  // SCATTER_ROUND: row r adds x[r] and 1 to cluster a[r], and d1sq[r] (a
+  // squared distance, added as it is) to sse
+  const float* d1sq;
   float* partial;  // (n_chunks, stride): [S (k*d) | v (k) | sse (k)]
   int chunk_rows;
   int stride;
@@ -303,6 +315,11 @@ __global__ void __launch_bounds__(SD) scatter_partials(ScatterArgs p) {
       if constexpr (MODE == SCATTER_SUM) {
         la = p.a[r] - k0;
         wa = p.w[r];
+      } else if constexpr (MODE == SCATTER_ROUND) {
+        la = p.a[r] - k0;
+        wa = 1.f;
+        ls = la;
+        sq[tid] = p.d1sq[r];
       } else {
         const int ap = p.a_prev[r], an = p.a_new[r];
         const bool seen = ap >= 0;
@@ -344,7 +361,7 @@ __global__ void __launch_bounds__(SD) scatter_partials(ScatterArgs p) {
         if (lead) {
           if (la >= 0) vp[la] += w1[j];
           if (lb >= 0) vp[lb] += w2[j];
-          if (MODE == SCATTER_NESTED && labs[j] >= 0) ssep[labs[j]] += sq[j];
+          if (MODE != SCATTER_SUM && labs[j] >= 0) ssep[labs[j]] += sq[j];
         }
       }
     }
@@ -359,7 +376,7 @@ __global__ void __launch_bounds__(SD) scatter_partials(ScatterArgs p) {
   if (blockIdx.y == 0 && tid < SK && k0 + tid < p.k) {
     const size_t kd = (size_t)p.k * p.d;
     slab[kd + k0 + tid] = vp[tid];
-    if (MODE == SCATTER_NESTED) slab[kd + p.k + k0 + tid] = ssep[tid];
+    if (MODE != SCATTER_SUM) slab[kd + p.k + k0 + tid] = ssep[tid];
   }
 }
 

@@ -1,17 +1,21 @@
-"""The fused dense nested round: the CUDA kernel's wrapper and its plain
-version.
+"""The fused rounds: the CUDA kernels' wrappers and their plain versions.
 
-Port of `repro/kernels/fused_round.py`: `fused_nested_round_pallas` (the
-kernel is ``csrc/fused_nested_round.cu``) and `fused_nested_round_ref`.
-The one-shot `fused_round_pallas` is not ported yet.
+Port of `repro/kernels/fused_round.py`:
 
-Both take the prefix x (b, d), the centroids c (k, d), the previous
-assignment a_prev (b,) int32, the caller's ``settled`` mask, the retained
-euclidean distance ``d_keep`` and decayed lower bound ``lb_keep`` of the
-settled rows, and the ``valid`` row mask, and return (a_new, d_new,
-lb_new, dS, dv, sse): -1 / 0 / 0 on invalid rows, the signed delta of the
-cluster sums and counts (+1 at a_new for joins and new rows, -1 at a_prev
-for leaves), and the per-cluster sum of d_new^2 over every valid row.
+* `fused_round_pallas`, the one-shot dense round (kernel
+  ``csrc/fused_round.cu``, plain version `fused_round_ref`). It takes x
+  (n, d) and c (k, d) and returns (a, d1, d2, S, v, sse): the nearest and
+  second-nearest centroid, as squared distances, and the per-cluster
+  sums, counts and sum of d1 over every row.
+* `fused_nested_round_pallas` (kernel ``csrc/fused_nested_round.cu``,
+  plain version `fused_nested_round_ref`). It takes the prefix x (b, d),
+  the centroids c (k, d), the previous assignment a_prev (b,) int32, the
+  caller's ``settled`` mask, the retained euclidean distance ``d_keep``
+  and decayed lower bound ``lb_keep`` of the settled rows, and the
+  ``valid`` row mask, and returns (a_new, d_new, lb_new, dS, dv, sse):
+  -1 / 0 / 0 on invalid rows, the signed delta of the cluster sums and
+  counts (+1 at a_new for joins and new rows, -1 at a_prev for leaves),
+  and the per-cluster sum of d_new^2 over every valid row.
 """
 from __future__ import annotations
 
@@ -22,13 +26,93 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.plan import chunk_rows
 
-#: launches of the CUDA kernel in this process
+#: launches of the nested round's CUDA kernel in this process
 launches = 0
+#: launches of the one-shot round's CUDA kernel in this process
+round_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     return _build.bind("fused_nested_round", "fused_nested_round_f32", 13, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _round_fn():
+    return _build.bind("fused_round", "fused_round_f32", 8, 4)
+
+
+def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
+    """The one-shot round on the card: (a int32, d1, d2 f32 squared, S
+    (k, d), v (k,), sse (k,)) for f32 x (n, d) and c (k, d).
+    Deterministic: the same inputs give the same bits."""
+    global round_launches
+    dev = _build.require_cuda(x, c)
+    if x.dtype != torch.float32 or c.dtype != torch.float32:
+        raise TypeError(f"fused_round takes f32 x and c, got {x.dtype} and "
+                        f"{c.dtype}")
+    if x.dim() != 2 or c.dim() != 2 or x.shape[1] != c.shape[1] \
+            or c.shape[0] < 1:
+        raise ValueError(f"bad shapes x {tuple(x.shape)}, c "
+                         f"{tuple(c.shape)}")
+    n, d = x.shape
+    k = c.shape[0]
+    if n >= 2 ** 31 or k * d + 2 * k >= 2 ** 31:
+        raise ValueError(f"n={n} and k*d + 2k = {k * d + 2 * k} must fit "
+                         f"the kernel's int sizes")
+    a = torch.empty(n, dtype=torch.int32, device=dev)
+    d1 = torch.empty(n, dtype=torch.float32, device=dev)
+    d2 = torch.empty(n, dtype=torch.float32, device=dev)
+    out = torch.zeros(k * d + 2 * k, dtype=torch.float32, device=dev)
+    if n > 0:
+        rows = chunk_rows(n)
+        n_chunks = -(-n // rows)
+        cn = torch.empty(k, dtype=torch.float32, device=dev)
+        partial = torch.empty(n_chunks * (k * d + 2 * k),
+                              dtype=torch.float32, device=dev)
+        err = _round_fn()(x.data_ptr(), c.data_ptr(), cn.data_ptr(),
+                          a.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+                          partial.data_ptr(), out.data_ptr(), n, k, d, rows,
+                          _build.stream(dev))
+        _build.check(err, "fused_round", "fused_round_f32")
+        round_launches += 1
+    kd = k * d
+    return (a, d1, d2, out[:kd].view(k, d), out[kd:kd + k],
+            out[kd + k:])
+
+
+def fused_round_ref(x: torch.Tensor, c: torch.Tensor):
+    """Plain version, with the kernel's arithmetic: the top-2 on the
+    partial distance ``|c|^2 - 2 x.c`` (the lower index wins a tie; a
+    duplicate of the min counts as the 2nd-min; k == 1 gives +inf), then
+    ``d = max(b + |x|^2, 0)`` for the two winners, and S, v, sse summed
+    by label over every row.
+
+    Where it differs from JAX's `fused_round_ref`: that one takes the
+    top-2 on the ref expression ``max(|x|^2 - 2 x.c + |c|^2, 0)``, as
+    `ref.assign_top2_ref` does, which rounds differently at ties and in
+    the last bits of d1 and d2. This one follows `_round_kernel`, the
+    TPU kernel itself.
+    """
+    x = x.float()
+    c = c.float()
+    k = c.shape[0]
+    xn = torch.einsum("nd,nd->n", x, x)
+    cn = torch.einsum("kd,kd->k", c, c)
+    pd = torch.mm(x, c.T).mul_(-2.0).add_(cn)        # (n, k), in place
+    a = torch.argmin(pd, dim=1)
+    b1 = torch.gather(pd, 1, a[:, None])[:, 0]
+    if k == 1:
+        b2 = torch.full_like(b1, float("inf"))
+    else:
+        b2 = torch.min(pd.scatter_(1, a[:, None], float("inf")),
+                       dim=1).values
+    del pd
+    d1 = torch.clamp_min(b1 + xn, 0.0)
+    d2 = torch.clamp_min(b2 + xn, 0.0)
+    S, v = ref.cluster_sum_ref(x, a, k)
+    _, sse = ref.cluster_sum_ref(x[:, :0], a, k, weights=d1)
+    return a.to(torch.int32), d1, d2, S, v, sse
 
 
 def fused_nested_round_cuda(x, c, a_prev, settled, d_keep, lb_keep, valid):

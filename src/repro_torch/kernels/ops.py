@@ -3,13 +3,14 @@
 Port of `repro/kernels/ops.py`. The rule for every op:
 
   * a CPU tensor takes the plain version (`kernels/ref.py`,
-    `fused_round.fused_nested_round_ref`);
+    `fused_round.fused_round_ref`, `fused_round.fused_nested_round_ref`);
   * a CUDA tensor under a "ref" plan takes the plain version too;
   * a CUDA tensor under a "cuda" plan (or no plan) launches the kernel,
     or raises. Nothing gives way to the plain version.
 
-Each kernel module keeps a plain integer count of its launches;
-`launch_counts` reads them and `reset_launch_counts` sets them to 0.
+Each kernel's wrapper keeps a plain integer count of its launches in its
+module; `launch_counts` reads them and `reset_launch_counts` sets them to
+0.
 """
 from __future__ import annotations
 
@@ -23,8 +24,11 @@ from repro_torch.kernels import kmeans_assign as _ka
 from repro_torch.kernels import ref
 from repro_torch.kernels.plan import KernelPlan
 
-_MODULES = {"assign_top2": _ka, "cluster_sum": _cs,
-            "fused_nested_round": _fr}
+#: kernel name -> (module, name of its launch count there)
+_MODULES = {"assign_top2": (_ka, "launches"),
+            "cluster_sum": (_cs, "launches"),
+            "fused_nested_round": (_fr, "launches"),
+            "fused_round": (_fr, "round_launches")}
 
 
 def _kernel(t: torch.Tensor, plan: Optional[KernelPlan]) -> bool:
@@ -51,6 +55,15 @@ def cluster_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
     return ref.cluster_sum_ref(x, a, k, weights=weights)
 
 
+def fused_round(x: torch.Tensor, c: torch.Tensor, *,
+                plan: Optional[KernelPlan] = None):
+    """The one-shot dense round: (a, d1_sq, d2_sq, S, v, sse) with the
+    top-2 on the partial distance (see `fused_round.fused_round_ref`)."""
+    if _kernel(x, plan):
+        return _fr.fused_round_cuda(x.contiguous(), c.contiguous())
+    return _fr.fused_round_ref(x, c)
+
+
 def fused_nested_round(x, c, a_prev, settled, d_keep, lb_keep, valid, *,
                        plan: Optional[KernelPlan] = None):
     """Assign + keep-select + delta S/v + sse in one call (see
@@ -65,9 +78,10 @@ def fused_nested_round(x, c, a_prev, settled, d_keep, lb_keep, valid, *,
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _MODULES.values():
+        setattr(mod, attr, 0)

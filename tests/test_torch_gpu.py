@@ -113,6 +113,29 @@ def test_fused_nested_round_kernel_matches_plain(cuda, n, d, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", [(4099, 784, 1), (4099, 784, 257),
+                                   (777, 33, 50)])
+def test_fused_round_kernel_matches_plain(cuda, n, d, k):
+    x, c = _inputs(n, d, k, n + k, cuda)
+    before = ops.launch_counts()["fused_round"]
+    got = ops.fused_round(x, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_round"] == before + 1
+    want = fused_round.fused_round_ref(x, c)
+    assert got[0].dtype == torch.int32
+    _assert_labels(got[0], want[0], ref.pairwise_dist2(x, c), 1e-5)
+    for g, w in zip(got[1:3], want[1:3]):       # squared, +inf at k=1
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    # the sums against the plain sums over the kernel's own labels
+    S, v = ref.cluster_sum_ref(x, got[0], k)
+    _, sse = ref.cluster_sum_ref(x[:, :0], got[0], k, weights=got[1])
+    for g, w in zip(got[3:], (S, v, sse)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
+    for g, a in zip(got, ops.fused_round(x, c)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
 def test_fit_on_card_matches_cpu(cuda):
     """A small fit through the kernels gives the labels and schedule of
     the plain versions on the CPU, and the same bits twice."""
@@ -122,7 +145,9 @@ def test_fit_on_card_matches_cpu(cuda):
     cfg = FitConfig(k=8, b0=1000)
     ops.reset_launch_counts()
     gpu = NestedKMeans(cfg, device=cuda).fit(X)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[name] > 0 for name in
+               ("assign_top2", "cluster_sum", "fused_nested_round")), counts
     cpu = NestedKMeans(cfg, device="cpu").fit(X)
     np.testing.assert_array_equal(gpu.labels_, cpu.labels_)
     np.testing.assert_array_equal(gpu.predict(X), cpu.predict(X))

@@ -24,7 +24,7 @@ from repro.kernels.cluster_sum import cluster_sum_pallas
 from repro.kernels.fused_round import (fused_nested_round_pallas,
                                        fused_nested_round_ref as jfused_ref)
 from repro.kernels.kmeans_assign import assign_top2_pallas
-from repro_torch.kernels import ops, plan as tplan
+from repro_torch.kernels import fused_round, ops, plan as tplan
 from repro_torch.kernels import ref as tref
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -196,8 +196,12 @@ def test_ops_take_plain_versions_on_cpu():
     a, _, _ = ops.assign_top2(xt, ct, plan=cuda_plan)
     torch.testing.assert_close(a, tref.assign_top2_ref(xt, ct)[0])
     ops.cluster_sum(xt, a, 3, plan=cuda_plan)
+    got = ops.fused_round(xt, ct, plan=cuda_plan)
+    for g, w in zip(got, fused_round.fused_round_ref(xt, ct)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert ops.launch_counts() == {"assign_top2": 0, "cluster_sum": 0,
-                                   "fused_nested_round": 0}
+                                   "fused_nested_round": 0,
+                                   "fused_round": 0}
 
 
 def _imports(path: pathlib.Path):
@@ -210,7 +214,7 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py"]
     assert len(files) > 15
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files
            for m in _imports(f)
