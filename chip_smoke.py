@@ -6,14 +6,21 @@
 Phases (each raises on failure, so any fault exits non-zero):
   1. the device: name, count, and nvidia-smi's name and power limit;
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-     nvcc per source, in parallel), printing the build time and ptxas's
-     registers / shared memory / spills per kernel;
+     nvcc per source, in parallel), printing the build time, ptxas's
+     registers / shared memory / spills per kernel, and the count of
+     tensor-core (HGMMA, HMMA) and TMA-load (UTMALDG) instructions in each
+     library's SASS (``cuobjdump -sass``); fused_round's must have both
+     HGMMA and UTMALDG;
   3. hold each kernel against its plain PyTorch version on the card, on
      inputs made from a numpy seed: at the main-path shape (n=400,000,
      d=784, k=50), at k=1, k=257 and an unaligned n, kernel 1 also in
-     bf16. Tolerances are those of tests/test_kernels.py: f32 rtol 1e-5
-     (atol 1e-4), bf16 rtol 2e-2; labels may differ only where the two
-     distances tie within 100x the tolerance. Sums over many rows are
+     bf16. Kernel 4's top-2 is held to the plain version's with x.c,
+     |x|^2 and |c|^2 taken in float64 and rounded once to f32 (an f32
+     product is too far off where they cancel, as at kmeans_xl width);
+     its distance from the plain version itself is logged. Tolerances
+     are those of tests/test_kernels.py: f32 rtol 1e-5 (atol 1e-4), bf16 rtol 2e-2;
+     labels may differ only where the two distances tie within 100x the
+     tolerance. Sums over many rows are
      held to their rtol (1e-5 for cluster_sum, 1e-4 for the fused
      rounds' sums, as tests/test_kernels.py holds them) relative to their
      L1 mass (sum of |w x| per entry), the scale of f32 rounding in a
@@ -40,9 +47,20 @@ Phases (each raises on failure, so any fault exits non-zero):
      steps (the batch MSE may not rise beyond 1e-6 relative), two steps
      under a one-rank NCCL `DeviceMesh` must give the same bits as
      ``mesh=None``, and one unfused step (kernels 1 and 2) must give the
-     same labels but for near-ties and C within 1e-4 relative. Last,
-     kernel 4 is timed at that shape (mean of 3 after a warm-up) beside
-     its plain version on a 2^18-row slice and its bound.
+     same labels but for near-ties and C bit-identical on every cluster
+     no such row touches. The fused step's labels must equal the float64
+     argmin of every row but for near-ties, and its C must be within
+     1e-4 relative of the C those float64 labels give; the unfused C's
+     gaps to both are logged (kernel 1 sums x.c in f32 order, and parts
+     from the fused step at near-ties where the f32 error decides). The
+     profiled fused step gives kernel 4's parts by kernel: the
+     tensor-core top-2, the scatter, and the small passes. Last, kernel 4
+     is timed at that shape (mean of 3 after a warm-up) beside its plain
+     version on a 2^18-row slice and its bound, the larger of the bytes
+     over 3.35 TB/s and its operations at their type's peak (the
+     distances in 3xTF32 at 495 TFLOP/s, the adds into S in f32), with
+     the full-f32 CUDA-core bound and a yardstick beside it: cuBLAS's f32
+     ``torch.mm`` of x.c^T on the slice, scaled to all rows.
 
 The last two lines are a JSON object of the kernels and the JSON result
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -55,6 +73,7 @@ import datetime
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +88,7 @@ N, D, K = 400_000, 784, 50           # KMEANS_INFMNIST
 N_VAL = 10_000
 PEAK_BYTES_S = 3.35e12               # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12               # H100 SXM f32, no tensor cores
+PEAK_TF32_FLOPS = 495e12             # H100 SXM TF32 tensor cores, dense
 TOL = {"f32": 1e-5, "bf16": 2e-2}
 DEV = "cuda"
 N_XL, D_XL, K_XL = 2 ** 22, 1024, 4096  # KMEANS_XL, one chip's rows
@@ -116,6 +136,19 @@ def device_phase() -> dict:
 
 # ---------------------------------------------------------------- phase 2
 
+def sass_counts(lib) -> dict:
+    """Tensor-core (HGMMA, HMMA) and TMA-load (UTMALDG) instructions in a
+    built library's SASS, as ``cuobjdump -sass`` lists them."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    exe = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(exe), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "HMMA", "UTMALDG")}
+
+
 def build_phase() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -123,11 +156,17 @@ def build_phase() -> None:
     log(f"[2] built {len(report)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s wall")
     for name, (secs, ptxas) in report.items():
-        log(f"    {name}.cu: nvcc {secs:.1f} s")
+        counts = sass_counts(_build.lib_path(name))
+        log(f"    {name}.cu: nvcc {secs:.1f} s; SASS " + ", ".join(
+            f"{op} {n}" for op, n in counts.items()))
         for line in ptxas.splitlines():
             if "Compiling entry" in line or "Used" in line \
-                    or "spill" in line:
+                    or "spill" in line or "wgmma" in line:
                 log("      " + line.split("ptxas info    : ")[-1])
+        if name == "fused_round":
+            need(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                 "fused_round's library has no HGMMA or no UTMALDG: its "
+                 "top-2 is not on the tensor cores fed by TMA")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -287,15 +326,41 @@ def _chunked_sums(x, a, d1, k, rows=XL_PLAIN_ROWS):
     return S, v, sse, mass
 
 
+def round_top2_exact(x, c):
+    """The top-2 of kernel 4's plain version with x.c, |x|^2 and |c|^2
+    each taken in float64 and rounded once to f32, the values nearest the
+    exact ones (as tests/torch_round_oracle.py computes it)."""
+    x64, c64 = x.double(), c.double()
+    xn = (x64 * x64).sum(1).float()
+    cn = (c64 * c64).sum(1).float()
+    pd = (x64 @ c64.T).float().mul_(-2.0).add_(cn)
+    del x64
+    a = torch.argmin(pd, dim=1)
+    b1 = torch.gather(pd, 1, a[:, None])[:, 0]
+    if c.shape[0] == 1:
+        b2 = torch.full_like(b1, float("inf"))
+    else:
+        b2 = pd.scatter_(1, a[:, None], float("inf")).min(dim=1).values
+    return (a.to(torch.int32), torch.clamp_min(b1 + xn, 0.0),
+            torch.clamp_min(b2 + xn, 0.0))
+
+
+def _max_gap(got, want) -> float:
+    err = torch.where(got == want, 0.0, (got - want).abs())
+    return float(err.max()) if err.numel() else 0.0
+
+
 def check_fused_round(x, c, plain_rows=None) -> float:
-    """Kernel 4 against its plain version: the top-2 on the last
-    ``plain_rows`` rows (all rows if None), the sums over all rows."""
+    """Kernel 4's top-2 on the last ``plain_rows`` rows (all rows if None)
+    against `round_top2_exact`, its sums over all rows against plain
+    sums; the d1 gaps to the plain version (an f32 product) are logged."""
     from repro_torch.kernels import fused_round
     n, k = x.shape[0], c.shape[0]
     got = fused_round.fused_round_cuda(x, c)
     torch.cuda.synchronize()
     lo = 0 if plain_rows is None else n - plain_rows
-    want = fused_round.fused_round_ref(x[lo:], c)
+    plain_d1 = fused_round.fused_round_ref(x[lo:], c)[1]
+    want = round_top2_exact(x[lo:], c)
     a, d1, d2 = (t[lo:] for t in got[:3])
     need(a.dtype == torch.int32, "labels are not int32")
     # the kernel's distances are the partial distance plus |x|^2, which
@@ -304,11 +369,13 @@ def check_fused_round(x, c, plain_rows=None) -> float:
         (x[lo:] * x[lo:]).sum(1)[:, None])
     ties = _labels_ok(a, want[0], pd, TOL["f32"], relative=True)
     del pd
-    e = _close(d1, want[1], TOL["f32"], 1e-4, "d1")
+    e = e1 = _close(d1, want[1], TOL["f32"], 1e-4, "d1")
+    e2 = 0.0
     if k == 1:
         need(bool(torch.isinf(d2).all()), "k=1: d2 is not +inf")
     else:
-        e = max(e, _close(d2, want[2], TOL["f32"], 1e-4, "d2"))
+        e2 = _close(d2, want[2], TOL["f32"], 1e-4, "d2")
+        e = max(e, e2)
     # the sums against plain sums over the kernel's own labels (one may
     # differ from the plain label at a tie, moving a whole row)
     S, v, sse, mass = _chunked_sums(x, got[0], got[1], k)
@@ -320,8 +387,11 @@ def check_fused_round(x, c, plain_rows=None) -> float:
          "fused_round is not deterministic")
     rows = "all" if plain_rows is None else f"the last {plain_rows}"
     log(f"    fused_round n={n} d={x.shape[1]} k={k} (top-2 on {rows} rows)"
-        f": max abs err {e:.3g}, tied labels {ties}, second run "
-        f"bit-identical")
+        f": max abs err {e:.3g} (d1 {e1:.3g}, d2 {e2:.3g} from the "
+        f"once-rounded float64 values), tied labels {ties}, second run "
+        f"bit-identical; d1 {_max_gap(d1, plain_d1):.3g} from the plain "
+        f"version's f32 product, which is {_max_gap(plain_d1, want[1]):.3g}"
+        f" from the once-rounded values")
     return e
 
 
@@ -471,9 +541,13 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, tf32_flops: float = 0.0):
+    """The least time (ms) for the work, and what bounds it: the larger of
+    the bytes over the memory rate and the operations over the peak rate
+    of their type (``flops`` f32 on the CUDA cores, ``tf32_flops`` TF32 on
+    the tensor cores)."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -564,27 +638,69 @@ def _timed(fn, *args):
     return out, time.perf_counter() - t0
 
 
-def _near_ties(X, C, a_f, a_u) -> int:
-    """Rows whose two labels differ must be near-ties: their float64
+def _near_ties(X, C, a, b):
+    """Rows whose labels a and b differ must be near-ties: their float64
     distances to the two centroids within 1e-3 relative (100x the f32
-    rtol). Returns the count of such rows."""
-    diff = torch.nonzero(a_f != a_u)[:, 0]
-    if diff.numel():
-        x = X[diff].double()
-        df = ((x - C[a_f[diff].long()].double()) ** 2).sum(1)
-        du = ((x - C[a_u[diff].long()].double()) ** 2).sum(1)
-        need(bool(((df - du).abs() <= 1e-3 * df).all()),
-             f"fused and unfused labels differ beyond a near-tie at "
-             f"{diff.numel()} rows")
-    return int(diff.numel())
+    rtol). Returns the count of such rows, and of those where a's
+    centroid is the nearer in float64."""
+    diff = torch.nonzero(a != b)[:, 0]
+    if not diff.numel():
+        return 0, 0
+    x = X[diff].double()
+    da = ((x - C[a[diff].long()].double()) ** 2).sum(1)
+    db = ((x - C[b[diff].long()].double()) ** 2).sum(1)
+    need(bool(((da - db).abs() <= 1e-3 * da).all()),
+         f"two label sets differ beyond a near-tie at {diff.numel()} rows")
+    return int(diff.numel()), int((da < db).sum())
 
 
-def dp_round_phase(X, C0) -> dict:
+def exact_labels(X, C, rows=XL_CHECK_ROWS):
+    """The float64 argmin of |c|^2 - 2 x.c for every row of X (the lower
+    index wins a tie), in row chunks."""
+    C64 = C.double()
+    cn = (C64 * C64).sum(1)
+    a = torch.empty(X.shape[0], dtype=torch.int32, device=DEV)
+    for lo in range(0, X.shape[0], rows):
+        pd = torch.addmm(cn, X[lo:lo + rows].double(), C64.T, alpha=-2.0)
+        a[lo:lo + rows] = pd.argmin(dim=1)
+        del pd
+    return a
+
+
+def _rel_gap(C, C_ref) -> float:
+    return float(torch.linalg.norm(C - C_ref) / torch.linalg.norm(C_ref))
+
+
+#: kernel 4's device kernels, by the name the profiler gives them
+TOP2_KERNEL = "nkm::tc::tc_top2_kernel<false>"
+ROUND_PARTS = {TOP2_KERNEL: "top-2 (tensor cores, 3xTF32)",
+               "nkm::scatter_partials<2>": "scatter",
+               "nkm::reduce_chunks": "chunk reduction",
+               "nkm::tc::split_tf32_kernel": "c split",
+               "nkm::tc::sqnorm_kernel": "|x|^2 and |c|^2"}
+
+
+def fused_round_parts(prof) -> dict:
+    """Device ms of each of kernel 4's kernels in a profiled run."""
+    out = dict.fromkeys(ROUND_PARTS, 0.0)
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            for name in ROUND_PARTS:
+                if name in e.key:
+                    out[name] += e.self_device_time_total / 1e3
+    log("    fused_round's parts in the profiled dp step: " + ", ".join(
+        f"{what} ({name}) {out[name]:.1f} ms"
+        for name, what in ROUND_PARTS.items()))
+    return out
+
+
+def dp_round_phase(X, C0):
     """The data-parallel round at full width: 3 fused Lloyd steps, two
     steps under a one-rank NCCL mesh, one unfused step; returns the
     launch counts of that run."""
     import torch.distributed as dist
     from repro_torch.core.distributed import make_dp_round
+    from repro_torch.core.state import ClusterStats, centroid_update
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -597,11 +713,16 @@ def dp_round_phase(X, C0) -> dict:
     # tracer up, step 2 is traced and reported. A step launched at the
     # very start of a trace lost its first kernels (the 1.3 s top-2
     # among them) in some runs, so the traced step waits a moment first.
+    parts = {}
+
+    def report(p):
+        profile_report(p, walls[0], walls[2], what="dp step")
+        parts.update(fused_round_parts(p))
+
     prof = profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
         schedule=schedule(wait=1, warmup=1, active=1),
-        on_trace_ready=lambda p: profile_report(p, walls[0], walls[2],
-                                                what="dp step"))
+        on_trace_ready=report)
     with prof:
         for i in range(3):
             if i == 2:
@@ -640,20 +761,35 @@ def dp_round_phase(X, C0) -> dict:
     need(same, "the one-rank NCCL dp step differs from mesh=None")
 
     unfused, wall_u = _timed(make_dp_round(None, fused=False), X, C_in)
-    ties = _near_ties(X, C_in, out[3], unfused[3])
+    ties, nearer = _near_ties(X, C_in, out[3], unfused[3])
     moved = torch.unique(torch.cat([out[3][out[3] != unfused[3]],
                                     unfused[3][out[3] != unfused[3]]]))
     kept = torch.ones(K_XL, dtype=torch.bool, device=DEV)
     kept[moved.long()] = False
-    rel = float(torch.linalg.norm(unfused[0] - out[0])
-                / torch.linalg.norm(out[0]))
+    # the round the steps approximate: every row at its float64 argmin,
+    # summed by the plain version in row chunks
+    a64 = exact_labels(X, C_in)
+    off_f = _near_ties(X, C_in, out[3], a64)[0]
+    off_u = _near_ties(X, C_in, unfused[3], a64)[0]
+    S, v = _chunked_sums(X, a64, out[4], K_XL)[:2]
+    zero = torch.zeros_like(v)
+    C64 = centroid_update(ClusterStats(C=C_in, S=S, v=v, sse=zero,
+                                       p=zero)).C
+    del a64, S
+    gap_f, gap_u = _rel_gap(out[0], C64), _rel_gap(unfused[0], C64)
     log(f"    unfused dp step (kernels 1 + 2): wall {wall_u:.3f} s, labels "
-        f"differ at {ties} near-tied rows, C relative gap {rel:.3g}, "
-        f"C bit-identical on the {int(kept.sum())} clusters no such row "
-        f"touches")
-    need(rel <= 1e-4, "fused and unfused C differ beyond 1e-4 relative")
+        f"differ from the fused step's at {ties} near-tied rows (the fused "
+        f"label nearer in float64 at {nearer}), C bit-identical on the "
+        f"{int(kept.sum())} clusters no such row touches, C relative gap "
+        f"{_rel_gap(unfused[0], out[0]):.3g}")
+    log(f"    against the float64 argmin of every row: the fused labels "
+        f"differ at {off_f} near-tied rows, the unfused at {off_u}; C "
+        f"relative gap to the C of those labels: fused {gap_f:.3g} (held "
+        f"to 1e-4), unfused {gap_u:.3g}")
     need(torch.equal(unfused[0][kept], out[0][kept]),
          "fused and unfused C differ on clusters with the same rows")
+    need(gap_f <= 1e-4, "the fused step's C differs beyond 1e-4 relative "
+         "from the C of the float64 labels")
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -661,7 +797,9 @@ def dp_round_phase(X, C0) -> dict:
         f"{launches}; peak device memory {peak / 2 ** 30:.2f} GiB")
     need(launches["fused_round"] > 0,
          "fused_round was never launched on the dp path")
-    return launches
+    need(parts.get(TOP2_KERNEL, 0.0) > 0.0,
+         f"the profiled dp step shows no {TOP2_KERNEL}")
+    return launches, parts
 
 
 def xl_phase() -> dict:
@@ -673,21 +811,32 @@ def xl_phase() -> dict:
         f"({X.numel() * 4 / 2 ** 30:.1f} GiB) made on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     err = check_fused_round(X, C0, plain_rows=XL_CHECK_ROWS)
-    launches = dp_round_phase(X, C0)
+    launches, parts = dp_round_phase(X, C0)
 
     n, d, k = N_XL, D_XL, K_XL
-    b, how = bound(n * d * 4 + k * d * 4 + n * 12 + (k * d + 2 * k) * 4,
-                   2.0 * n * k * d + 1.0 * n * d)
+    n_bytes = n * d * 4 + k * d * 4 + n * 12 + (k * d + 2 * k) * 4
+    # the distances in 3xTF32 on the tensor cores, the adds into S in f32
+    b, how = bound(n_bytes, 1.0 * n * d, tf32_flops=3 * 2.0 * n * k * d)
+    b_f32, _ = bound(n_bytes, 2.0 * n * k * d + 1.0 * n * d)
     xs = X[:XL_PLAIN_ROWS]
+    mm_ms = time_ms(lambda: torch.mm(xs, C0.T), iters=3) \
+        * (n / XL_PLAIN_ROWS)
+    log(f"    yardstick: cuBLAS f32 torch.mm of x.c^T on the "
+        f"({XL_PLAIN_ROWS}, {d}) slice, scaled to n={n}: {mm_ms:.3f} ms "
+        f"(not the same function; not in the kernels line)")
     t = dict(
         ms=time_ms(lambda: fused_round.fused_round_cuda(X, C0), iters=3),
         plain_ms=time_ms(lambda: fused_round.fused_round_ref(xs, C0),
                          iters=3),
         library_ms=None, bound_ms=b, bound_by=how)
+    top2 = parts[TOP2_KERNEL]
     log(f"    fused_round at n={n} d={d} k={k}: kernel {t['ms']:.3f} ms "
-        f"(mean of 3 after a warm-up), bound {b:.3f} ms ({how}), "
-        f"{b / t['ms'] * 100:.1f} % of it; plain {t['plain_ms']:.3f} ms on "
-        f"a ({XL_PLAIN_ROWS}, {d}) slice, library n/a")
+        f"(mean of 3 after a warm-up), bound {b:.3f} ms ({how}: 3xTF32 at "
+        f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), {b / t['ms'] * 100:.1f} % "
+        f"of it; the CUDA-core f32 bound {b_f32:.3f} ms; its top-2 "
+        f"{top2:.1f} ms in the profile ({b / top2 * 100:.1f} % of the "
+        f"bound); plain {t['plain_ms']:.3f} ms on a ({XL_PLAIN_ROWS}, {d}) "
+        f"slice, library n/a")
     return {"err": err, "launches": launches, "times": t}
 
 

@@ -29,21 +29,12 @@ from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
 from repro_torch.core import rounds
 from repro_torch.core.state import ClusterStats, full_mse, init_state
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels._build import resolve_device
 from repro_torch.kernels.plan import resolve_plan
 
 
 class NotFittedError(RuntimeError):
     pass
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch device; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} but torch.cuda.is_available() is "
-            f"False; pass device='cpu' to run the plain versions on the CPU")
-    return dev
 
 
 class NestedKMeans:

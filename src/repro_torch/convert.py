@@ -6,6 +6,10 @@ port's `KMeansState` on ``device``; `codebook_from_numpy` does the same
 for a fitted codebook (centroids and counts). The tests use them to start
 one round from the same state in both packages. Only attribute access is
 used, so this module imports nothing of the JAX package.
+
+``device`` defaults to ``"cuda"``, as the estimator's does, and raises
+where there is no card (`resolve_device`); pass ``device="cpu"`` for the
+CPU.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.state import ClusterStats, KMeansState, PointState
+from repro_torch.kernels._build import resolve_device
 
 
 def _t(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -20,8 +25,9 @@ def _t(x, dtype: torch.dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
-def state_from_numpy(tree, device="cpu") -> KMeansState:
+def state_from_numpy(tree, device="cuda") -> KMeansState:
     """The port's `KMeansState` for a numpy-leaved JAX `KMeansState`."""
+    device = resolve_device(device)
     if getattr(tree, "elkan", None) is not None:
         raise NotImplementedError(
             "elkan bounds are not ported to repro_torch yet (ROADMAP "
@@ -37,9 +43,10 @@ def state_from_numpy(tree, device="cpu") -> KMeansState:
                        round=_t(tree.round, i32, device))
 
 
-def codebook_from_numpy(C, counts, device="cpu") -> ClusterStats:
+def codebook_from_numpy(C, counts, device="cuda") -> ClusterStats:
     """`ClusterStats` of a fitted codebook: S = C * counts, so S/v = C
     wherever a count is positive; sse and p start at 0."""
+    device = resolve_device(device)
     Ct = _t(np.asarray(C, np.float32), torch.float32, device)
     v = _t(np.asarray(counts, np.float32), torch.float32, device)
     zeros = torch.zeros_like(v)

@@ -118,6 +118,17 @@ def bind(name: str, fn: str, n_ptr: int, n_int: int):
     return f
 
 
+def resolve_device(device):
+    """``device`` as a torch device; a CUDA device must exist."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
 def require_cuda(*ts):
     """The one CUDA device all tensors ``ts`` lie on; raises unless they
     are contiguous and on that device."""

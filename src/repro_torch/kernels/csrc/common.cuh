@@ -1,14 +1,13 @@
 // Device code shared by the four k-means kernels (sm_90a).
 //
-//  * assign_kernel<T, NESTED, PARTIAL>: blocks of BM rows; each block walks
-//    k in tiles of BN centroids and keeps a running (min, 2nd-min, argmin)
-//    per row in registers. The x.c products are full f32 FMAs on the CUDA
+//  * assign_kernel<T, NESTED>: blocks of BM rows; each block walks k in
+//    tiles of BN centroids and keeps a running (min, 2nd-min, argmin) per
+//    row in registers. The x.c products are full f32 FMAs on the CUDA
 //    cores (no TF32: the reference is f32), staged through shared memory
 //    in BK-wide feature slices, 4x4 outputs per thread. The candidate is
-//    the ref expression max(|x|^2 - 2 x.c + |c|^2, 0), or with PARTIAL the
-//    one-shot round's partial distance |c|^2 - 2 x.c, to which the row
-//    epilogue adds |x|^2 and clamps (the two round differently at ties).
-//    NESTED adds the nested round's keep-select and sqrt in the epilogue.
+//    the ref expression max(|x|^2 - 2 x.c + |c|^2, 0). NESTED adds the
+//    nested round's keep-select and sqrt in the epilogue. (The one-shot
+//    round's top-2 is the tensor-core kernel of tc_top2.cuh.)
 //  * scatter_partials<MODE> + reduce_chunks: a deterministic weighted
 //    per-cluster sum. Pass 1 splits the rows into chunks whose size is
 //    fixed by the row count (never by the device); each block owns one
@@ -107,7 +106,7 @@ __global__ void row_sqnorm_kernel(const T* __restrict__ c, int k, int d,
   if (lane == 0) out[row] = s;
 }
 
-template <typename T, bool NESTED, bool PARTIAL>
+template <typename T, bool NESTED>
 __global__ void __launch_bounds__(ASSIGN_THREADS)
 assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
               const float* __restrict__ cn, int n, int k, int d, Top2Out out,
@@ -194,8 +193,7 @@ assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
         const int col = k0 + tx * TN + j;
         if (col < k) {  // index beyond k: never a candidate
           const float v =
-              PARTIAL ? cns[tx * TN + j] - 2.f * acc[i][j]
-                      : fmaxf(xn[i] - 2.f * acc[i][j] + cns[tx * TN + j], 0.f);
+              fmaxf(xn[i] - 2.f * acc[i][j] + cns[tx * TN + j], 0.f);
           top2_push(t, v, col);
         }
       }
@@ -216,10 +214,6 @@ assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
   for (int i = 0; i < TM; ++i) {
     const int r = row0 + ty * TM + i;
     if (tx != i || r >= n) continue;
-    if constexpr (PARTIAL) {  // squared distances; +inf stays +inf (k == 1)
-      run[i].m1 = fmaxf(run[i].m1 + xn[i], 0.f);
-      run[i].m2 = fmaxf(run[i].m2 + xn[i], 0.f);
-    }
     if constexpr (NESTED) {
       int an;
       float dn, lbn;
@@ -247,12 +241,12 @@ assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
   }
 }
 
-template <typename T, bool NESTED, bool PARTIAL = false>
+template <typename T, bool NESTED>
 void launch_assign(const T* x, const T* c, float* cn, int n, int k, int d,
                    Top2Out out, NestedArgs nest, cudaStream_t s) {
   if (k <= 0 || n <= 0) return;
   row_sqnorm_kernel<T><<<(k * 32 + 255) / 256, 256, 0, s>>>(c, k, d, cn);
-  assign_kernel<T, NESTED, PARTIAL><<<(n + BM - 1) / BM, ASSIGN_THREADS, 0, s>>>(
+  assign_kernel<T, NESTED><<<(n + BM - 1) / BM, ASSIGN_THREADS, 0, s>>>(
       x, c, cn, n, k, d, out, nest);
 }
 

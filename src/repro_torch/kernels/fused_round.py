@@ -3,7 +3,8 @@
 Port of `repro/kernels/fused_round.py`:
 
 * `fused_round_pallas`, the one-shot dense round (kernel
-  ``csrc/fused_round.cu``, plain version `fused_round_ref`). It takes x
+  ``csrc/fused_round.cu``, its top-2 on the tensor cores in
+  ``csrc/tc_top2.cuh``; plain version `fused_round_ref`). It takes x
   (n, d) and c (k, d) and returns (a, d1, d2, S, v, sse): the nearest and
   second-nearest centroid, as squared distances, and the per-cluster
   sums, counts and sum of d1 over every row.
@@ -39,14 +40,29 @@ def _fn():
 
 @functools.lru_cache(maxsize=None)
 def _round_fn():
-    return _build.bind("fused_round", "fused_round_f32", 8, 4)
+    return _build.bind("fused_round", "fused_round_f32", 12, 5)
 
 
-def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
-    """The one-shot round on the card: (a int32, d1, d2 f32 squared, S
-    (k, d), v (k,), sse (k,)) for f32 x (n, d) and c (k, d).
-    Deterministic: the same inputs give the same bits."""
-    global round_launches
+@functools.lru_cache(maxsize=None)
+def _dot_fn():
+    return _build.bind("fused_round", "tc_dot_f32", 6, 3)
+
+
+def tma_operands(x: torch.Tensor, c: torch.Tensor):
+    """(x, c, dp): x (n, d) and c (k, d) as the tensor-core top-2 reads
+    them, rows of dp floats with dp a multiple of 4 (TMA reads rows whose
+    stride is a multiple of 16 bytes) and at least 4. Where d % 4 != 0
+    (or d == 0) they are copied, zero-padded to dp; zero features change
+    no distance. Otherwise they are returned as they are."""
+    d = x.shape[1]
+    dp = max(4, -(-d // 4) * 4)
+    if dp != d:
+        x = torch.nn.functional.pad(x, (0, dp - d))
+        c = torch.nn.functional.pad(c, (0, dp - d))
+    return x, c, dp
+
+
+def _check_round_args(x: torch.Tensor, c: torch.Tensor):
     dev = _build.require_cuda(x, c)
     if x.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(f"fused_round takes f32 x and c, got {x.dtype} and "
@@ -60,6 +76,25 @@ def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
     if n >= 2 ** 31 or k * d + 2 * k >= 2 ** 31:
         raise ValueError(f"n={n} and k*d + 2k = {k * d + 2 * k} must fit "
                          f"the kernel's int sizes")
+    xp, cp, dp = tma_operands(x, c)
+    if xp.data_ptr() % 16 or cp.data_ptr() % 16:
+        raise ValueError("fused_round's TMA loads take x and c at 16-byte "
+                         "aligned addresses")
+    return dev, xp, cp, dp
+
+
+def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
+    """The one-shot round on the card: (a int32, d1, d2 f32 squared, S
+    (k, d), v (k,), sse (k,)) for f32 x (n, d) and c (k, d).
+    Deterministic: the same inputs give the same bits.
+
+    The top-2 runs on the tensor cores in 3xTF32 (``csrc/tc_top2.cuh``).
+    Where d % 4 != 0 it reads copies of x and c zero-padded to a multiple
+    of 4 features (`tma_operands`); the sums always read x itself."""
+    global round_launches
+    dev, xp, cp, dp = _check_round_args(x, c)
+    n, d = x.shape
+    k = c.shape[0]
     a = torch.empty(n, dtype=torch.int32, device=dev)
     d1 = torch.empty(n, dtype=torch.float32, device=dev)
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
@@ -67,12 +102,16 @@ def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
     if n > 0:
         rows = chunk_rows(n)
         n_chunks = -(-n // rows)
+        c_split = torch.empty(2, k, dp, dtype=torch.float32, device=dev)
         cn = torch.empty(k, dtype=torch.float32, device=dev)
+        xn = torch.empty(n, dtype=torch.float32, device=dev)
         partial = torch.empty(n_chunks * (k * d + 2 * k),
                               dtype=torch.float32, device=dev)
-        err = _round_fn()(x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                          a.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-                          partial.data_ptr(), out.data_ptr(), n, k, d, rows,
+        err = _round_fn()(x.data_ptr(), xp.data_ptr(), cp.data_ptr(),
+                          c_split[0].data_ptr(), c_split[1].data_ptr(),
+                          cn.data_ptr(), xn.data_ptr(), a.data_ptr(),
+                          d1.data_ptr(), d2.data_ptr(), partial.data_ptr(),
+                          out.data_ptr(), n, k, d, dp, rows,
                           _build.stream(dev))
         _build.check(err, "fused_round", "fused_round_f32")
         round_launches += 1
@@ -81,12 +120,35 @@ def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
             out[kd + k:])
 
 
+def tc_dot_cuda(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """x @ c.T (n, k) f32 through the tensor-core top-2's main loop alone
+    (TMA, 3xTF32 split, wgmma), written out instead of reduced: a check of
+    its operand and fragment layout. Not on any path; counts no launch."""
+    dev, xp, cp, dp = _check_round_args(x, c)
+    n, k = x.shape[0], c.shape[0]
+    dot = torch.empty(n, k, dtype=torch.float32, device=dev)
+    if n > 0:
+        c_split = torch.empty(2, k, dp, dtype=torch.float32, device=dev)
+        cn = torch.empty(k, dtype=torch.float32, device=dev)
+        err = _dot_fn()(xp.data_ptr(), cp.data_ptr(), c_split[0].data_ptr(),
+                        c_split[1].data_ptr(), cn.data_ptr(), dot.data_ptr(),
+                        n, k, dp, _build.stream(dev))
+        _build.check(err, "fused_round", "tc_dot_f32")
+    return dot
+
+
 def fused_round_ref(x: torch.Tensor, c: torch.Tensor):
     """Plain version, with the kernel's arithmetic: the top-2 on the
     partial distance ``|c|^2 - 2 x.c`` (the lower index wins a tie; a
     duplicate of the min counts as the 2nd-min; k == 1 gives +inf), then
     ``d = max(b + |x|^2, 0)`` for the two winners, and S, v, sse summed
     by label over every row.
+
+    All in f32. The kernel's x.c (3xTF32 on the tensor cores, compensated
+    sums) is nearer the exact value than this f32 product where |x|^2
+    and x.c cancel, as at kmeans_xl width, so the checks on the card
+    hold the kernel's top-2 to x.c, |x|^2 and |c|^2 taken in float64
+    and rounded once to f32.
 
     Where it differs from JAX's `fused_round_ref`: that one takes the
     top-2 on the ref expression ``max(|x|^2 - 2 x.c + |c|^2, 0)``, as

@@ -183,7 +183,7 @@ def test_sharded_round_matches_jax(mid_fit, b, capacity, n_real, bounds):
         None, ("data",), b_local=b, rho=INF, bounds=bounds,
         capacity=capacity, n_real=n_real,
         plan=KernelPlan("ref", jplan.bucket))(
-        torch.from_numpy(Xd), state_from_numpy(jtree))
+        torch.from_numpy(Xd), state_from_numpy(jtree, device="cpu"))
     np.testing.assert_array_equal(_np(tst.points.a), np.asarray(jst.points.a))
     for f in ("n_changed", "n_recomputed", "n_active", "overflow", "grow"):
         assert int(getattr(tinfo, f)) == int(getattr(jinfo, f)), f

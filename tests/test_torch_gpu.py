@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_round, ops, ref
+from torch_round_oracle import round_top2_exact
 
 SHAPES = [(64, 7, 5), (256, 32, 50), (300, 784, 50), (512, 128, 128),
           (1000, 200, 257), (130, 9, 1), (4099, 784, 50)]
@@ -113,19 +114,79 @@ def test_fused_nested_round_kernel_matches_plain(cuda, n, d, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", [(256, 96, 320), (130, 33, 257),
+                                   (64, 7, 5), (300, 1024, 1)])
+def test_tc_dot_matches_float64(cuda, n, d, k):
+    """The tensor-core top-2's main loop alone (TMA, 3xTF32 split, wgmma)
+    against a float64 product, within 1e-5 of each entry's L1 mass
+    (sum of |x_f c_f|): f32-level error. One TF32 pass would be off by
+    about 1e-3 of a term, well beyond it at these depths."""
+    x, c = _inputs(n, d, k, 3 * n + d + k, cuda)
+    got = fused_round.tc_dot_cuda(x, c)
+    torch.cuda.synchronize()
+    exact = x.double() @ c.double().T
+    mass = x.double().abs() @ c.double().abs().T
+    err = (got.double() - exact).abs()
+    assert got.shape == (n, k)
+    assert bool((err <= 1e-5 * mass + 1e-6).all()), float((err / mass).max())
+
+
+def _probe_msg(got, want):
+    """Where the product differs, which element of the probe the kernel
+    read: value v encodes (tile row v // 32, feature v % 32)."""
+    bad = torch.nonzero(got != want)[:12].tolist()
+    return f"{int((got != want).sum())} of {got.numel()} differ; " + ", ".join(
+        f"({r},{j}): got {got[r, j]:.0f} = ({int(got[r, j]) // 32}, "
+        f"{int(got[r, j]) % 32}) want ({int(want[r, j]) // 32}, "
+        f"{int(want[r, j]) % 32})" for r, j in bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", ["x", "c"])
+def test_tc_dot_layout_probe(cuda, side):
+    """Exact probes of the main loop's layout: one operand holds distinct
+    integers below 2^11 (exact in TF32: small parts 0), the other one-hot
+    rows, so each product is one element of the first, and a wrong
+    swizzle, descriptor or fragment mapping shows which element it read
+    instead."""
+    n, d, k = 128, 32, 256
+    rows = torch.arange(n, device=cuda)[:, None]
+    cols = torch.arange(k, device=cuda)[:, None]
+    feats = torch.arange(d, device=cuda)[None, :]
+    if side == "x":   # x[r, f] = 32 (r % 64) + f; c[j] = e_(j % 32)
+        x = ((rows % 64) * 32 + feats).float()
+        c = (feats == cols % 32).float()
+        want = ((rows % 64) * 32 + cols.T % 32).float()
+    else:             # x[r] = e_(r % 32); c[j, f] = 32 (j % 64) + f
+        x = (feats == rows % 32).float()
+        c = ((cols % 64) * 32 + feats).float()
+        want = ((cols.T % 64) * 32 + rows % 32).float()
+    got = fused_round.tc_dot_cuda(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), _probe_msg(got, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,d,k", [(4099, 784, 1), (4099, 784, 257),
-                                   (777, 33, 50)])
+                                   (777, 33, 50), (100, 7, 50),
+                                   (4099, 33, 257), (60, 1024, 300),
+                                   (130, 9, 1)])
 def test_fused_round_kernel_matches_plain(cuda, n, d, k):
+    """Kernel 4 (top-2 on the tensor cores, 3xTF32) against its plain
+    version and against the once-rounded float64 top-2
+    (`round_top2_exact`): d < 32, d % 4 != 0 (zero-padded copies), k = 1,
+    ragged k tiles (k = 257, 300 > 256), n < 128 and ragged n."""
     x, c = _inputs(n, d, k, n + k, cuda)
     before = ops.launch_counts()["fused_round"]
     got = ops.fused_round(x, c)
     torch.cuda.synchronize()
     assert ops.launch_counts()["fused_round"] == before + 1
-    want = fused_round.fused_round_ref(x, c)
     assert got[0].dtype == torch.int32
-    _assert_labels(got[0], want[0], ref.pairwise_dist2(x, c), 1e-5)
-    for g, w in zip(got[1:3], want[1:3]):       # squared, +inf at k=1
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    for want in (fused_round.fused_round_ref(x, c)[:3],
+                 round_top2_exact(x, c)):
+        _assert_labels(got[0], want[0], ref.pairwise_dist2(x, c), 1e-5)
+        for g, w in zip(got[1:3], want[1:3]):   # squared, +inf at k=1
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
     # the sums against the plain sums over the kernel's own labels
     S, v = ref.cluster_sum_ref(x, got[0], k)
     _, sse = ref.cluster_sum_ref(x[:, :0], got[0], k, weights=got[1])
@@ -133,6 +194,25 @@ def test_fused_round_kernel_matches_plain(cuda, n, d, k):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
     for g, a in zip(got, ops.fused_round(x, c)):
         assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+def test_fused_round_kernel_exact_ties(cuda):
+    """Duplicates of the nearest centroid, in its k tile and in the next
+    one (index 300): the lower index wins, and the second distance is the
+    tied value."""
+    x, c = _inputs(500, 16, 400, 17, cuda)
+    rng = np.random.default_rng(18)
+    c[1] = torch.from_numpy(rng.normal(size=16).astype(np.float32) * 0.3)
+    c[4] = c[5] = c[300] = c[1]
+    a, d1, d2 = ops.fused_round(x, c)[:3]
+    torch.cuda.synchronize()
+    assert not bool(torch.isin(a, torch.tensor([4, 5, 300],
+                                               device=cuda)).any())
+    won = a == 1
+    assert bool(won.any()) and torch.equal(d2[won], d1[won])
+    for want in (fused_round.fused_round_ref(x, c), round_top2_exact(x, c)):
+        torch.testing.assert_close(d1, want[1], rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.gpu

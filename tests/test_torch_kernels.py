@@ -26,6 +26,7 @@ from repro.kernels.fused_round import (fused_nested_round_pallas,
 from repro.kernels.kmeans_assign import assign_top2_pallas
 from repro_torch.kernels import fused_round, ops, plan as tplan
 from repro_torch.kernels import ref as tref
+from torch_round_oracle import round_top2_exact
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -166,6 +167,181 @@ def test_fused_nested_round_matches_jax(n, d, k):
     keep = args[3] & args[6]
     np.testing.assert_array_equal(_np(got[0])[keep], args[2][keep])
     np.testing.assert_array_equal(_np(got[1])[keep], args[4][keep])
+
+
+# -- the tensor-core top-2's arithmetic, emulated ---------------------------
+#
+# The one-shot round's CUDA top-2 (csrc/tc_top2.cuh) forms x.c in 3xTF32:
+# big = tf32(v), small = tf32(v - big), x.c ~ xs.cb + xb.cs + xb.cb. Per
+# group of 2 k8 steps (16 features) a fresh tensor-core accumulator takes
+# the small terms, then the big ones: six wgmma steps, each adding 8
+# products (exact: TF32 times TF32 fits f32) to the accumulator and
+# rounding toward zero, as the card's f32 accumulation does. Each group's
+# sum is added into an f32 total with Kahan's compensation. `_dot_3xtf32`
+# replays that order here, each step modelled as the exact sum truncated
+# to f32, before the card runs it.
+
+def _tf32(t):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does, on the int32 view."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rz(t):
+    """float64 to f32, rounded toward zero: the low 29 of float64's 52
+    mantissa bits cut off, then an exact conversion."""
+    return (t.contiguous().view(torch.int64) & ~((1 << 29) - 1)).view(
+        torch.float64).float()
+
+
+def _dot_3xtf32(x, c, group=16):
+    """x @ c.T in the card's order (see above), f32."""
+    pad = -x.shape[1] % group        # zero features change no sum
+    x = torch.nn.functional.pad(x, (0, pad))
+    c = torch.nn.functional.pad(c, (0, pad))
+    xb, cb = _tf32(x), _tf32(c)
+    xs, cs = _tf32(x - xb), _tf32(c - cb)
+    xb, cb, xs, cs = (t.double() for t in (xb, cb, xs, cs))
+    acc = torch.zeros(x.shape[0], c.shape[0])
+    comp = torch.zeros_like(acc)
+    for g in range(0, x.shape[1], group):
+        steps = [(f, a, b) for f in range(g, g + group, 8)
+                 for a, b in ((xs, cb), (xb, cs))]
+        steps += [(f, xb, cb) for f in range(g, g + group, 8)]
+        part = torch.zeros_like(acc, dtype=torch.float64)
+        for f, a, b in steps:
+            part = _rz(part + a[:, f:f + 8] @ b[:, f:f + 8].T).double()
+        y = part.float() - comp          # Kahan: acc + comp = the sum
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    return acc
+
+
+def _sqnorm_warp(v):
+    """|v_r|^2 as the card sums it (``sqnorm_kernel``): lane l of a warp
+    adds v[f]^2 for f = l, l + 32, ... with fmaf (one rounding each),
+    then the 32 lanes combine by xor shuffles 16, 8, 4, 2, 1."""
+    v = torch.nn.functional.pad(v, (0, -v.shape[1] % 32)).double()
+    lanes = v.view(v.shape[0], -1, 32)          # feature 32 j + lane
+    s = torch.zeros(v.shape[0], 32)
+    for j in range(lanes.shape[1]):
+        s = (s.double() + lanes[:, j] ** 2).float()
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, idx ^ off]
+    return s[:, 0]
+
+
+def _top2_3xtf32(x, c):
+    """`fused_round_ref`'s top-2, all in f32, with x.c formed by
+    `_dot_3xtf32` and |x|^2, |c|^2 by `_sqnorm_warp`, as on the card."""
+    pd = _sqnorm_warp(c) - 2.0 * _dot_3xtf32(x, c)
+    a = torch.argmin(pd, dim=1)
+    b1 = torch.gather(pd, 1, a[:, None])[:, 0]
+    b2 = (torch.full_like(b1, float("inf")) if c.shape[0] == 1 else
+          pd.scatter(1, a[:, None], float("inf")).min(dim=1).values)
+    xn = _sqnorm_warp(x)
+    return (a.to(torch.int32), torch.clamp_min(b1 + xn, 0.0),
+            torch.clamp_min(b2 + xn, 0.0))
+
+
+def _assert_round_top2(got, want, d2m):
+    """`chip_smoke.check_fused_round`'s tolerances: labels equal but for
+    near-ties within 1e-3 of the distance, d1 and d2 within rtol 1e-5,
+    atol 1e-4."""
+    a_g, a_w = _np(got[0]), _np(want[0])
+    d2m = _np(d2m)
+    for i in np.where(a_g != a_w)[0]:
+        want_d = d2m[i, a_w[i]]
+        assert abs(d2m[i, a_g[i]] - want_d) < 1e-3 * max(abs(want_d), 1.0), i
+    for g, w in zip(got[1:3], want[1:3]):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-5, atol=1e-4)
+
+
+def test_tf32_rounding():
+    """To nearest, ties away from zero, in both signs; the split is exact
+    to 2^-22 relative; float64 to f32 toward zero."""
+    one_ulp = 2.0 ** -10
+    v = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 4,
+                      1 + 3 * one_ulp / 4], dtype=torch.float32)
+    torch.testing.assert_close(
+        _tf32(v), torch.tensor([1 + one_ulp, -(1 + one_ulp), 1.0,
+                                1 + one_ulp]), rtol=0, atol=0)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=4096)
+                         .astype(np.float32))
+    big = _tf32(x)
+    small = _tf32(x - big)
+    assert bool((_tf32(big) == big).all() and (_tf32(small) == small).all())
+    rel = ((big.double() + small.double() - x.double()).abs()
+           / x.double().abs())
+    assert float(rel.max()) <= 2.0 ** -21
+    f32_ulp = 2.0 ** -23
+    w = torch.tensor([1 + 0.9 * f32_ulp, -(1 + 0.9 * f32_ulp), 1 + f32_ulp,
+                      3.0], dtype=torch.float64)
+    torch.testing.assert_close(
+        _rz(w), torch.tensor([1.0, -1.0, 1 + f32_ulp, 3.0]), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,d,k", [(4099, 784, 1), (4099, 784, 257),
+                                   (777, 33, 50)])
+def test_3xtf32_top2_meets_the_kernel_tolerances(n, d, k):
+    """At chip_smoke's phase-3 shapes and inputs, the emulated 3xTF32
+    top-2 is within the tolerances the card's kernel is held to, of the
+    once-rounded float64 top-2 and of the plain version."""
+    rng = np.random.default_rng(5 * n + k)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    c = torch.from_numpy((rng.normal(size=(k, d)) * 2).astype(np.float32))
+    got = _top2_3xtf32(x, c)
+    d2m = (torch.cdist(x.double(), c.double()) ** 2).float()
+    for want in (round_top2_exact(x, c), fused_round.fused_round_ref(x, c)):
+        _assert_round_top2(got, want, d2m)
+    if k == 1:
+        assert bool(torch.isinf(got[2]).all())
+
+
+def test_3xtf32_top2_on_blobs_at_full_width():
+    """kmeans_xl's width (d=1024, k=4096) on few rows of Gaussian blobs
+    (centres N(0, 5^2), unit noise; each centroid a noisy draw of its
+    centre), where |x|^2 ~ 2.7e4 cancels down to d1 ~ 2e3. The emulated
+    products are within 1e-6 of their L1 mass of float64 (one TF32 pass
+    is ~1e-4 off), and the top-2 meets the card's tolerances against the
+    once-rounded float64 top-2 (an f32 product does not: its d1 is ~3e-5
+    of d1 off here)."""
+    n, d, k = 512, 1024, 4096
+    rng = np.random.default_rng(0)
+    centres = rng.normal(size=(k, d)) * 5.0
+    xt = torch.from_numpy((centres[rng.integers(0, k, n)]
+                           + rng.normal(size=(n, d))).astype(np.float32))
+    ct = torch.from_numpy((centres + rng.normal(size=(k, d)))
+                          .astype(np.float32))
+    x64, c64 = xt.double(), ct.double()
+    mass = x64.abs() @ c64.abs().T
+    err = (_dot_3xtf32(xt, ct).double() - x64 @ c64.T).abs() / mass
+    assert float(err.max()) < 1e-6
+    d2m = ((x64 ** 2).sum(1)[:, None] - 2.0 * x64 @ c64.T
+           + (c64 ** 2).sum(1))
+    _assert_round_top2(_top2_3xtf32(xt, ct), round_top2_exact(xt, ct), d2m)
+
+
+@pytest.mark.parametrize("d", [0, 7, 33, 784])
+def test_tma_operands_zero_padding(d):
+    """Rows padded with zeros to a multiple of 4 floats (TMA's 16-byte
+    stride) give the top-2 of the unpadded inputs; aligned widths are
+    passed through uncopied."""
+    x, c = (torch.from_numpy(a) for a in _inputs(300, d, 50, d + 1))
+    xp, cp, dp = fused_round.tma_operands(x, c)
+    assert dp % 4 == 0 and dp >= max(d, 4) and dp - d < 4 or dp == 4
+    assert xp.shape == (300, dp) and cp.shape == (50, dp)
+    if dp == d:
+        assert xp is x and cp is c
+    else:
+        assert not bool(xp[:, d:].any()) and not bool(cp[:, d:].any())
+    want = fused_round.fused_round_ref(x, c)
+    got = fused_round.fused_round_ref(xp, cp)
+    _assert_round_top2(got[:3], want[:3], tref.pairwise_dist2(x, c))
+    np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
 
 
 # -- dispatch ----------------------------------------------------------------

@@ -8,6 +8,7 @@ orders, so their floats need not match bit for bit), with the absolute
 slack that the |x|^2 - 2 x.c + |c|^2 expansion leaves in distances.
 """
 import dataclasses
+import inspect
 import math
 
 import jax
@@ -107,8 +108,21 @@ def test_should_grow_matches_jax(n_inf, rho):
 
 def test_codebook_from_numpy():
     C = np.arange(6, dtype=np.float32).reshape(3, 2)
-    st = codebook_from_numpy(C, [2, 0, 1])
+    st = codebook_from_numpy(C, [2, 0, 1], device="cpu")
     np.testing.assert_array_equal(_np(tstate.centroid_update(st).C), C)
+
+
+@pytest.mark.parametrize("fn", [state_from_numpy, codebook_from_numpy])
+def test_convert_defaults_to_the_card(fn):
+    """Both carry state onto the card unless asked, as the estimator does,
+    and a bare call raises where there is none."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: a bare call would succeed")
+    args = ((np.zeros((2, 2), np.float32), [1, 1])
+            if fn is codebook_from_numpy else (None,))
+    with pytest.raises(RuntimeError, match="is_available"):
+        fn(*args)
 
 
 # -- one nested round from the same state --------------------------------------
@@ -156,8 +170,9 @@ def test_nested_round_matches_jax(mid_fit, case, bounds, kernels):
         bounds=bounds, capacity=capacity, plan=jplan,
         n_valid=None if n_valid is None else jnp.int32(n_valid))
     tst, tinfo = trounds.nested_round(
-        torch.from_numpy(Xd), state_from_numpy(jtree), b=b, rho=INF,
-        bounds=bounds, capacity=capacity, plan=tplan, n_valid=n_valid)
+        torch.from_numpy(Xd), state_from_numpy(jtree, device="cpu"), b=b,
+        rho=INF, bounds=bounds, capacity=capacity, plan=tplan,
+        n_valid=n_valid)
 
     np.testing.assert_array_equal(_np(tst.points.a), _np(jst.points.a))
     for f in ("n_changed", "n_recomputed", "n_active", "overflow", "grow"):
@@ -181,8 +196,9 @@ def test_nested_round_refuses_unported_bounds(mid_fit):
     for bounds in ("elkan", "exponion"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             trounds.nested_round(torch.from_numpy(Xd),
-                                 state_from_numpy(jtree), b=1000, rho=INF,
-                                 bounds=bounds)
+                                 state_from_numpy(jtree, device="cpu"),
+                                 b=1000, rho=INF, bounds=bounds)
     with pytest.raises(NotImplementedError):
         state_from_numpy(dataclasses.replace(
-            jtree, elkan=jstate.ElkanBounds(l=np.zeros((1, 8)))))
+            jtree, elkan=jstate.ElkanBounds(l=np.zeros((1, 8)))),
+            device="cpu")
