@@ -24,12 +24,16 @@ Phases (each raises on failure, so any fault exits non-zero):
      held to their rtol (1e-5 for cluster_sum, 1e-4 for the fused
      rounds' sums, as tests/test_kernels.py holds them) relative to their
      L1 mass (sum of |w x| per entry), the scale of f32 rounding in a
-     sum of that many terms. Each kernel must give the same bits twice;
+     sum of that many terms. Each kernel must give the same bits twice,
+     and the sums of kernels 2-4 (the shared deterministic scatter) must
+     have the bits of the order oracle `ref.ordered_sums` (rows of a chunk
+     in row order, then the chunks in order) over the kernel's own labels;
   4. the main path at full size: ``NestedKMeans(FitConfig(k=50, b0=5000,
      algorithm="tb", rho=inf, bounds="hamerly2")).fit`` on 400,000
      ``infmnist_like`` rows (the paper's infMNIST experiment) with 10,000
      validation rows, then ``predict``. Each kernel's launch count is set
-     to 0 just before and read just after; all three must be > 0. A
+     to 0 just before and read just after; all three must be > 0. The
+     profiled second fit logs the scatter's device time by pass. A
      second identical fit must give bit-identical centroids and labels,
      and the same fit with ``kernel_backend="ref"`` (plain versions on
      the card) must reach a final validation MSE within 1e-3 relative;
@@ -42,10 +46,11 @@ Phases (each raises on failure, so any fault exits non-zero):
      f32, Gaussian blobs made on the card. Kernel 4 (the one-shot round)
      is held against its plain version as in phase 3 on the last 65,536
      rows, and its sums over all rows against plain sums taken in row
-     chunks. Then, with the launch counts set to 0 just before and read
-     just after: ``make_dp_round(mesh=None, fused=True)`` runs 3 Lloyd
-     steps (the batch MSE may not rise beyond 1e-6 relative), two steps
-     under a one-rank NCCL `DeviceMesh` must give the same bits as
+     chunks and, bit for bit, against the order oracle (the one check at
+     64 cluster tiles). Then, with the launch counts set to 0 just before
+     and read just after: ``make_dp_round(mesh=None, fused=True)`` runs 3
+     Lloyd steps (the batch MSE may not rise beyond 1e-6 relative), two
+     steps under a one-rank NCCL `DeviceMesh` must give the same bits as
      ``mesh=None``, and one unfused step (kernels 1 and 2) must give the
      same labels but for near-ties and C bit-identical on every cluster
      no such row touches. The fused step's labels must equal the float64
@@ -54,7 +59,10 @@ Phases (each raises on failure, so any fault exits non-zero):
      gaps to both are logged (kernel 1 sums x.c in f32 order, and parts
      from the fused step at near-ties where the f32 error decides). The
      profiled fused step gives kernel 4's parts by kernel: the
-     tensor-core top-2, the scatter, and the small passes. Last, kernel 4
+     tensor-core top-2, the scatter's three passes (row lists, sums over
+     the lists, chunk reduction), and the small passes; where the trace
+     lost the step's kernels, as torch.profiler has in some runs on the
+     card, the step is traced again, at most twice. Last, kernel 4
      is timed at that shape (mean of 3 after a warm-up) beside its plain
      version on a 2^18-row slice and its bound, the larger of the bytes
      over 3.35 TB/s and its operations at their type's peak (the
@@ -200,6 +208,12 @@ def _close(got, want, rtol, atol, what) -> float:
     return top
 
 
+def same_bits(got, want) -> bool:
+    """Every tensor of ``got`` has the shape and bits of ``want``'s."""
+    return all(g.shape == w.shape and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
 def _mass_close(got, want, mass, what, rtol=1e-5) -> float:
     """|got - want| <= rtol * mass + 1e-4 (mass: sum of |terms|)."""
     err = (got - want).abs()
@@ -251,8 +265,10 @@ def check_cluster_sum(n, d, k) -> float:
     S2, v2 = cluster_sum.cluster_sum_cuda(x, a, k, weights=w)
     need(torch.equal(S, S2) and torch.equal(v, v2),
          "cluster_sum is not deterministic")
+    need(same_bits((S, v), ref.ordered_sums(x, k, a, w)),
+         "cluster_sum differs from the order oracle")
     log(f"    cluster_sum n={n} d={d} k={k} (+1/0/-1 weights): max abs err "
-        f"{e:.3g}, second run bit-identical")
+        f"{e:.3g}, second run and the order oracle bit-identical")
     return e
 
 
@@ -301,8 +317,12 @@ def check_fused(n, d, k) -> float:
     again = fused_round.fused_nested_round_cuda(*args)
     need(all(torch.equal(g, a) for g, a in zip(got, again)),
          "fused_nested_round is not deterministic")
+    need(same_bits(got[3:], ref.ordered_sums(x, k, a_prev=a_prev,
+                                             a_new=got[0], d_new=got[1])),
+         "fused_nested_round's sums differ from the order oracle")
     log(f"    fused_nested_round n={n} d={d} k={k}: max abs err {e:.3g}, "
-        f"tied labels {ties}, second run bit-identical")
+        f"tied labels {ties}, second run and the order oracle (sums) "
+        f"bit-identical")
     return e
 
 
@@ -354,7 +374,7 @@ def check_fused_round(x, c, plain_rows=None) -> float:
     """Kernel 4's top-2 on the last ``plain_rows`` rows (all rows if None)
     against `round_top2_exact`, its sums over all rows against plain
     sums; the d1 gaps to the plain version (an f32 product) are logged."""
-    from repro_torch.kernels import fused_round
+    from repro_torch.kernels import fused_round, ref
     n, k = x.shape[0], c.shape[0]
     got = fused_round.fused_round_cuda(x, c)
     torch.cuda.synchronize()
@@ -385,11 +405,15 @@ def check_fused_round(x, c, plain_rows=None) -> float:
     again = fused_round.fused_round_cuda(x, c)
     need(all(torch.equal(g, a2) for g, a2 in zip(got, again)),
          "fused_round is not deterministic")
+    del again
+    need(same_bits(got[3:], ref.ordered_sums(x, k, got[0], d1sq=got[1])),
+         "fused_round's sums differ from the order oracle")
     rows = "all" if plain_rows is None else f"the last {plain_rows}"
     log(f"    fused_round n={n} d={x.shape[1]} k={k} (top-2 on {rows} rows)"
         f": max abs err {e:.3g} (d1 {e1:.3g}, d2 {e2:.3g} from the "
         f"once-rounded float64 values), tied labels {ties}, second run "
-        f"bit-identical; d1 {_max_gap(d1, plain_d1):.3g} from the plain "
+        f"and the order oracle (S, v, sse) bit-identical; d1 "
+        f"{_max_gap(d1, plain_d1):.3g} from the plain "
         f"version's f32 product, which is {_max_gap(plain_d1, want[1]):.3g}"
         f" from the once-rounded values")
     return e
@@ -514,6 +538,7 @@ def main_path_phase() -> dict:
         f"centroids and labels: {same}")
     need(same, "a second identical fit is not bit-identical")
     profile_report(prof, wall, wall2)
+    scatter_report(prof, "fit")
 
     kmr, wallr = fit_once(X, Xv, kernel_backend="ref")
     rel = abs(kmr.final_mse_ - km.final_mse_) / abs(kmr.final_mse_)
@@ -673,25 +698,69 @@ def _rel_gap(C, C_ref) -> float:
 
 #: kernel 4's device kernels, by the name the profiler gives them
 TOP2_KERNEL = "nkm::tc::tc_top2_kernel<false>"
+SCATTER_KERNEL = "nkm::scatter_rows<2>"
 ROUND_PARTS = {TOP2_KERNEL: "top-2 (tensor cores, 3xTF32)",
-               "nkm::scatter_partials<2>": "scatter",
-               "nkm::reduce_chunks": "chunk reduction",
+               "nkm::bucket_rows<2>": "scatter: row lists",
+               SCATTER_KERNEL: "scatter: sums over the lists",
+               "nkm::reduce_chunks": "scatter: chunk reduction",
                "nkm::tc::split_tf32_kernel": "c split",
                "nkm::tc::sqnorm_kernel": "|x|^2 and |c|^2"}
+#: the scatter's device kernels in all modes (cluster_sum is mode 0)
+SCATTER_PARTS = {"nkm::bucket_rows": "row lists",
+                 "nkm::scatter_rows": "sums over the lists",
+                 "nkm::reduce_chunks": "chunk reduction"}
+
+
+def device_parts(prof, names) -> dict:
+    """{name: (device ms, launches)} of the device kernels whose name
+    holds each of ``names``, in a profiled run."""
+    out = dict.fromkeys(names, (0.0, 0))
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            for name in names:
+                if name in e.key:
+                    ms, count = out[name]
+                    out[name] = (ms + e.self_device_time_total / 1e3,
+                                 count + e.count)
+    return out
+
+
+def scatter_report(prof, run: str) -> None:
+    """Logs the scatter's device time in a profiled run, by pass."""
+    parts = device_parts(prof, SCATTER_PARTS)
+    total = sum(ms for ms, _ in parts.values())
+    log(f"    the scatter in the profiled {run}: {total:.2f} ms device ("
+        + ", ".join(f"{what} {parts[name][0]:.2f} ms in "
+                    f"{parts[name][1]} launches"
+                    for name, what in SCATTER_PARTS.items()) + ")")
 
 
 def fused_round_parts(prof) -> dict:
     """Device ms of each of kernel 4's kernels in a profiled run."""
-    out = dict.fromkeys(ROUND_PARTS, 0.0)
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            for name in ROUND_PARTS:
-                if name in e.key:
-                    out[name] += e.self_device_time_total / 1e3
+    out = {name: ms for name, (ms, _) in
+           device_parts(prof, ROUND_PARTS).items()}
     log("    fused_round's parts in the profiled dp step: " + ", ".join(
         f"{what} ({name}) {out[name]:.1f} ms"
         for name, what in ROUND_PARTS.items()))
+    scatter = sum(out[name] for name in ROUND_PARTS
+                  if name.split("<")[0] in SCATTER_PARTS)
+    log(f"    the scatter's three passes together: {scatter:.1f} ms")
     return out
+
+
+def trace_again(step, report) -> None:
+    """Runs ``step`` twice under a new trace, the second time traced,
+    after a pause; ``report`` reads the trace."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1),
+                   on_trace_ready=report)
+    with prof:
+        for i in range(2):
+            if i == 1:
+                time.sleep(0.2)
+            step()
+            prof.step()
 
 
 def dp_round_phase(X, C0):
@@ -716,7 +785,7 @@ def dp_round_phase(X, C0):
     parts = {}
 
     def report(p):
-        profile_report(p, walls[0], walls[2], what="dp step")
+        profile_report(p, walls[0], walls[-1], what="dp step")
         parts.update(fused_round_parts(p))
 
     prof = profile(
@@ -740,6 +809,16 @@ def dp_round_phase(X, C0):
             prof.step()
     for m0, m1 in zip(mses, mses[1:]):
         need(m1 <= m0 * (1 + 1e-6), "the batch MSE rose in a Lloyd step")
+    # torch.profiler on the card has lost the kernels of a traced step in
+    # some runs (the launch counts show they ran): the last step is traced
+    # again, at most twice, until its trace holds the top-2 and the scatter
+    retraced = 0
+    while retraced < 2 and not all(parts.get(name, 0.0) > 0.0
+                                   for name in (TOP2_KERNEL, SCATTER_KERNEL)):
+        log("    the trace lost the step's kernels; the last step is traced "
+            "again")
+        trace_again(lambda: walls.append(_timed(fused, X, C_in)[1]), report)
+        retraced += 1
 
     # one rank over NCCL: the collective path must give the same bits
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -793,12 +872,14 @@ def dp_round_phase(X, C0):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"    launches on the dp path (3 fused + 2 mesh + 1 unfused step): "
+    log(f"    launches on the dp path ({3 + 2 * retraced} fused + 2 mesh + 1 "
+        f"unfused step): "
         f"{launches}; peak device memory {peak / 2 ** 30:.2f} GiB")
     need(launches["fused_round"] > 0,
          "fused_round was never launched on the dp path")
-    need(parts.get(TOP2_KERNEL, 0.0) > 0.0,
-         f"the profiled dp step shows no {TOP2_KERNEL}")
+    for name in (TOP2_KERNEL, SCATTER_KERNEL):
+        need(parts.get(name, 0.0) > 0.0,
+             f"the profiled dp step shows no {name}")
     return launches, parts
 
 

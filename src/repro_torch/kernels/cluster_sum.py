@@ -1,7 +1,8 @@
 """Weighted per-cluster sums: the CUDA kernel's wrapper.
 
 Port of `repro/kernels/cluster_sum.py::cluster_sum_pallas`; the kernel is
-``csrc/cluster_sum.cu`` and its plain version `ref.cluster_sum_ref`.
+``csrc/cluster_sum.cu`` and its plain version `ref.cluster_sum_ref`. The
+kernel sums in the order of `ref.ordered_sums`, which gives its bits.
 """
 from __future__ import annotations
 
@@ -15,11 +16,30 @@ from repro_torch.kernels.plan import chunk_rows
 
 #: launches of the CUDA kernel in this process
 launches = 0
+#: clusters per tile of the scatter's row lists (``SK`` in csrc/common.cuh)
+SCATTER_TILE = 64
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return _build.bind("cluster_sum", "cluster_sum_f32", 5, 4)
+    return _build.bind("cluster_sum", "cluster_sum_f32", 6, 4)
+
+
+def scatter_scratch(n: int, k: int, d: int, n_sums: int, slots: int,
+                    device) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """(rows, partial, lists): the deterministic scatter's chunk size and
+    scratch for n > 0 rows. ``partial`` holds each chunk's sums (k*d +
+    n_sums*k floats a chunk); ``lists`` the count and offset of each
+    (chunk, cluster tile) list, then ``slots`` list entries a row (2 for
+    the nested round's signed rows, else 1)."""
+    rows = chunk_rows(n)
+    n_chunks = -(-n // rows)
+    n_tiles = -(-k // SCATTER_TILE)
+    partial = torch.empty(n_chunks * (k * d + n_sums * k),
+                          dtype=torch.float32, device=device)
+    lists = torch.empty(2 * n_chunks * n_tiles + slots * n,
+                        dtype=torch.int32, device=device)
+    return rows, partial, lists
 
 
 def cluster_sum_cuda(x: torch.Tensor, a: torch.Tensor, k: int, *,
@@ -45,13 +65,10 @@ def cluster_sum_cuda(x: torch.Tensor, a: torch.Tensor, k: int, *,
                          f", k={k}")
     out = torch.zeros(k * d + k, dtype=torch.float32, device=dev)
     if n > 0:
-        rows = chunk_rows(n)
-        n_chunks = -(-n // rows)
-        partial = torch.empty(n_chunks * (k * d + k), dtype=torch.float32,
-                              device=dev)
+        rows, partial, lists = scatter_scratch(n, k, d, 1, 1, dev)
         err = _fn()(x.data_ptr(), a.data_ptr(), weights.data_ptr(),
-                    partial.data_ptr(), out.data_ptr(), n, k, d, rows,
-                    _build.stream(dev))
+                    partial.data_ptr(), lists.data_ptr(), out.data_ptr(),
+                    n, k, d, rows, _build.stream(dev))
         _build.check(err, "cluster_sum", "cluster_sum_f32")
         launches += 1
     return out[:k * d].view(k, d), out[k * d:]

@@ -14,8 +14,10 @@
 // in f32 (157 KB) but not k_pad=128 nor large k*d, so the centroids are
 // tiled over k exactly as in assign_top2 (common.cuh), with the keep
 // select and sqrt in the row epilogue. Each row then adds at most two
-// signed rows of x to dS: that is the deterministic chunked scatter of
-// cluster_sum, reading x again only for rows that join, leave or are new.
+// signed rows of x to dS: that is the deterministic scatter of
+// cluster_sum (common.cuh), whose lists hold every row at a_new's tile
+// (for its sse) and a leaver at a_prev's too, and which reads x again
+// only for rows that join, leave or are new.
 // Grid pad rows do not exist (rows beyond b are never touched) and
 // invalid rows add nothing. No float atomics.
 //
@@ -26,13 +28,14 @@
 #include "common.cuh"
 
 // cn: scratch of k floats; partial: scratch of n_chunks * (k*d + 2k)
-// floats, n_chunks = ceil(n / chunk_rows); out: k*d + 2k floats, dS, dv,
+// floats, n_chunks = ceil(n / chunk_rows); lists: scratch of
+// 2 * n_chunks * ceil(k / 64) + 2n ints; out: k*d + 2k floats, dS, dv,
 // then sse. settled and valid are bytes (torch.bool).
 extern "C" int fused_nested_round_f32(
     const void* x, const void* c, const void* a_prev, const void* settled,
     const void* d_keep, const void* lb_keep, const void* valid, void* a_new,
-    void* d_new, void* lb_new, void* cn, void* partial, void* out, int n,
-    int k, int d, int chunk_rows, void* stream) {
+    void* d_new, void* lb_new, void* cn, void* partial, void* lists,
+    void* out, int n, int k, int d, int chunk_rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   nkm::NestedArgs nest{static_cast<const int*>(a_prev),
                        static_cast<const uint8_t*>(settled),
@@ -55,6 +58,7 @@ extern "C" int fused_nested_round_f32(
   p.a_new = static_cast<const int*>(a_new);
   p.d_new = static_cast<const float*>(d_new);
   p.partial = static_cast<float*>(partial);
+  p.lists = static_cast<int*>(lists);
   p.chunk_rows = chunk_rows;
   p.stride = k * d + 2 * k;
   nkm::launch_scatter<nkm::SCATTER_NESTED>(p, static_cast<float*>(out), s);

@@ -14,30 +14,33 @@
 // its wrapper removes the grid's pad rows again. Here the top-2 is the
 // tensor-core kernel of tc_top2.cuh (TMA, 3xTF32 wgmma, running top-2 in
 // registers; its note gives its design and bound), and each row adds
-// itself once, into its own cluster, by the deterministic two-pass
-// chunked scatter of cluster_sum (common.cuh; no float atomics: two runs
-// give the same bits). Rows >= n are never touched, so there are no pad
+// itself once, into its own cluster, by the deterministic scatter of
+// cluster_sum (common.cuh): the rows of each chunk listed by cluster
+// tile, each (chunk, feature tile, cluster tile) summing its own list in
+// row order, the chunks summed in chunk order; no float atomics, two runs
+// give the same bits. Rows >= n are never touched, so there are no pad
 // rows to correct.
 //
 // Bound on the H100 SXM: operations. 3 x 2*n*k*d TF32 operations for the
 // distances at 495 TFLOP/s plus n*d f32 adds for S, against one read of
 // x. At the kmeans_xl shape (n=4,194,304, d=1024, k=4096) that is 213 ms,
 // against 17.2 GB, 5.1 ms at 3.35 TB/s (full f32 on the CUDA cores would
-// be 525 ms at 67 TFLOP/s). The scatter reads x a second time, which the
-// bound does not count.
+// be 525 ms at 67 TFLOP/s). The scatter alone is bound by bytes: a second
+// read of x (17.2 GB, 5.1 ms) plus writing and reading its partials, 256
+// chunks of (k*d + 2k) floats, 4.3 GB each way (about 2.6 ms).
 #include "tc_top2.cuh"
 
 // The top-2 reads xp (n, dp) and cp (k, dp): x and c, or copies of them
 // zero-padded to a row of dp floats, dp % 4 == 0 (TMA's 16-byte stride);
 // the scatter reads x (n, d). Scratch: c_big, c_small (k * dp floats), cn
 // (k), xn (n), partial: n_chunks * (k*d + 2k) floats, n_chunks =
-// ceil(n / chunk_rows). Out: a (n) int32, d1 and d2 (n) f32; out: k*d + 2k
-// floats, S, v, then sse.
+// ceil(n / chunk_rows), lists: 2 * n_chunks * ceil(k / 64) + n ints. Out:
+// a (n) int32, d1 and d2 (n) f32; out: k*d + 2k floats, S, v, then sse.
 extern "C" int fused_round_f32(const void* x, const void* xp, const void* cp,
                                void* c_big, void* c_small, void* cn, void* xn,
                                void* a, void* d1, void* d2, void* partial,
-                               void* out, int n, int k, int d, int dp,
-                               int chunk_rows, void* stream) {
+                               void* lists, void* out, int n, int k, int d,
+                               int dp, int chunk_rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   nkm::Top2Out top2{static_cast<int*>(a), static_cast<float*>(d1),
                     static_cast<float*>(d2)};
@@ -55,6 +58,7 @@ extern "C" int fused_round_f32(const void* x, const void* xp, const void* cp,
   p.a = static_cast<const int*>(a);
   p.d1sq = static_cast<const float*>(d1);
   p.partial = static_cast<float*>(partial);
+  p.lists = static_cast<int*>(lists);
   p.chunk_rows = chunk_rows;
   p.stride = k * d + 2 * k;
   nkm::launch_scatter<nkm::SCATTER_ROUND>(p, static_cast<float*>(out), s);

@@ -25,7 +25,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.plan import chunk_rows
+from repro_torch.kernels.cluster_sum import scatter_scratch
 
 #: launches of the nested round's CUDA kernel in this process
 launches = 0
@@ -35,12 +35,12 @@ round_launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return _build.bind("fused_nested_round", "fused_nested_round_f32", 13, 4)
+    return _build.bind("fused_nested_round", "fused_nested_round_f32", 14, 4)
 
 
 @functools.lru_cache(maxsize=None)
 def _round_fn():
-    return _build.bind("fused_round", "fused_round_f32", 12, 5)
+    return _build.bind("fused_round", "fused_round_f32", 13, 5)
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,19 +100,16 @@ def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     out = torch.zeros(k * d + 2 * k, dtype=torch.float32, device=dev)
     if n > 0:
-        rows = chunk_rows(n)
-        n_chunks = -(-n // rows)
         c_split = torch.empty(2, k, dp, dtype=torch.float32, device=dev)
         cn = torch.empty(k, dtype=torch.float32, device=dev)
         xn = torch.empty(n, dtype=torch.float32, device=dev)
-        partial = torch.empty(n_chunks * (k * d + 2 * k),
-                              dtype=torch.float32, device=dev)
+        rows, partial, lists = scatter_scratch(n, k, d, 2, 1, dev)
         err = _round_fn()(x.data_ptr(), xp.data_ptr(), cp.data_ptr(),
                           c_split[0].data_ptr(), c_split[1].data_ptr(),
                           cn.data_ptr(), xn.data_ptr(), a.data_ptr(),
                           d1.data_ptr(), d2.data_ptr(), partial.data_ptr(),
-                          out.data_ptr(), n, k, d, dp, rows,
-                          _build.stream(dev))
+                          lists.data_ptr(), out.data_ptr(), n, k, d, dp,
+                          rows, _build.stream(dev))
         _build.check(err, "fused_round", "fused_round_f32")
         round_launches += 1
     kd = k * d
@@ -200,17 +197,14 @@ def fused_nested_round_cuda(x, c, a_prev, settled, d_keep, lb_keep, valid):
     lb_new = torch.empty(n, dtype=torch.float32, device=dev)
     out = torch.zeros(k * d + 2 * k, dtype=torch.float32, device=dev)
     if n > 0:
-        rows = chunk_rows(n)
-        n_chunks = -(-n // rows)
         cn = torch.empty(k, dtype=torch.float32, device=dev)
-        partial = torch.empty(n_chunks * (k * d + 2 * k),
-                              dtype=torch.float32, device=dev)
+        rows, partial, lists = scatter_scratch(n, k, d, 2, 2, dev)
         err = _fn()(x.data_ptr(), c.data_ptr(), a_prev.data_ptr(),
                     settled.data_ptr(), d_keep.data_ptr(),
                     lb_keep.data_ptr(), valid.data_ptr(), a_new.data_ptr(),
                     d_new.data_ptr(), lb_new.data_ptr(), cn.data_ptr(),
-                    partial.data_ptr(), out.data_ptr(), n, k, d, rows,
-                    _build.stream(dev))
+                    partial.data_ptr(), lists.data_ptr(), out.data_ptr(),
+                    n, k, d, rows, _build.stream(dev))
         _build.check(err, "fused_nested_round", "fused_nested_round_f32")
         launches += 1
     kd = k * d

@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.plan import chunk_rows
+
 
 def pairwise_dist2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Squared euclidean distances, (n, k) f32, for x (n, d) and c (k, d):
@@ -63,3 +65,86 @@ def cluster_sum_ref(x: torch.Tensor, a: torch.Tensor, k: int, *,
     v = torch.zeros((k,), dtype=torch.float32, device=x.device)
     v.index_add_(0, idx, weights)
     return s, v
+
+
+def ordered_sums(x: torch.Tensor, k: int, a: Optional[torch.Tensor] = None,
+                 weights: Optional[torch.Tensor] = None, *,
+                 a_prev: Optional[torch.Tensor] = None,
+                 a_new: Optional[torch.Tensor] = None,
+                 d_new: Optional[torch.Tensor] = None,
+                 d1sq: Optional[torch.Tensor] = None):
+    """The deterministic scatter's sums in the kernels' own order: the
+    order oracle of ``csrc/common.cuh``. Not on any path; the tests and
+    ``chip_smoke.py`` hold the kernels to it bit for bit.
+
+    Three modes, as the kernels take them:
+
+    * ``a`` and ``weights`` (default 1): (S, v), row r adding w[r] x[r]
+      and w[r] at a[r] where w[r] != 0 and 0 <= a[r] < k
+      (`cluster_sum`);
+    * ``a_prev``, ``a_new``, ``d_new``: (dS, dv, sse), +x and +1 at a_new
+      for joins and new rows, -x and -1 at a_prev for leaves, d_new^2 at
+      a_new clamped to [0, k) for every row (the nested round);
+    * ``a`` and ``d1sq``: (S, v, sse), x and 1 and d1sq at a (the one-shot
+      round).
+
+    The order: rows in chunks of ``plan.chunk_rows(n)``; within a chunk,
+    row by row in row order, each add ``acc + w * x`` in f32 with the
+    product rounded first (the kernels' FMA gives the same bits for w in
+    {-1, 0, 1}, which is all the main path uses); then the chunks, in
+    chunk order, from +0. Each step adds row p of every chunk at once
+    with ``index_add_`` at indices that differ, so it is exact on any
+    device.
+    """
+    x = x.float()
+    n, d = x.shape
+    dev = x.device
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    nothing = torch.full((n,), k, dtype=torch.long, device=dev)
+    sse = None
+    if a_new is not None:
+        ap, an = a_prev.long(), a_new.long()
+        seen = ap >= 0
+        changed = seen & (an != ap)
+        joins = (changed | ~seen) & (an >= 0)
+        terms = [(torch.where(joins, an.clamp(0, k - 1), nothing), ones),
+                 (torch.where(changed, ap.clamp(0, k - 1), nothing), -ones)]
+        d_new = d_new.float()
+        sse = (an.clamp(0, k - 1), d_new * d_new)
+    else:
+        a = a.long()
+        inside = (a >= 0) & (a < k)
+        if d1sq is not None:
+            at = torch.where(inside, a, nothing)
+            terms = [(at, ones)]
+            sse = (at, d1sq.float())
+        else:
+            w = ones if weights is None else weights.float()
+            terms = [(torch.where(inside & (w != 0), a, nothing), w)]
+    # per chunk: k clusters and one slot for adds that go nowhere
+    rows = chunk_rows(max(n, 1))
+    n_chunks = -(-n // rows)
+    S = torch.zeros(n_chunks * (k + 1), d, dtype=torch.float32, device=dev)
+    v = torch.zeros(n_chunks * (k + 1), dtype=torch.float32, device=dev)
+    e = torch.zeros_like(v)
+    first = torch.arange(n_chunks, device=dev) * rows
+    slot = torch.arange(n_chunks, device=dev) * (k + 1)
+    for p in range(min(rows, n)):
+        r = first + p
+        keep = r < n
+        r, at = r[keep], slot[keep]
+        for idx, w in terms:
+            S.index_add_(0, at + idx[r], x[r] * w[r, None])
+            v.index_add_(0, at + idx[r], w[r])
+        if sse is not None:
+            e.index_add_(0, at + sse[0][r], sse[1][r])
+    out = [S.view(n_chunks, k + 1, d)[:, :k], v.view(n_chunks, k + 1)[:, :k],
+           e.view(n_chunks, k + 1)[:, :k]]
+    sums = []
+    for part in out[:2] if sse is None else out:
+        total = torch.zeros(part.shape[1:], dtype=torch.float32,
+                            device=dev)
+        for ch in range(n_chunks):
+            total += part[ch]
+        sums.append(total)
+    return tuple(sums)

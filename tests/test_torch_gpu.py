@@ -215,6 +215,86 @@ def test_fused_round_kernel_exact_ties(cuda):
         torch.testing.assert_close(d1, want[1], rtol=1e-5, atol=1e-4)
 
 
+# -- the scatter against its order oracle, bit for bit -----------------------
+#
+# The three kernels sum in the order of `ref.ordered_sums`: with weights in
+# {-1, 0, 1} (all the main path uses) they give its bits. Cases: the
+# shapes above, k = 4096 (64 cluster tiles) at a few thousand rows, an n
+# that is no multiple of its chunk (70001 rows, chunks of 512), every row
+# in one cluster, no row adding to S (all weights 0; in the nested round
+# no row joins or leaves), and k = 1.
+
+SCATTER_CASES = ([shape + ("random",) for shape in SHAPES]
+                 + [(3000, 64, 4096, "random"), (70001, 16, 50, "random"),
+                    (5000, 40, 300, "one cluster"),
+                    (5000, 40, 50, "weights 0"), (5000, 33, 1, "random")])
+
+
+def _scatter_inputs(n, d, k, case, device):
+    """x, c (c[0] nearest every row under "one cluster"), the labels and
+    weights of cluster_sum, and the nested round's a_prev, settled,
+    d_keep, lb_keep and valid."""
+    rng = np.random.default_rng(n + d + k)
+    x, c = _inputs(n, d, k, n * 5 + k, device)
+    a = rng.integers(0, k, n).astype(np.int32)
+    w = rng.choice([-1.0, 0.0, 1.0], n).astype(np.float32)
+    a_prev = rng.integers(-1, k, n).astype(np.int32)
+    settled = (rng.random(n) < 0.3) & (a_prev >= 0)
+    valid = rng.random(n) < 0.9
+    if case == "one cluster":
+        a[:] = k // 2
+        c[1:] = c[0] + 1e3
+    elif case == "weights 0":
+        w[:] = 0.0
+        a_prev = rng.integers(0, k, n).astype(np.int32)
+        settled[:] = True
+        valid[:] = True
+    host = (a, w, a_prev, settled, rng.random(n).astype(np.float32),
+            rng.random(n).astype(np.float32), valid)
+    return [x, c] + [torch.from_numpy(h).to(device) for h in host]
+
+
+def _assert_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w), \
+            float((g - w).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,case", SCATTER_CASES + [(3000, 0, 7,
+                                                         "random")])
+def test_cluster_sum_kernel_equals_the_order_oracle(cuda, n, d, k, case):
+    x, _, a, w = _scatter_inputs(n, d, k, case, cuda)[:4]
+    got = ops.cluster_sum(x, a, k, weights=w)
+    torch.cuda.synchronize()
+    _assert_bits(got, ref.ordered_sums(x, k, a, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,case", SCATTER_CASES)
+def test_fused_nested_round_kernel_equals_the_order_oracle(cuda, n, d, k,
+                                                           case):
+    x, c, _, _, *nested = _scatter_inputs(n, d, k, case, cuda)
+    got = fused_round.fused_nested_round_cuda(x, c, *nested)
+    torch.cuda.synchronize()
+    if case == "weights 0":
+        assert torch.equal(got[0], nested[0])
+        assert not bool(got[3].any()) and not bool(got[4].any())
+    _assert_bits(got[3:], ref.ordered_sums(x, k, a_prev=nested[0],
+                                           a_new=got[0], d_new=got[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,case", SCATTER_CASES)
+def test_fused_round_kernel_equals_the_order_oracle(cuda, n, d, k, case):
+    x, c = _scatter_inputs(n, d, k, case, cuda)[:2]
+    got = fused_round.fused_round_cuda(x, c)
+    torch.cuda.synchronize()
+    if case == "one cluster":
+        assert bool((got[0] == 0).all())
+    _assert_bits(got[3:], ref.ordered_sums(x, k, got[0], d1sq=got[1]))
+
+
 @pytest.mark.gpu
 def test_fit_on_card_matches_cpu(cuda):
     """A small fit through the kernels gives the labels and schedule of

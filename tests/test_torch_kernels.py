@@ -169,6 +169,123 @@ def test_fused_nested_round_matches_jax(n, d, k):
     np.testing.assert_array_equal(_np(got[1])[keep], args[4][keep])
 
 
+# -- the scatter's order oracle ----------------------------------------------
+#
+# `ref.ordered_sums` sums in the CUDA scatter's documented order (rows of
+# each chunk in row order, then the chunks in order); the kernels are held
+# to it bit for bit on the card (tests/test_torch_gpu.py). Here it is held
+# to a plain numpy float32 loop bit for bit, and to the plain versions and
+# JAX within the existing tolerances.
+
+def _loop_sums(x, k, adds, sse_adds):
+    """S, v, sse by a float32 loop: per chunk of `plan.chunk_rows(n)`
+    rows, row by row (``adds[r]``: (cluster, weight) pairs, ``sse_adds[r]``
+    (cluster, value) pairs), then the chunks in order."""
+    n, d = x.shape
+    rows = tplan.chunk_rows(max(n, 1))
+    S = np.zeros((k, d), np.float32)
+    v = np.zeros(k, np.float32)
+    e = np.zeros(k, np.float32)
+    for lo in range(0, n, rows):
+        Sc, vc, ec = np.zeros_like(S), np.zeros_like(v), np.zeros_like(e)
+        for r in range(lo, min(n, lo + rows)):
+            for j, w in adds[r]:
+                Sc[j] += np.float32(w) * x[r]
+                vc[j] += np.float32(w)
+            for j, s in sse_adds[r]:
+                ec[j] += np.float32(s)
+        S += Sc
+        v += vc
+        e += ec
+    return S, v, e
+
+
+def _scatter_case(mode, n, d, k, seed):
+    """Inputs of one mode, the oracle's keyword arguments, and the loop's
+    (adds, sse_adds)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    if mode == "sum":
+        a = rng.integers(-2, k + 2, n).astype(np.int32)
+        w = rng.normal(size=n).astype(np.float32)
+        w[rng.random(n) < 0.4] = 0.0
+        kw = dict(a=a, weights=w)
+        adds = [[(a[r], w[r])] if w[r] != 0 and 0 <= a[r] < k else []
+                for r in range(n)]
+        sse = [[] for _ in range(n)]
+    elif mode == "nested":
+        ap = rng.integers(-1, k, n).astype(np.int32)
+        an = np.where(rng.random(n) < 0.7, ap,
+                      rng.integers(-1, k, n)).astype(np.int32)
+        dn = rng.random(n).astype(np.float32)
+        kw = dict(a_prev=ap, a_new=an, d_new=dn)
+        adds, sse = [], []
+        for r in range(n):
+            seen = ap[r] >= 0
+            changed = seen and an[r] != ap[r]
+            row = [(an[r], 1.0)] if (changed or not seen) and an[r] >= 0 \
+                else []
+            if changed:
+                row.append((min(ap[r], k - 1), -1.0))
+            adds.append(row)
+            sse.append([(min(max(an[r], 0), k - 1), dn[r] * dn[r])])
+    else:
+        a = rng.integers(0, k, n).astype(np.int32)
+        d1 = (rng.random(n) * 10).astype(np.float32)
+        kw = dict(a=a, d1sq=d1)
+        adds = [[(a[r], 1.0)] for r in range(n)]
+        sse = [[(a[r], d1[r])] for r in range(n)]
+    return x, kw, adds, sse
+
+
+@pytest.mark.parametrize("mode", ["sum", "nested", "round"])
+@pytest.mark.parametrize("n,d,k", [(700, 5, 7), (1100, 3, 130), (40, 2, 1)])
+def test_ordered_sums_equal_a_float32_loop(mode, n, d, k):
+    x, kw, adds, sse = _scatter_case(mode, n, d, k, n + k)
+    got = tref.ordered_sums(torch.from_numpy(x), k, **{
+        key: torch.from_numpy(val) for key, val in kw.items()})
+    want = _loop_sums(x, k, adds, sse)
+    assert len(got) == (2 if mode == "sum" else 3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), w)
+
+
+@pytest.mark.parametrize("n,d,k", SHAPES)
+def test_ordered_sums_match_cluster_sum(n, d, k):
+    rng = np.random.default_rng(n * 7 + d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    a = rng.integers(0, k, n).astype(np.int32)
+    w = rng.choice([-1.0, 0.0, 1.0], n).astype(np.float32)
+    xt, at, wt = (torch.from_numpy(t) for t in (x, a, w))
+    s_o, v_o = tref.ordered_sums(xt, k, at, wt)
+    xj, aj, wj = jnp.asarray(x), jnp.asarray(a), jnp.asarray(w)
+    kp = k + (-k % 128)
+    s_p, v_p = cluster_sum_pallas(xj, aj, kp, weights=wj, bn=128, bd=128,
+                                  interpret=True)
+    for s_w, v_w in ((s_p[:k], v_p[:k]),
+                     tref.cluster_sum_ref(xt, at, k, weights=wt)):
+        np.testing.assert_allclose(_np(s_o), _np(s_w), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(_np(v_o), _np(v_w), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,k", [(64, 7, 5), (300, 784, 50),
+                                   (1000, 200, 257), (100, 16, 1)])
+def test_ordered_sums_nested_and_round_modes(n, d, k):
+    """The nested mode against `fused_round.delta_sums`, the round mode
+    against the plain one-shot round's sums, at those tests' tolerances."""
+    args = [torch.from_numpy(t) for t in _nested_inputs(n, d, k, n * 3 + k)]
+    a_new, d_new = fused_round.fused_nested_round_ref(*args)[:2]
+    x, a_prev = args[0], args[2]
+    got = tref.ordered_sums(x, k, a_prev=a_prev, a_new=a_new, d_new=d_new)
+    for g, w in zip(got, fused_round.delta_sums(x, a_prev, a_new, d_new,
+                                                k)):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-3)
+    a, d1, _, S, v, sse = fused_round.fused_round_ref(x, args[1])
+    got = tref.ordered_sums(x, k, a, d1sq=d1)
+    for g, w in zip(got, (S, v, sse)):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-3)
+
+
 # -- the tensor-core top-2's arithmetic, emulated ---------------------------
 #
 # The one-shot round's CUDA top-2 (csrc/tc_top2.cuh) forms x.c in 3xTF32:
