@@ -9,15 +9,23 @@ Phases (each raises on failure, so any fault exits non-zero):
      nvcc per source, in parallel), printing the build time, ptxas's
      registers / shared memory / spills per kernel, and the count of
      tensor-core (HGMMA, HMMA) and TMA-load (UTMALDG) instructions in each
-     library's SASS (``cuobjdump -sass``); fused_round's must have both
-     HGMMA and UTMALDG;
+     library's SASS (``cuobjdump -sass``); the libraries of the three
+     f32 top-2s (assign_top2, fused_nested_round, fused_round: the
+     tensor-core top-2 of tc_top2.cuh) must have both HGMMA and UTMALDG;
   3. hold each kernel against its plain PyTorch version on the card, on
      inputs made from a numpy seed: at the main-path shape (n=400,000,
      d=784, k=50), at k=1, k=257 and an unaligned n, kernel 1 also in
      bf16. Kernel 4's top-2 is held to the plain version's with x.c,
      |x|^2 and |c|^2 taken in float64 and rounded once to f32 (an f32
      product is too far off where they cancel, as at kmeans_xl width);
-     its distance from the plain version itself is logged. Tolerances
+     its distance from the plain version itself is logged. Kernels 1 (in
+     f32) and 3 are held, beyond their plain versions, to the ref
+     expression's top-2 taken that way (`assign_top2_exact`), within
+     FULL_RTOL = 5e-7 of |x|^2 + max |c|^2 plus FULL_ATOL = 1e-5, and the
+     largest gap is logged. The plain sums on the card
+     (`ref.cluster_sum_ref`) must give the same bits twice and agree with
+     ``index_add_``, at the main-path shape and at kmeans_xl's width.
+     Tolerances
      are those of tests/test_kernels.py: f32 rtol 1e-5 (atol 1e-4), bf16 rtol 2e-2;
      labels may differ only where the two distances tie within 100x the
      tolerance. Sums over many rows are
@@ -33,14 +41,26 @@ Phases (each raises on failure, so any fault exits non-zero):
      ``infmnist_like`` rows (the paper's infMNIST experiment) with 10,000
      validation rows, then ``predict``. Each kernel's launch count is set
      to 0 just before and read just after; all three must be > 0. The
-     profiled second fit logs the scatter's device time by pass. A
-     second identical fit must give bit-identical centroids and labels,
-     and the same fit with ``kernel_backend="ref"`` (plain versions on
-     the card) must reach a final validation MSE within 1e-3 relative;
+     profiled second fit logs the scatter's device time by pass, the
+     tensor-core top-2s' device time (both must show), and the count of
+     host calls that wait for the device. A second identical fit must
+     give bit-identical centroids and labels, and the same fit with
+     ``kernel_backend="ref"`` (plain versions on the card) must reach a
+     final validation MSE within 1e-3 relative; it runs twice, and the
+     two must give the same bits. The schedules of the cuda and ref fits
+     are logged with the round where they part, and a shadowed cuda fit
+     takes each round's step on the plain versions too, from the same
+     state: the same recomputations, labels that differ only at
+     near-ties (float64 gap within 1e-3 relative), and the cuda fit's
+     bits;
   5. time each kernel at its main-path shape with CUDA events after a
      warm-up, beside its plain version, one PyTorch library call where
      one computes the same function, and its bound on an H100 SXM (the
-     larger of bytes over 3.35 TB/s and f32 operations over 67 TFLOP/s);
+     larger of bytes over 3.35 TB/s and the operations over their type's
+     peak: the tensor-core top-2s' 3 x 2 n k_pad d in 3xTF32 at 495
+     TFLOP/s, k_pad the k tiles they run, other adds in f32 at 67
+     TFLOP/s); cuBLAS's f32 ``torch.mm`` of x.c^T at that shape is timed
+     as a yardstick (not the same function);
   6. the kmeans_xl data-parallel round at full width on one card's share
      of the rows: n=2^22 (2^30 points over 256 chips), d=1024, k=4096,
      f32, Gaussian blobs made on the card. Kernel 4 (the one-shot round)
@@ -52,12 +72,12 @@ Phases (each raises on failure, so any fault exits non-zero):
      Lloyd steps (the batch MSE may not rise beyond 1e-6 relative), two
      steps under a one-rank NCCL `DeviceMesh` must give the same bits as
      ``mesh=None``, and one unfused step (kernels 1 and 2) must give the
-     same labels but for near-ties and C bit-identical on every cluster
-     no such row touches. The fused step's labels must equal the float64
-     argmin of every row but for near-ties, and its C must be within
-     1e-4 relative of the C those float64 labels give; the unfused C's
-     gaps to both are logged (kernel 1 sums x.c in f32 order, and parts
-     from the fused step at near-ties where the f32 error decides). The
+     same labels but for near-ties, C bit-identical on every cluster no
+     such row touches, and C within 1e-4 relative of the fused step's
+     (kernel 1's top-2 runs the same tensor-core loop). The fused step's
+     labels must equal the float64 argmin of every row but for
+     near-ties, and its C must be within 1e-4 relative of the C those
+     float64 labels give; the unfused C's gap to it is logged. The
      profiled fused step gives kernel 4's parts by kernel: the
      tensor-core top-2, the scatter's three passes (row lists, sums over
      the lists, chunk reduction), and the small passes; where the trace
@@ -109,6 +129,12 @@ REPLACES = {
     "fused_round": "src/repro/kernels/fused_round.py:78",
 }
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
+#: the libraries whose f32 top-2 is tc_top2.cuh's (TMA + wgmma)
+TC_LIBS = ("assign_top2", "fused_nested_round", "fused_round")
+#: the tensor-core top-2s of assign_top2 and the nested round against
+#: `assign_top2_exact`: |err| <= FULL_RTOL * full_scale + FULL_ATOL (as
+#: tests/torch_round_oracle.py states them)
+FULL_RTOL, FULL_ATOL = 5e-7, 1e-5
 
 
 def log(*a) -> None:
@@ -171,10 +197,10 @@ def build_phase() -> None:
             if "Compiling entry" in line or "Used" in line \
                     or "spill" in line or "wgmma" in line:
                 log("      " + line.split("ptxas info    : ")[-1])
-        if name == "fused_round":
+        if name in TC_LIBS:
             need(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-                 "fused_round's library has no HGMMA or no UTMALDG: its "
-                 "top-2 is not on the tensor cores fed by TMA")
+                 f"{name}'s library has no HGMMA or no UTMALDG: its "
+                 f"top-2 is not on the tensor cores fed by TMA")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -239,8 +265,18 @@ def check_assign(n, d, k, dtype) -> float:
     else:
         e2 = _close(got[2], want[2], tol, tol * 10, "d2")
     ties = _labels_ok(got[0], want[0], ref.pairwise_dist2(x, c), tol)
+    oracle = ""
+    if dtype == "f32":
+        gap, plain_gap = check_full_oracle(*got, x, c, "assign_top2",
+                                           plain=want[1])
+        oracle = (f"; {gap:.3g} of the scale from the float64 oracle (held "
+                  f"to {FULL_RTOL:g}; the plain version's f32 product "
+                  f"{plain_gap:.3g})")
+    again = kmeans_assign.assign_top2_cuda(x, c)
+    need(same_bits(again, got), "assign_top2 is not deterministic")
     log(f"    assign_top2 {dtype} n={n} d={d} k={k}: max abs err d1 {e1:.3g}"
-        f" d2 {e2:.3g}, tied labels {ties}")
+        f" d2 {e2:.3g}, tied labels {ties}{oracle}, second run "
+        f"bit-identical")
     return max(e1, e2)
 
 
@@ -314,6 +350,22 @@ def check_fused(n, d, k) -> float:
     log(f"    fused sse vs float64: kernel max abs err "
         f"{float((got[5].double() - exact).abs().max()):.4g}, plain "
         f"{float((sums[2].double() - exact).abs().max()):.4g}")
+    # the recomputed rows' top-2 against the float64 oracle; the rest
+    # pass through bit for bit
+    a_prev, settled, d_keep, lb_keep, valid = args[2:]
+    keep = valid & settled
+    need(bool((got[0][~valid] == -1).all()) and not bool(got[1][~valid].any())
+         and torch.equal(got[0][keep], a_prev[keep])
+         and torch.equal(got[1][keep], d_keep[keep])
+         and torch.equal(got[2][keep], lb_keep[keep]),
+         "fused_nested_round: invalid or settled rows not as given")
+    new_rows = valid & ~settled
+    gap, _ = check_full_oracle(got[0][new_rows], got[1][new_rows],
+                               got[2][new_rows], x[new_rows], c,
+                               "fused_nested_round", squared=False)
+    log(f"    fused_nested_round's top-2 on its {int(new_rows.sum())} "
+        f"recomputed rows: {gap:.3g} of the scale from the float64 oracle "
+        f"(held to {FULL_RTOL:g})")
     again = fused_round.fused_nested_round_cuda(*args)
     need(all(torch.equal(g, a) for g, a in zip(got, again)),
          "fused_nested_round is not deterministic")
@@ -324,6 +376,31 @@ def check_fused(n, d, k) -> float:
         f"tied labels {ties}, second run and the order oracle (sums) "
         f"bit-identical")
     return e
+
+
+def check_ref_sums(n, d, k) -> None:
+    """The plain sums on the card (`ref.cluster_sum_ref`, which takes
+    `ref.onehot_sums` there): the same bits twice, and within
+    cluster_sum's tolerance of ``index_add_``."""
+    from repro_torch.kernels import ref
+    x, _ = _x_c(n, d, 1, 3 * n + d, torch.float32)
+    rng = np.random.default_rng(n + 2 * k)
+    a = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(DEV)
+    w = _weights(n, n + 1)
+    got = ref.cluster_sum_ref(x, a, k, weights=w)
+    again = ref.cluster_sum_ref(x, a, k, weights=w)
+    need(same_bits(again, got), "the plain sums on the card are not "
+         "deterministic")
+    idx = a.long()
+    xw = x * w[:, None]
+    want = torch.zeros(k, d, device=DEV).index_add_(0, idx, xw)
+    mass = torch.zeros(k, d, device=DEV).index_add_(0, idx, xw.abs())
+    e = _mass_close(got[0], want, mass, "plain S against index_add_")
+    e = max(e, _mass_close(got[1], torch.zeros(k, device=DEV).index_add_(
+        0, idx, w), torch.zeros(k, device=DEV).index_add_(0, idx, w.abs()),
+        "plain v against index_add_"))
+    log(f"    plain sums n={n} d={d} k={k}: second run bit-identical, "
+        f"{e:.3g} from index_add_")
 
 
 def _chunked_sums(x, a, d1, k, rows=XL_PLAIN_ROWS):
@@ -363,6 +440,73 @@ def round_top2_exact(x, c):
         b2 = pd.scatter_(1, a[:, None], float("inf")).min(dim=1).values
     return (a.to(torch.int32), torch.clamp_min(b1 + xn, 0.0),
             torch.clamp_min(b2 + xn, 0.0))
+
+
+def top2_of(pd):
+    """(a int32, d1, d2) of an (n, k) distance matrix: the lower index
+    wins a tie, a duplicate of the min counts as the 2nd, k == 1 gives
+    +inf."""
+    a = torch.argmin(pd, dim=1)
+    d1 = torch.gather(pd, 1, a[:, None])[:, 0]
+    if pd.shape[1] == 1:
+        d2 = torch.full_like(d1, float("inf"))
+    else:
+        d2 = pd.scatter_(1, a[:, None], float("inf")).min(dim=1).values
+    return a.to(torch.int32), d1, d2
+
+
+def assign_top2_exact(x, c):
+    """The top-2 of the ref expression max(|x|^2 - 2 x.c + |c|^2, 0) with
+    x.c, |x|^2 and |c|^2 each taken in float64 and rounded once to f32,
+    the rest in f32 (as tests/torch_round_oracle.py computes it): what
+    kernels 1 and 3 are held to at FULL_RTOL."""
+    x64, c64 = x.double(), c.double()
+    xn = (x64 * x64).sum(1).float()
+    cn = (c64 * c64).sum(1).float()
+    dot = (x64 @ c64.T).float()
+    del x64
+    return top2_of(torch.clamp_min(dot.mul_(-2.0).add_(xn[:, None])
+                                   .add_(cn), 0.0))
+
+
+def full_scale(x, c):
+    """|x|^2 + max_j |c_j|^2 per row, f32: the scale of FULL_RTOL."""
+    c64 = c.double()
+    return ((x.double() ** 2).sum(1) + (c64 * c64).sum(1).max()).float()
+
+
+def check_full_oracle(a, d1, d2, x, c, what, squared=True, plain=None):
+    """Kernel 1's or 3's top-2 (a, d1, d2; euclidean unless ``squared``)
+    against `assign_top2_exact`: labels equal but for near-ties, d1 and
+    d2 within FULL_RTOL of the scale plus FULL_ATOL (plus the sqrt's own
+    rounding where they are euclidean). Returns the largest error over
+    the scale, and the plain version's d1 (``plain``, squared) gap over
+    the scale (None without it)."""
+    from repro_torch.kernels import ref
+    want = assign_top2_exact(x, c)
+    sc = full_scale(x, c).double()
+    plain_gap = None
+    if plain is not None:
+        plain_gap = float(((plain.double() - want[1].double()).abs()
+                           / sc).max())
+    _labels_ok(a, want[0], ref.pairwise_dist2(x, c),
+               FULL_RTOL * float(sc.max()) / 100 + FULL_ATOL)
+    top = 0.0
+    for g, w in zip((d1, d2), want[1:]):
+        g, w = g.double(), w.double()
+        if not squared:
+            g = g * g
+        fin = torch.isfinite(w)
+        need(torch.equal(torch.isfinite(g), fin), f"{what}: +inf differs")
+        err = torch.where(g == w, 0.0, (g - w).abs())[fin]
+        slack = FULL_RTOL * sc[fin] + FULL_ATOL \
+            + (0.0 if squared else 2.4e-7 * w[fin])
+        if not err.numel():
+            continue
+        need(bool((err <= slack).all()), f"{what}: beyond the float64 "
+             f"oracle's tolerance by {float((err - slack).max()):.3g}")
+        top = max(top, float((err / sc[fin]).max()))
+    return top, plain_gap
 
 
 def _max_gap(got, want) -> float:
@@ -433,6 +577,8 @@ def compare_phase() -> dict:
         check_cluster_sum(n, d, k)
         check_fused(n, d, k)
     check_cluster_sum(5000, 0, K)        # counts only
+    check_ref_sums(N, D, K)
+    check_ref_sums(2 ** 16, D_XL, K_XL)
     for n, d, k in ((4099, D, 1), (4099, D, 257), (777, 33, 50),
                     (N, D, K)):
         check_fused_round(*_x_c(n, d, k, 5 * n + k, torch.float32))
@@ -476,6 +622,25 @@ def fit_once(X, Xv, **kw):
     km = NestedKMeans(cfg, device=DEV).fit(X, X_val=Xv)
     torch.cuda.synchronize()
     return km, time.perf_counter() - t0
+
+
+#: host calls that wait for the device, as torch.profiler names them
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+#: the fit's tensor-core top-2s by the name the profiler gives them:
+#: assign_top2 (EPI_FULL) and the nested round (EPI_NESTED) at BN = 64
+FIT_TOP2 = {"nkm::tc::tc_top2_kernel<64, 2>": "assign_top2's top-2",
+            "nkm::tc::tc_top2_kernel<64, 3>": "the nested round's top-2",
+            "nkm::tc::split_c_kernel": "c split and |c|^2"}
+
+
+def sync_counts(prof) -> dict:
+    """{host call: count} of the calls that wait for the device."""
+    out = dict.fromkeys(SYNC_CALLS, 0)
+    for e in prof.key_averages():
+        if e.key in out:
+            out[e.key] += e.count
+    return out
 
 
 def _schedule(km) -> str:
@@ -539,16 +704,93 @@ def main_path_phase() -> dict:
     need(same, "a second identical fit is not bit-identical")
     profile_report(prof, wall, wall2)
     scatter_report(prof, "fit")
+    syncs = sync_counts(prof)
+    log(f"    host calls that wait for the device in the profiled fit: "
+        f"{sum(syncs.values())} ({syncs}) in {len(tel)} rounds")
+    parts = device_parts(prof, FIT_TOP2)
+    log("    the tensor-core top-2s in the profiled fit: " + ", ".join(
+        f"{what} ({name}) {parts[name][0]:.2f} ms in {parts[name][1]} "
+        f"launches" for name, what in FIT_TOP2.items()))
+    for name in list(FIT_TOP2)[:2]:
+        need(parts[name][1] > 0, f"the profiled fit shows no {name}")
 
     kmr, wallr = fit_once(X, Xv, kernel_backend="ref")
+    kmr2, wallr2 = fit_once(X, Xv, kernel_backend="ref")
     rel = abs(kmr.final_mse_ - km.final_mse_) / abs(kmr.final_mse_)
+    same_ref = np.array_equal(kmr2.cluster_centers_, kmr.cluster_centers_) \
+        and np.array_equal(kmr2.labels_, kmr.labels_)
     log(f"    ref fit (plain versions on the card): {kmr.n_rounds_} records,"
         f" final val MSE {kmr.final_mse_!r}, wall {wallr:.2f} s, relative "
-        f"gap {rel:.3g}")
+        f"gap {rel:.3g}; a second ref fit (wall {wallr2:.2f} s): final val "
+        f"MSE {kmr2.final_mse_!r}, bit-identical centroids and labels: "
+        f"{same_ref}")
     log(f"    schedule cuda (b:n_recomputed): {_schedule(km)}")
     log(f"    schedule ref  (b:n_recomputed): {_schedule(kmr)}")
+    split = next((i for i, (u, v) in enumerate(zip(
+        [r for r in km.telemetry_ if r.batch_mse is not None],
+        [r for r in kmr.telemetry_ if r.batch_mse is not None]))
+        if (u.b, u.n_recomputed) != (v.b, v.n_recomputed)), None)
+    log(f"    the cuda and ref schedules part at round {split}")
     need(rel <= 1e-3, "cuda and ref fits differ in val MSE beyond 1e-3")
+    need(same_ref, "two ref fits on the card differ")
+    shadow_fit(X, Xv, km)
     return {"launches": launches, "X": X}
+
+
+def shadow_fit(X, Xv, km) -> None:
+    """Where the kernels' fit parts from the plain versions': the cuda
+    fit once more, each round's step also taken on the plain versions
+    (``kernel_backend="ref"``) from the same input state. The bound
+    decisions are the same code on the same state, so a round's
+    recomputations agree; its outputs may differ only where the top-2s
+    differ, and a label may differ only at a near-tie (float64 distances
+    to the two centroids within 1e-3 relative). Those rows, and the last
+    bits of d and lb, are what a later round's decisions then see. The
+    fit itself must keep the cuda fit's bits."""
+    import dataclasses
+
+    from repro_torch.api import FitConfig
+    from repro_torch.api.engines.local import LocalEngine
+    from repro_torch.api.loop import run_loop
+    from repro_torch.core import rounds
+    cfg = FitConfig(k=K, b0=5000, algorithm="tb", rho=math.inf,
+                    bounds="hamerly2", seed=0).resolve(N)
+    run = LocalEngine().begin(X, cfg, X_val=Xv, device=DEV)
+    plain = dataclasses.replace(run.kernel_plan, backend="ref")
+    step = run.nested_step
+    seen = {"rounds": 0, "rows": 0, "worst": 0, "lb_bits": 0, "top": 0.0}
+
+    def both(state, b, capacity):
+        out = step(state, b, capacity)
+        alt = rounds.nested_round(
+            run._Xd, state, b=b, rho=cfg.rho, bounds=cfg.bounds,
+            capacity=capacity, use_shalf=cfg.use_shalf, plan=plain)
+        need(int(out[1].n_recomputed) == int(alt[1].n_recomputed),
+             "the cuda and plain steps recompute different rows from one "
+             "state")
+        rows, _, gap = _near_ties(run._Xd[:b], state.stats.C,
+                                  out[0].points.a[:b], alt[0].points.a[:b])
+        seen["top"] = max(seen["top"], gap)
+        seen["rounds"] += 1
+        seen["rows"] += rows
+        seen["worst"] = max(seen["worst"], rows)
+        seen["lb_bits"] += int((out[0].points.lb[:b]
+                                != alt[0].points.lb[:b]).sum())
+        return out
+
+    run.nested_step = both
+    out = run_loop(run, cfg)
+    # break the cycle run -> both -> run, so that run's copy of X leaves
+    # the card when this returns and not at the next garbage collection
+    del run.nested_step
+    need(np.array_equal(out.C, km.cluster_centers_),
+         "the shadowed fit differs from the cuda fit")
+    log(f"    shadow fit (each round's step also on the plain versions from "
+        f"the same state): {seen['rounds']} steps, the same recomputations "
+        f"in each; labels differ at {seen['rows']} rows in all (at most "
+        f"{seen['worst']} in a step), every one a near-tie (largest float64 "
+        f"gap {seen['top']:.3g} relative); lb differs in its last bits at "
+        f"{seen['lb_bits']} rows in all")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -585,7 +827,15 @@ def timing_phase(X) -> dict:
     c = x[:K].clone()
     out = {}
 
-    b, how = bound(N * D * 4 + K * D * 4 + N * 12, 2.0 * N * K * D)
+    # the tensor-core top-2s' operations: 3xTF32 over the k tiles they
+    # run (k = 50 runs one 64-wide tile)
+    k_pad = 64 if K <= 64 else -(-K // 128) * 128
+    tc_ops = 3 * 2.0 * N * k_pad * D
+    mm_ms = time_ms(lambda: torch.mm(x, c.T))
+    log(f"    yardstick: cuBLAS f32 torch.mm of x.c^T at ({N}, {D}) x ({K}, "
+        f"{D}): {mm_ms:.3f} ms (not the same function; not in the kernels "
+        f"line)")
+    b, how = bound(N * D * 4 + K * D * 4 + N * 12, 0.0, tf32_flops=tc_ops)
     out["assign_top2"] = dict(
         ms=time_ms(lambda: kmeans_assign.assign_top2_cuda(x, c)),
         plain_ms=time_ms(lambda: ref.assign_top2_ref(x, c)),
@@ -615,7 +865,7 @@ def timing_phase(X) -> dict:
     moved = int((((a_prev < 0) & (a_new >= 0))
                  | ((a_prev >= 0) & (a_new != a_prev))).sum())
     b, how = bound(N * D * 4 + K * D * 4 + N * (14 + 12)
-                   + (K * D + 2 * K) * 4, 2.0 * N * K * D + 2.0 * moved * D)
+                   + (K * D + 2 * K) * 4, 2.0 * moved * D, tf32_flops=tc_ops)
     out["fused_nested_round"] = dict(
         ms=time_ms(lambda: fused_round.fused_nested_round_cuda(*args)),
         plain_ms=time_ms(lambda: fused_round.fused_nested_round_ref(
@@ -626,7 +876,8 @@ def timing_phase(X) -> dict:
                else f"{r['library_ms']:.3f} ms")
         log(f"    {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
             f" ms, library {lib}, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms'] * 100:.1f} % of "
+            f"it")
     return out
 
 
@@ -666,17 +917,18 @@ def _timed(fn, *args):
 def _near_ties(X, C, a, b):
     """Rows whose labels a and b differ must be near-ties: their float64
     distances to the two centroids within 1e-3 relative (100x the f32
-    rtol). Returns the count of such rows, and of those where a's
-    centroid is the nearer in float64."""
+    rtol). Returns the count of such rows, of those where a's centroid is
+    the nearer in float64, and their largest relative gap."""
     diff = torch.nonzero(a != b)[:, 0]
     if not diff.numel():
-        return 0, 0
+        return 0, 0, 0.0
     x = X[diff].double()
     da = ((x - C[a[diff].long()].double()) ** 2).sum(1)
     db = ((x - C[b[diff].long()].double()) ** 2).sum(1)
-    need(bool(((da - db).abs() <= 1e-3 * da).all()),
+    gap = (da - db).abs() / da
+    need(bool((gap <= 1e-3).all()),
          f"two label sets differ beyond a near-tie at {diff.numel()} rows")
-    return int(diff.numel()), int((da < db).sum())
+    return int(diff.numel()), int((da < db).sum()), float(gap.max())
 
 
 def exact_labels(X, C, rows=XL_CHECK_ROWS):
@@ -697,14 +949,14 @@ def _rel_gap(C, C_ref) -> float:
 
 
 #: kernel 4's device kernels, by the name the profiler gives them
-TOP2_KERNEL = "nkm::tc::tc_top2_kernel<false>"
+TOP2_KERNEL = "nkm::tc::tc_top2_kernel<128, 1>"
 SCATTER_KERNEL = "nkm::scatter_rows<2>"
 ROUND_PARTS = {TOP2_KERNEL: "top-2 (tensor cores, 3xTF32)",
                "nkm::bucket_rows<2>": "scatter: row lists",
                SCATTER_KERNEL: "scatter: sums over the lists",
                "nkm::reduce_chunks": "scatter: chunk reduction",
-               "nkm::tc::split_tf32_kernel": "c split",
-               "nkm::tc::sqnorm_kernel": "|x|^2 and |c|^2"}
+               "nkm::tc::split_c_kernel": "c split and |c|^2",
+               "nkm::tc::sqnorm_kernel": "|x|^2"}
 #: the scatter's device kernels in all modes (cluster_sum is mode 0)
 SCATTER_PARTS = {"nkm::bucket_rows": "row lists",
                  "nkm::scatter_rows": "sums over the lists",
@@ -840,7 +1092,7 @@ def dp_round_phase(X, C0):
     need(same, "the one-rank NCCL dp step differs from mesh=None")
 
     unfused, wall_u = _timed(make_dp_round(None, fused=False), X, C_in)
-    ties, nearer = _near_ties(X, C_in, out[3], unfused[3])
+    ties, nearer, _ = _near_ties(X, C_in, out[3], unfused[3])
     moved = torch.unique(torch.cat([out[3][out[3] != unfused[3]],
                                     unfused[3][out[3] != unfused[3]]]))
     kept = torch.ones(K_XL, dtype=torch.bool, device=DEV)
@@ -856,17 +1108,20 @@ def dp_round_phase(X, C0):
                                        p=zero)).C
     del a64, S
     gap_f, gap_u = _rel_gap(out[0], C64), _rel_gap(unfused[0], C64)
+    gap_fu = _rel_gap(unfused[0], out[0])
     log(f"    unfused dp step (kernels 1 + 2): wall {wall_u:.3f} s, labels "
         f"differ from the fused step's at {ties} near-tied rows (the fused "
         f"label nearer in float64 at {nearer}), C bit-identical on the "
         f"{int(kept.sum())} clusters no such row touches, C relative gap "
-        f"{_rel_gap(unfused[0], out[0]):.3g}")
+        f"{gap_fu:.3g} (held to 1e-4)")
     log(f"    against the float64 argmin of every row: the fused labels "
         f"differ at {off_f} near-tied rows, the unfused at {off_u}; C "
         f"relative gap to the C of those labels: fused {gap_f:.3g} (held "
         f"to 1e-4), unfused {gap_u:.3g}")
     need(torch.equal(unfused[0][kept], out[0][kept]),
          "fused and unfused C differ on clusters with the same rows")
+    need(gap_fu <= 1e-4, "the fused and unfused steps' C differ beyond "
+         "1e-4 relative")
     need(gap_f <= 1e-4, "the fused step's C differs beyond 1e-4 relative "
          "from the C of the float64 labels")
     torch.cuda.synchronize()

@@ -138,7 +138,9 @@ def _centroid_step(S, v, sse, C):
 
 
 def _count(x: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x.shape[0], dtype=torch.int64, device=x.device)
+    """x's row count as a 0-d int64 tensor, filled on its device (no host
+    copy, no wait for the stream)."""
+    return torch.full((), x.shape[0], dtype=torch.int64, device=x.device)
 
 
 def xl_round_body(x, C_local, S_local, v_local, *, k: int, mesh,

@@ -87,7 +87,9 @@ def _refresh_sse(d_act: torch.Tensor, a_act: torch.Tensor, k: int,
 
 
 def _scalar(x, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
-    return torch.tensor(x, dtype=dtype, device=like.device)
+    """A 0-d tensor on ``like``'s device, filled there: `torch.tensor`
+    would copy it from the host and wait for the stream."""
+    return torch.full((), x, dtype=dtype, device=like.device)
 
 
 # --------------------------------------------------------------------------

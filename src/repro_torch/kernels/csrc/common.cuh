@@ -1,13 +1,9 @@
-// Device code shared by the four k-means kernels (sm_90a).
+// Device code shared by the k-means kernels (sm_90a).
 //
-//  * assign_kernel<T, NESTED>: blocks of BM rows; each block walks k in
-//    tiles of BN centroids and keeps a running (min, 2nd-min, argmin) per
-//    row in registers. The x.c products are full f32 FMAs on the CUDA
-//    cores (no TF32: the reference is f32), staged through shared memory
-//    in BK-wide feature slices, 4x4 outputs per thread. The candidate is
-//    the ref expression max(|x|^2 - 2 x.c + |c|^2, 0). NESTED adds the
-//    nested round's keep-select and sqrt in the epilogue. (The one-shot
-//    round's top-2 is the tensor-core kernel of tc_top2.cuh.)
+//  * the running top-2 (Top2, top2_push, top2_merge) and the outputs of
+//    the top-2 epilogues (Top2Out, NestedArgs); the top-2s themselves are
+//    the tensor-core kernel of tc_top2.cuh (and assign_top2.cu's bf16
+//    kernel);
 //  * the deterministic weighted per-cluster sum (launch_scatter<MODE>),
 //    the sums of cluster_sum, fused_nested_round and fused_round. The rows
 //    are split into chunks whose size is fixed by the row count (never by
@@ -28,18 +24,12 @@
 //    (k*d + 2k) floats each way); the lists are 4 bytes a row.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace nkm {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // ---------------------------------------------------------------- top-2
 
@@ -73,15 +63,7 @@ __device__ __forceinline__ Top2 top2_merge(Top2 a, Top2 b) {
   return r;
 }
 
-// ------------------------------------------------------------ assignment
-
-constexpr int BM = 64;  // rows per block
-constexpr int BN = 64;  // centroids per k tile
-constexpr int BK = 16;  // features per shared-memory slice
-constexpr int TM = 4;   // rows per thread
-constexpr int TN = 4;   // centroids per thread
-constexpr int LANES = BN / TN;                  // 16 threads share rows
-constexpr int ASSIGN_THREADS = (BM / TM) * LANES;  // 256
+// ------------------------------------------------------------- outputs
 
 struct Top2Out {
   int* a;
@@ -99,167 +81,6 @@ struct NestedArgs {
   float* d_new;
   float* lb_new;
 };
-
-// |c_j|^2 for each row of c: one warp per row.
-template <typename T>
-__global__ void row_sqnorm_kernel(const T* __restrict__ c, int k, int d,
-                                  float* __restrict__ out) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= k) return;  // the whole warp leaves together
-  float s = 0.f;
-  for (int f = lane; f < d; f += 32) {
-    const float v = to_f32(c[(size_t)row * d + f]);
-    s = fmaf(v, v, s);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) out[row] = s;
-}
-
-template <typename T, bool NESTED>
-__global__ void __launch_bounds__(ASSIGN_THREADS)
-assign_kernel(const T* __restrict__ x, const T* __restrict__ c,
-              const float* __restrict__ cn, int n, int k, int d, Top2Out out,
-              NestedArgs nest) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  __shared__ float cns[BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % LANES;  // centroid group: lanes tx share rows
-  const int ty = tid / LANES;  // row group
-  const int row0 = blockIdx.x * BM;
-
-  Top2 run[TM];
-  float xn[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    run[i] = top2_empty();
-    xn[i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < k; k0 += BN) {
-    const bool first = (k0 == 0);
-    if (tid < BN) cns[tid] = (k0 + tid < k) ? cn[k0 + tid] : INFINITY;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += BK) {
-#pragma unroll
-      for (int l = 0; l < (BM * BK) / ASSIGN_THREADS; ++l) {
-        const int idx = tid + l * ASSIGN_THREADS;
-        const int m = idx / BK, kk = idx % BK;
-        const int r = row0 + m, f = d0 + kk;
-        As[kk][m] = (r < n && f < d) ? to_f32(x[(size_t)r * d + f]) : 0.f;
-      }
-#pragma unroll
-      for (int l = 0; l < (BN * BK) / ASSIGN_THREADS; ++l) {
-        const int idx = tid + l * ASSIGN_THREADS;
-        const int j = idx / BK, kk = idx % BK;
-        const int ci = k0 + j, f = d0 + kk;
-        Bs[kk][j] = (ci < k && f < d) ? to_f32(c[(size_t)ci * d + f]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      if (first) {
-        // |x|^2 on the first k tile only: lane tx takes feature tx of
-        // each slice, summed across the 16 lanes below (BK == LANES)
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float v = As[tx][ty * TM + i];
-          xn[i] = fmaf(v, v, xn[i]);
-        }
-      }
-      __syncthreads();
-    }
-    if (first) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int off = LANES / 2; off > 0; off >>= 1)
-          xn[i] += __shfl_xor_sync(0xffffffffu, xn[i], off, LANES);
-    }
-    __syncthreads();  // cns is written (also when d == 0)
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      Top2 t = top2_empty();
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = k0 + tx * TN + j;
-        if (col < k) {  // index beyond k: never a candidate
-          const float v =
-              fmaxf(xn[i] - 2.f * acc[i][j] + cns[tx * TN + j], 0.f);
-          top2_push(t, v, col);
-        }
-      }
-#pragma unroll
-      for (int off = LANES / 2; off > 0; off >>= 1) {
-        Top2 o;
-        o.m1 = __shfl_xor_sync(0xffffffffu, t.m1, off, LANES);
-        o.i1 = __shfl_xor_sync(0xffffffffu, t.i1, off, LANES);
-        o.m2 = __shfl_xor_sync(0xffffffffu, t.m2, off, LANES);
-        t = top2_merge(t, o);
-      }
-      run[i] = top2_merge(run[i], t);
-    }
-    __syncthreads();  // cns is read before the next tile overwrites it
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (tx != i || r >= n) continue;
-    if constexpr (NESTED) {
-      int an;
-      float dn, lbn;
-      if (!nest.valid[r]) {
-        an = -1;
-        dn = 0.f;
-        lbn = 0.f;
-      } else if (nest.settled[r]) {
-        an = nest.a_prev[r];
-        dn = nest.d_keep[r];
-        lbn = nest.lb_keep[r];
-      } else {
-        an = run[i].i1;
-        dn = sqrtf(run[i].m1);
-        lbn = sqrtf(run[i].m2);
-      }
-      nest.a_new[r] = an;
-      nest.d_new[r] = dn;
-      nest.lb_new[r] = lbn;
-    } else {
-      out.a[r] = run[i].i1;
-      out.d1[r] = run[i].m1;
-      out.d2[r] = run[i].m2;
-    }
-  }
-}
-
-template <typename T, bool NESTED>
-void launch_assign(const T* x, const T* c, float* cn, int n, int k, int d,
-                   Top2Out out, NestedArgs nest, cudaStream_t s) {
-  if (k <= 0 || n <= 0) return;
-  row_sqnorm_kernel<T><<<(k * 32 + 255) / 256, 256, 0, s>>>(c, k, d, cn);
-  assign_kernel<T, NESTED><<<(n + BM - 1) / BM, ASSIGN_THREADS, 0, s>>>(
-      x, c, cn, n, k, d, out, nest);
-}
 
 // ------------------------------------------------ deterministic scatter
 

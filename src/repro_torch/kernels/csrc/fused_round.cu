@@ -12,8 +12,9 @@
 // S as onehot^T x, a second MXU matmul of 2*n*k*d flops for n*d useful
 // adds, carried across a sequential grid in revisited output blocks, and
 // its wrapper removes the grid's pad rows again. Here the top-2 is the
-// tensor-core kernel of tc_top2.cuh (TMA, 3xTF32 wgmma, running top-2 in
-// registers; its note gives its design and bound), and each row adds
+// tensor-core kernel of tc_top2.cuh with its EPI_PARTIAL epilogue (TMA,
+// 3xTF32 wgmma, running top-2 in registers; its note gives its design and
+// bound), and each row adds
 // itself once, into its own cluster, by the deterministic scatter of
 // cluster_sum (common.cuh): the rows of each chunk listed by cluster
 // tile, each (chunk, feature tile, cluster tile) summing its own list in
@@ -42,13 +43,16 @@ extern "C" int fused_round_f32(const void* x, const void* xp, const void* cp,
                                void* lists, void* out, int n, int k, int d,
                                int dp, int chunk_rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nkm::Top2Out top2{static_cast<int*>(a), static_cast<float*>(d1),
-                    static_cast<float*>(d2)};
-  const int err = nkm::tc::launch_top2<false>(
+  nkm::tc::Top2Args t{};
+  t.n = n;
+  t.k = k;
+  t.d = dp;
+  t.out = nkm::Top2Out{static_cast<int*>(a), static_cast<float*>(d1),
+                       static_cast<float*>(d2)};
+  const int err = nkm::tc::launch_top2<nkm::tc::EPI_PARTIAL>(
       static_cast<const float*>(xp), static_cast<const float*>(cp),
       static_cast<float*>(c_big), static_cast<float*>(c_small),
-      static_cast<float*>(cn), static_cast<float*>(xn), n, k, dp, top2,
-      nullptr, s);
+      static_cast<float*>(cn), static_cast<float*>(xn), t, s);
   if (err != 0) return err;
   nkm::ScatterArgs p{};
   p.x = static_cast<const float*>(x);
@@ -65,15 +69,19 @@ extern "C" int fused_round_f32(const void* x, const void* xp, const void* cp,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The top-2's main loop alone (TMA, 3xTF32 split, wgmma): dot (n, k) =
-// xp . cp^T, for a check of its operand and fragment layout. Arguments as
-// for fused_round_f32.
+// The top-2's main loop alone (TMA, 3xTF32 split, wgmma; BN = 64 where
+// k <= 64, else 128): dot (n, k) = xp . cp^T, for a check of its operand
+// and fragment layout. Arguments as for fused_round_f32.
 extern "C" int tc_dot_f32(const void* xp, const void* cp, void* c_big,
                           void* c_small, void* cn, void* dot, int n, int k,
                           int dp, void* stream) {
-  return nkm::tc::launch_top2<true>(
+  nkm::tc::Top2Args t{};
+  t.n = n;
+  t.k = k;
+  t.d = dp;
+  t.dot = static_cast<float*>(dot);
+  return nkm::tc::launch_top2<nkm::tc::EPI_DOT>(
       static_cast<const float*>(xp), static_cast<const float*>(cp),
       static_cast<float*>(c_big), static_cast<float*>(c_small),
-      static_cast<float*>(cn), nullptr, n, k, dp, nkm::Top2Out{},
-      static_cast<float*>(dot), static_cast<cudaStream_t>(stream));
+      static_cast<float*>(cn), nullptr, t, static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,8 @@ Port of `repro/kernels/fused_round.py`:
   second-nearest centroid, as squared distances, and the per-cluster
   sums, counts and sum of d1 over every row.
 * `fused_nested_round_pallas` (kernel ``csrc/fused_nested_round.cu``,
-  plain version `fused_nested_round_ref`). It takes the prefix x (b, d),
+  its top-2 on the tensor cores in ``csrc/tc_top2.cuh``; plain version
+  `fused_nested_round_ref`). It takes the prefix x (b, d),
   the centroids c (k, d), the previous assignment a_prev (b,) int32, the
   caller's ``settled`` mask, the retained euclidean distance ``d_keep``
   and decayed lower bound ``lb_keep`` of the settled rows, and the
@@ -35,7 +36,7 @@ round_launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return _build.bind("fused_nested_round", "fused_nested_round_f32", 14, 4)
+    return _build.bind("fused_nested_round", "fused_nested_round_f32", 17, 5)
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,6 +63,25 @@ def tma_operands(x: torch.Tensor, c: torch.Tensor):
     return x, c, dp
 
 
+def tma_aligned(x: torch.Tensor, c: torch.Tensor):
+    """`tma_operands`, checked: the TMA loads of the tensor-core top-2
+    take x and c at 16-byte aligned addresses. A fresh tensor is, and so
+    is any view that starts at a row of a tensor whose rows hold a
+    multiple of 4 floats (``X[:b]``, ``X[idx]``'s copy)."""
+    xp, cp, dp = tma_operands(x, c)
+    if xp.data_ptr() % 16 or cp.data_ptr() % 16:
+        raise ValueError("the tensor-core top-2's TMA loads take x and c "
+                         "at 16-byte aligned addresses")
+    return xp, cp, dp
+
+
+def tc_scratch(k: int, dp: int, device):
+    """The tensor-core top-2's scratch: c's TF32 big and small halves
+    (2, k, dp) and |c|^2 (k,)."""
+    return (torch.empty(2, k, dp, dtype=torch.float32, device=device),
+            torch.empty(k, dtype=torch.float32, device=device))
+
+
 def _check_round_args(x: torch.Tensor, c: torch.Tensor):
     dev = _build.require_cuda(x, c)
     if x.dtype != torch.float32 or c.dtype != torch.float32:
@@ -76,11 +96,7 @@ def _check_round_args(x: torch.Tensor, c: torch.Tensor):
     if n >= 2 ** 31 or k * d + 2 * k >= 2 ** 31:
         raise ValueError(f"n={n} and k*d + 2k = {k * d + 2 * k} must fit "
                          f"the kernel's int sizes")
-    xp, cp, dp = tma_operands(x, c)
-    if xp.data_ptr() % 16 or cp.data_ptr() % 16:
-        raise ValueError("fused_round's TMA loads take x and c at 16-byte "
-                         "aligned addresses")
-    return dev, xp, cp, dp
+    return (dev,) + tma_aligned(x, c)
 
 
 def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
@@ -100,8 +116,7 @@ def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     out = torch.zeros(k * d + 2 * k, dtype=torch.float32, device=dev)
     if n > 0:
-        c_split = torch.empty(2, k, dp, dtype=torch.float32, device=dev)
-        cn = torch.empty(k, dtype=torch.float32, device=dev)
+        c_split, cn = tc_scratch(k, dp, dev)
         xn = torch.empty(n, dtype=torch.float32, device=dev)
         rows, partial, lists = scatter_scratch(n, k, d, 2, 1, dev)
         err = _round_fn()(x.data_ptr(), xp.data_ptr(), cp.data_ptr(),
@@ -125,8 +140,7 @@ def tc_dot_cuda(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     n, k = x.shape[0], c.shape[0]
     dot = torch.empty(n, k, dtype=torch.float32, device=dev)
     if n > 0:
-        c_split = torch.empty(2, k, dp, dtype=torch.float32, device=dev)
-        cn = torch.empty(k, dtype=torch.float32, device=dev)
+        c_split, cn = tc_scratch(k, dp, dev)
         err = _dot_fn()(xp.data_ptr(), cp.data_ptr(), c_split[0].data_ptr(),
                         c_split[1].data_ptr(), cn.data_ptr(), dot.data_ptr(),
                         n, k, dp, _build.stream(dev))
@@ -175,7 +189,13 @@ def fused_round_ref(x: torch.Tensor, c: torch.Tensor):
 
 
 def fused_nested_round_cuda(x, c, a_prev, settled, d_keep, lb_keep, valid):
-    """The fused round on the card (f32 x and c; bool masks)."""
+    """The fused round on the card (f32 x and c; bool masks).
+    Deterministic: the same inputs give the same bits.
+
+    The top-2 runs on the tensor cores in 3xTF32 (``csrc/tc_top2.cuh``,
+    its EPI_NESTED epilogue), on copies of x and c zero-padded to a
+    multiple of 4 features where d % 4 != 0 (`tma_operands`); the sums
+    read x itself."""
     global launches
     dev = _build.require_cuda(x, c, a_prev, settled, d_keep, lb_keep, valid)
     if x.dtype != torch.float32 or c.dtype != torch.float32 \
@@ -192,19 +212,24 @@ def fused_nested_round_cuda(x, c, a_prev, settled, d_keep, lb_keep, valid):
                                       valid)):
         raise ValueError(f"bad shapes x {tuple(x.shape)}, c "
                          f"{tuple(c.shape)}")
+    if n >= 2 ** 31 or k * d + 2 * k >= 2 ** 31:
+        raise ValueError(f"n={n} and k*d + 2k = {k * d + 2 * k} must fit "
+                         f"the kernel's int sizes")
+    xp, cp, dp = tma_aligned(x, c)
     a_new = torch.empty(n, dtype=torch.int32, device=dev)
     d_new = torch.empty(n, dtype=torch.float32, device=dev)
     lb_new = torch.empty(n, dtype=torch.float32, device=dev)
     out = torch.zeros(k * d + 2 * k, dtype=torch.float32, device=dev)
     if n > 0:
-        cn = torch.empty(k, dtype=torch.float32, device=dev)
+        c_split, cn = tc_scratch(k, dp, dev)
         rows, partial, lists = scatter_scratch(n, k, d, 2, 2, dev)
-        err = _fn()(x.data_ptr(), c.data_ptr(), a_prev.data_ptr(),
-                    settled.data_ptr(), d_keep.data_ptr(),
-                    lb_keep.data_ptr(), valid.data_ptr(), a_new.data_ptr(),
-                    d_new.data_ptr(), lb_new.data_ptr(), cn.data_ptr(),
+        err = _fn()(x.data_ptr(), xp.data_ptr(), cp.data_ptr(),
+                    c_split[0].data_ptr(), c_split[1].data_ptr(),
+                    cn.data_ptr(), a_prev.data_ptr(), settled.data_ptr(),
+                    d_keep.data_ptr(), lb_keep.data_ptr(), valid.data_ptr(),
+                    a_new.data_ptr(), d_new.data_ptr(), lb_new.data_ptr(),
                     partial.data_ptr(), lists.data_ptr(), out.data_ptr(),
-                    n, k, d, rows, _build.stream(dev))
+                    n, k, d, dp, rows, _build.stream(dev))
         _build.check(err, "fused_nested_round", "fused_nested_round_f32")
         launches += 1
     kd = k * d

@@ -48,12 +48,22 @@ def assign_top2_ref(x: torch.Tensor, c: torch.Tensor
     return a.to(torch.int32), d1, d_2nd
 
 
+#: elements (rows x k) of one block's one-hot matrix in `onehot_sums`
+ONEHOT_BLOCK = 1 << 24
+
+
 def cluster_sum_ref(x: torch.Tensor, a: torch.Tensor, k: int, *,
                     weights: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-cluster sums S (k, d) and counts v (k,) of x grouped by a,
     each row scaled by ``weights`` (default 1). Labels must lie in
-    [0, k)."""
+    [0, k).
+
+    On the CPU by ``index_add_``. On a CUDA device by `onehot_sums`:
+    ``index_add_`` adds there with atomics in no fixed order, and two
+    runs would differ in the last bits."""
+    if x.device.type == "cuda":
+        return onehot_sums(x, a, k, weights=weights)
     x = x.float()
     if weights is None:
         weights = torch.ones(x.shape[0], dtype=torch.float32,
@@ -64,6 +74,32 @@ def cluster_sum_ref(x: torch.Tensor, a: torch.Tensor, k: int, *,
     s.index_add_(0, idx, x * weights[:, None])
     v = torch.zeros((k,), dtype=torch.float32, device=x.device)
     v.index_add_(0, idx, weights)
+    return s, v
+
+
+def onehot_sums(x: torch.Tensor, a: torch.Tensor, k: int, *,
+                weights: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`cluster_sum_ref`'s S and v in a fixed order, on any device: the
+    rows in blocks of ``ONEHOT_BLOCK // k``, each block one matrix
+    product of its weighted one-hot labels (rows, k) with its rows of x,
+    the blocks added in block order. A product has no atomics, so the
+    same inputs give the same bits; the one-hot matrix holds at most
+    ``ONEHOT_BLOCK`` floats (64 MB) at any k; and each entry is a sum of
+    products, not a difference of prefix sums, so nothing cancels."""
+    x = x.float()
+    n, d = x.shape
+    w = (torch.ones(n, dtype=torch.float32, device=x.device)
+         if weights is None else weights.float())
+    ids = torch.arange(k, device=x.device)
+    s = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    v = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    rows = max(1, ONEHOT_BLOCK // k)
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        onehot = (a[lo:hi, None].long() == ids).float() * w[lo:hi, None]
+        s += onehot.T @ x[lo:hi]
+        v += onehot.sum(dim=0)
     return s, v
 
 

@@ -8,14 +8,19 @@ PyTorch alone:
 
 Tolerances are those of tests/test_kernels.py (f32 rtol 1e-5, bf16
 2e-2); labels may differ only where two distances tie within 100x the
-tolerance. Each kernel must also give the same bits twice.
+tolerance. Each kernel must also give the same bits twice. The f32
+top-2s run on the tensor cores (3xTF32) and are held, beyond that, to
+x.c and the norms rounded once from float64 (tests/torch_round_oracle.py)
+at a tighter tolerance. A new kernel's tests run first in a pytest
+process of their own (``-k``): a device trap poisons the process's CUDA
+context for every later test.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import fused_round, ops, ref
-from torch_round_oracle import round_top2_exact
+from torch_round_oracle import assert_full_top2, round_top2_exact
 
 SHAPES = [(64, 7, 5), (256, 32, 50), (300, 784, 50), (512, 128, 128),
           (1000, 200, 257), (130, 9, 1), (4099, 784, 50)]
@@ -74,6 +79,68 @@ def test_assign_top2_kernel_exact_ties(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", SHAPES + [(777, 33, 50), (60, 1024, 300),
+                                            (4099, 784, 64), (4099, 784, 65)])
+def test_assign_top2_kernel_meets_the_float64_oracle(cuda, n, d, k):
+    """The f32 kernel (tensor cores, EPI_FULL; BN = 64 where k <= 64)
+    against the ref expression with x.c, |x|^2 and |c|^2 rounded once
+    from float64: d % 4 != 0 (zero-padded copies), k = 1, ragged k
+    tiles, n < 128 and ragged n."""
+    x, c = _inputs(n, d, k, 2 * n + k, cuda)
+    got = ops.assign_top2(x, c)
+    torch.cuda.synchronize()
+    assert_full_top2(*got, x, c)
+    if k == 1:
+        assert bool(torch.isinf(got[2]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [50, 400])
+def test_assign_top2_kernel_ties_across_k_tiles(cuda, k):
+    """Duplicates of the nearest centroid in its own k tile and, at
+    k = 400, in later ones (index 300): the lower index wins and the
+    second distance is the tied value."""
+    x, c = _inputs(500, 16, k, 19, cuda)
+    rng = np.random.default_rng(20)
+    c[1] = torch.from_numpy(rng.normal(size=16).astype(np.float32) * 0.3)
+    dups = [4, 5] + ([300, k - 1] if k > 300 else [k - 1])
+    c[dups] = c[1].clone()
+    a, d1, d2 = ops.assign_top2(x, c)
+    torch.cuda.synchronize()
+    assert not bool(torch.isin(a, torch.tensor(dups, device=cuda)).any())
+    won = a == 1
+    assert bool(won.any()) and torch.equal(d2[won], d1[won])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", SHAPES + [(64, 129, 7), (1000, 200, 400)])
+def test_fused_nested_round_kernel_meets_the_float64_oracle(cuda, n, d, k):
+    """The nested round's top-2 (tensor cores, EPI_NESTED): invalid rows
+    -1 / 0 / 0, settled rows passed through bit for bit, the rest the
+    float64 oracle's top-2 as euclidean distances (squared back, within
+    FULL_RTOL of the scale plus the sqrt's own rounding)."""
+    rng = np.random.default_rng(n * 5 + k)
+    x, c = _inputs(n, d, k, n + 3 * k, cuda)
+    a_prev = rng.integers(-1, k, size=n).astype(np.int32)
+    host = (a_prev, (rng.random(n) < 0.3) & (a_prev >= 0),
+            rng.random(n).astype(np.float32),
+            rng.random(n).astype(np.float32), rng.random(n) < 0.9)
+    args = [x, c] + [torch.from_numpy(h).to(cuda) for h in host]
+    a_new, d_new, lb_new = ops.fused_nested_round(*args)[:3]
+    torch.cuda.synchronize()
+    a_prev, settled, d_keep, lb_keep, valid = args[2:]
+    assert bool((a_new[~valid] == -1).all())
+    assert not bool(d_new[~valid].any()) and not bool(lb_new[~valid].any())
+    keep = valid & settled
+    assert torch.equal(a_new[keep], a_prev[keep])
+    assert torch.equal(d_new[keep], d_keep[keep])
+    assert torch.equal(lb_new[keep], lb_keep[keep])
+    new = valid & ~settled
+    assert_full_top2(a_new[new], d_new[new], lb_new[new], x[new], c,
+                     euclid=True)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,d,k", SHAPES + [(3000, 0, 7)])
 def test_cluster_sum_kernel_matches_plain(cuda, n, d, k):
     rng = np.random.default_rng(n + d + k)
@@ -115,7 +182,9 @@ def test_fused_nested_round_kernel_matches_plain(cuda, n, d, k):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,k", [(256, 96, 320), (130, 33, 257),
-                                   (64, 7, 5), (300, 1024, 1)])
+                                   (64, 7, 5), (300, 1024, 1),
+                                   (256, 96, 64), (4099, 784, 50),
+                                   (300, 64, 65)])
 def test_tc_dot_matches_float64(cuda, n, d, k):
     """The tensor-core top-2's main loop alone (TMA, 3xTF32 split, wgmma)
     against a float64 product, within 1e-5 of each entry's L1 mass
@@ -142,14 +211,16 @@ def _probe_msg(got, want):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [256, 64, 50])
 @pytest.mark.parametrize("side", ["x", "c"])
-def test_tc_dot_layout_probe(cuda, side):
+def test_tc_dot_layout_probe(cuda, side, k):
     """Exact probes of the main loop's layout: one operand holds distinct
     integers below 2^11 (exact in TF32: small parts 0), the other one-hot
     rows, so each product is one element of the first, and a wrong
     swizzle, descriptor or fragment mapping shows which element it read
-    instead."""
-    n, d, k = 128, 32, 256
+    instead. k = 256 runs the 128-wide tiles, k = 64 and 50 the 64-wide
+    ones (50: a ragged tile)."""
+    n, d = 128, 32
     rows = torch.arange(n, device=cuda)[:, None]
     cols = torch.arange(k, device=cuda)[:, None]
     feats = torch.arange(d, device=cuda)[None, :]
@@ -315,3 +386,79 @@ def test_fit_on_card_matches_cpu(cuda):
                                rtol=1e-5, atol=1e-5)
     again = NestedKMeans(cfg, device=cuda).fit(X)
     assert np.array_equal(again.cluster_centers_, gpu.cluster_centers_)
+
+
+# -- the plain path and the round on the card --------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", [(70001, 64, 7), (3000, 32, 4096),
+                                   (5000, 0, 50), (300, 784, 50)])
+def test_cluster_sum_ref_on_the_card_repeats(cuda, n, d, k):
+    """The plain sums on the card (`ref.onehot_sums`) give the same bits
+    twice, and agree with ``index_add_`` within cluster_sum's tolerance
+    (1e-5 of each entry's L1 mass, plus 1e-4). Many rows to a cluster
+    (70001 rows, k = 7) is where ``index_add_``'s atomics reorder."""
+    rng = np.random.default_rng(n + d + k)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    a = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], n).astype(
+        np.float32)).to(cuda)
+    got = ref.cluster_sum_ref(x, a, k, weights=w)
+    again = ref.cluster_sum_ref(x, a, k, weights=w)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    idx = a.long()
+    want = (torch.zeros(k, d, device=cuda).index_add_(0, idx, x * w[:, None]),
+            torch.zeros(k, device=cuda).index_add_(0, idx, w))
+    mass = (torch.zeros(k, d, device=cuda).index_add_(0, idx,
+                                                      (x * w[:, None]).abs()),
+            torch.zeros(k, device=cuda).index_add_(0, idx, w.abs()))
+    for g, wt, m in zip(got, want, mass):
+        assert bool(((g - wt).abs() <= 1e-5 * m + 1e-4).all())
+
+
+@pytest.mark.gpu
+def test_ref_fit_on_card_repeats(cuda):
+    """Two fits on the plain versions on the card give the same bits."""
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.data.synthetic import gaussian_blobs
+    X, _ = gaussian_blobs(20000, k=8, dim=16, spread=5.0, seed=0)
+    cfg = FitConfig(k=8, b0=1000, kernel_backend="ref")
+    one = NestedKMeans(cfg, device=cuda).fit(X)
+    two = NestedKMeans(cfg, device=cuda).fit(X)
+    assert np.array_equal(one.cluster_centers_, two.cluster_centers_)
+    assert np.array_equal(one.labels_, two.labels_)
+
+
+@pytest.mark.gpu
+def test_nested_round_makes_no_synchronisation(cuda):
+    """One dense round (the fused kernel) and one compacted round
+    (assign_top2 on the compacted rows, cluster_sum for the deltas) of
+    `nested_round` on the card, under ``set_sync_debug_mode("error")``:
+    nothing in a round waits for the device (`api/loop.py` reads the
+    round's info once, after it)."""
+    from repro_torch.core import rounds, state
+    from repro_torch.data.synthetic import gaussian_blobs
+    from repro_torch.kernels.plan import KernelPlan
+    X, _ = gaussian_blobs(4000, k=8, dim=16, spread=5.0, seed=0)
+    X = torch.from_numpy(X).to(cuda)
+    plan = KernelPlan("cuda", (4096, 8, 16))
+    inf = float("inf")
+    # first use: the libraries load, the allocator grows
+    st, _ = rounds.nested_round(X, state.init_state(X, 8), b=1000, rho=inf,
+                                plan=plan)
+    st, _ = rounds.nested_round(X, st, b=2000, rho=inf, capacity=1024,
+                                plan=plan)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dense, info_d = rounds.nested_round(X, st, b=2000, rho=inf,
+                                            plan=plan)
+        compact, info_c = rounds.nested_round(X, dense, b=2000, rho=inf,
+                                              capacity=1024, plan=plan)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(info_d.n_active) == 2000 and int(info_c.n_active) == 2000
+    assert int(info_c.n_recomputed) <= 1024
+    assert bool((compact.points.a[:2000] >= 0).all())

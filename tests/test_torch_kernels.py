@@ -26,7 +26,9 @@ from repro.kernels.fused_round import (fused_nested_round_pallas,
 from repro.kernels.kmeans_assign import assign_top2_pallas
 from repro_torch.kernels import fused_round, ops, plan as tplan
 from repro_torch.kernels import ref as tref
-from torch_round_oracle import round_top2_exact
+from torch_round_oracle import (FULL_RTOL, assert_full_top2,
+                                assign_top2_exact, full_scale,
+                                round_top2_exact, top2_of)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -364,6 +366,54 @@ def _top2_3xtf32(x, c):
             torch.clamp_min(b2 + xn, 0.0))
 
 
+def _xnorm_tiles(x):
+    """|x_r|^2 as the tensor-core top-2 sums it from its tiles of x in
+    shared memory (EPI_FULL, EPI_NESTED): features in slabs of 32, eight
+    threads to a row, thread j holding the float4 at 16-byte position j
+    of the row's 128 bytes, which TMA's 128-byte swizzle fills with
+    features 4 (j ^ (r % 8)) + 0..3 of the slab. Each thread adds its
+    squares with fmaf, slab by slab, x y z w; then the eight combine by
+    xor shuffles 1, 2, 4."""
+    n = x.shape[0]
+    x = torch.nn.functional.pad(x, (0, -x.shape[1] % 32))
+    slabs = x.view(n, -1, 8, 4).double()
+    lanes = torch.arange(8)
+    held = (lanes[None, :] ^ (torch.arange(n) % 8)[:, None])[:, :, None]
+    s = torch.zeros(n, 8)
+    for sl in range(slabs.shape[1]):
+        v = torch.gather(slabs[:, sl], 1, held.expand(n, 8, 4))
+        for e in range(4):
+            s = (s.double() + v[:, :, e] ** 2).float()
+    for off in (1, 2, 4):
+        s = s + s[:, lanes ^ off]
+    return s[:, 0]
+
+
+def _full_3xtf32(x, c):
+    """assign_top2's top-2 as the card forms it (EPI_FULL): the ref
+    expression ``max(|x|^2 - 2 x.c + |c|^2, 0)`` in f32 with x.c by
+    `_dot_3xtf32`, |x|^2 by `_xnorm_tiles` and |c|^2 by `_sqnorm_warp`,
+    each column clamped before the top-2."""
+    pd = torch.clamp_min(_xnorm_tiles(x)[:, None] - 2.0 * _dot_3xtf32(x, c)
+                         + _sqnorm_warp(c), 0.0)
+    return top2_of(pd)
+
+
+def _nested_3xtf32(x, c, a_prev, settled, d_keep, lb_keep, valid):
+    """The nested round's top-2 and keep-select as the card forms them
+    (EPI_NESTED): `_full_3xtf32`, then -1 / 0 / 0 on invalid rows, the
+    kept values on settled rows, and the euclidean top-2 on the rest."""
+    a, d1, d2 = _full_3xtf32(x, c)
+    a_new = torch.where(valid, torch.where(settled, a_prev, a),
+                        torch.full_like(a, -1))
+    d_new = torch.where(valid, torch.where(settled, d_keep, torch.sqrt(d1)),
+                        torch.zeros_like(d1))
+    lb_new = torch.where(valid, torch.where(settled, lb_keep,
+                                            torch.sqrt(d2)),
+                         torch.zeros_like(d2))
+    return a_new, d_new, lb_new
+
+
 def _assert_round_top2(got, want, d2m):
     """`chip_smoke.check_fused_round`'s tolerances: labels equal but for
     near-ties within 1e-3 of the distance, d1 and d2 within rtol 1e-5,
@@ -440,6 +490,100 @@ def test_3xtf32_top2_on_blobs_at_full_width():
     d2m = ((x64 ** 2).sum(1)[:, None] - 2.0 * x64 @ c64.T
            + (c64 ** 2).sum(1))
     _assert_round_top2(_top2_3xtf32(xt, ct), round_top2_exact(xt, ct), d2m)
+
+
+@pytest.mark.parametrize("n,d,k", [(2000, 784, 50), (777, 33, 50),
+                                   (1000, 200, 257), (130, 9, 1),
+                                   (64, 7, 5)])
+def test_full_3xtf32_top2_meets_the_float64_oracle(n, d, k):
+    """assign_top2's tensor-core top-2 (EPI_FULL), replayed, within the
+    oracle tolerance the card's kernel is held to (FULL_RTOL) and within
+    the plain version's (f32 rtol 1e-5, atol 1e-4). At infMNIST's width
+    the plain version's f32 product on the CPU is outside the oracle
+    tolerance: there it tells the two summation orders apart."""
+    x, c = (torch.from_numpy(a) for a in _inputs(n, d, k, 5 * n + k))
+    got = _full_3xtf32(x, c)
+    assert_full_top2(*got, x, c)
+    plain = tref.assign_top2_ref(x, c)
+    _assert_top2(got, plain, tref.pairwise_dist2(x, c), TOL["f32"])
+    if k == 1:
+        assert bool(torch.isinf(got[2]).all())
+    if d == 784:
+        err = (plain[1] - assign_top2_exact(x, c)[1]).abs() / full_scale(x, c)
+        assert float(err.max()) > FULL_RTOL
+
+
+def test_nested_3xtf32_meets_the_float64_oracle():
+    """The nested round's epilogue (EPI_NESTED), replayed at d=784, k=50:
+    invalid rows -1 / 0 / 0, settled rows pass through bit for bit, the
+    rest the oracle's top-2 as euclidean distances (squared back, within
+    FULL_RTOL of the scale plus the sqrt's own rounding)."""
+    n, d, k = 2000, 784, 50
+    x, c, a_prev, settled, d_keep, lb_keep, valid = (
+        torch.from_numpy(a) for a in _nested_inputs(n, d, k, 11))
+    a_new, d_new, lb_new = _nested_3xtf32(x, c, a_prev, settled, d_keep,
+                                          lb_keep, valid)
+    assert bool((a_new[~valid] == -1).all())
+    assert not bool(d_new[~valid].any()) and not bool(lb_new[~valid].any())
+    keep = valid & settled
+    assert torch.equal(a_new[keep], a_prev[keep])
+    assert torch.equal(d_new[keep], d_keep[keep])
+    assert torch.equal(lb_new[keep], lb_keep[keep])
+    new = valid & ~settled
+    assert bool(new.sum() > n // 2)
+    assert_full_top2(a_new[new], d_new[new], lb_new[new], x[new], c,
+                     euclid=True)
+
+
+def test_full_top2_clamp_ties_go_to_the_lower_index():
+    """Rows at (nearly) a centroid that has near-duplicates: where the
+    ref expression rounds below 0 at several columns, the clamp makes
+    them tie at 0, and the lowest of them wins, though a higher one's
+    unclamped value is the smaller; the second distance is then 0 too."""
+    rng = np.random.default_rng(3)
+    d, k = 8, 12
+    base = rng.normal(size=(4, d)) * 1000.0
+    c = np.repeat(base, 3, axis=0) + rng.normal(size=(k, d)) * 3e-3
+    x = c[rng.integers(0, k, 2000)] + rng.normal(size=(2000, d)) * 3e-3
+    x, c = (torch.from_numpy(a.astype(np.float32)) for a in (x, c))
+    raw = (_xnorm_tiles(x)[:, None] - 2.0 * _dot_3xtf32(x, c)
+           + _sqnorm_warp(c))
+    a, d1, d2 = _full_3xtf32(x, c)
+    clamped = raw <= 0
+    tied = clamped.sum(1) >= 2
+    assert bool(tied.any())
+    lowest = torch.argmax(clamped.int(), dim=1)
+    assert torch.equal(a[tied], lowest[tied].to(torch.int32))
+    assert not bool(d1[tied].any()) and not bool(d2[tied].any())
+    # teeth: some tied row has a higher column with a smaller raw value
+    assert bool((raw.argmin(1) != lowest)[tied].any())
+
+
+@pytest.mark.parametrize("n,d,k", [(3000, 16, 7), (9000, 5, 4096),
+                                   (2000, 0, 50), (1, 3, 1)])
+def test_onehot_sums_match_index_add_and_repeat(n, d, k):
+    """The plain sums' route on CUDA devices (`ref.onehot_sums`), called
+    on CPU tensors: within cluster_sum's tolerance (1e-5 of each entry's
+    L1 mass, plus 1e-4) of ``index_add_``, and the same bits twice. Rows
+    span several one-hot blocks where k = 4096."""
+    rng = np.random.default_rng(n + d + k)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(0, k, n).astype(np.int32))
+    w = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0, 0.5], n).astype(
+        np.float32))
+    got = tref.onehot_sums(x, a, k, weights=w)
+    assert got[0].shape == (k, d) and got[1].shape == (k,)
+    want = tref.cluster_sum_ref(x, a, k, weights=w)
+    mass = tref.cluster_sum_ref(x.abs(), a, k, weights=w.abs())
+    for g, wt, m in zip(got, want, mass):
+        assert bool(((g - wt).abs() <= 1e-5 * m + 1e-4).all())
+    again = tref.onehot_sums(x, a, k, weights=w)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    ones = tref.onehot_sums(x, a, k)
+    torch.testing.assert_close(ones[1], torch.bincount(
+        a.long(), minlength=k).float(), rtol=0, atol=0)
+    if k == 4096:
+        assert tref.ONEHOT_BLOCK // k < n
 
 
 @pytest.mark.parametrize("d", [0, 7, 33, 784])

@@ -202,3 +202,21 @@ def test_nested_round_refuses_unported_bounds(mid_fit):
         state_from_numpy(dataclasses.replace(
             jtree, elkan=jstate.ElkanBounds(l=np.zeros((1, 8)))),
             device="cpu")
+
+
+def test_round_scalars_are_filled_on_the_device():
+    """`rounds._scalar` and `distributed._count` fill their 0-d tensors on
+    x's device (no host copy) and give the values and dtypes of the
+    ``torch.tensor`` calls they replace."""
+    from repro_torch.core import distributed as tdist
+    x = torch.zeros(37, 3)
+    for v, dt in ((37, torch.int32), (0, torch.int32), (False, torch.bool),
+                  (True, torch.bool)):
+        got = trounds._scalar(v, x, dt)
+        want = torch.tensor(v, dtype=dt)
+        assert got.shape == () and got.dtype == dt and got.device == x.device
+        assert torch.equal(got, want)
+    assert trounds._scalar(5, x).dtype == torch.int32
+    count = tdist._count(x)
+    assert count.shape == () and count.dtype == torch.int64
+    assert torch.equal(count, torch.tensor(37, dtype=torch.int64))
