@@ -88,7 +88,27 @@ Phases (each raises on failure, so any fault exits non-zero):
      over 3.35 TB/s and its operations at their type's peak (the
      distances in 3xTF32 at 495 TFLOP/s, the adds into S in f32), with
      the full-f32 CUDA-core bound and a yardstick beside it: cuBLAS's f32
-     ``torch.mm`` of x.c^T on the slice, scaled to all rows.
+     ``torch.mm`` of x.c^T on the slice, scaled to all rows;
+  7. the paper's other algorithms and bound families at the infMNIST
+     cell's width, on phase 4's rows: lloyd (to convergence, at most 100
+     rounds), mb and mb-f (b0=2000, 400 rounds: two passes over the rows,
+     one reshuffle), tb with ``bounds="elkan"`` and with
+     ``bounds="exponion"`` (phase 4's config otherwise, to convergence)
+     and lloyd-elkan (at most 100 rounds). For each, the launch counts
+     are set to 0 just before the fit and read just after: assign_top2
+     and cluster_sum must be > 0 on lloyd, mb and mb-f, cluster_sum on
+     the elkan and exponion paths (their (b, k) distances are plain
+     matrix products, as in the JAX package). A second identical fit
+     must give bit-identical centroids and labels, and the same fit with
+     ``kernel_backend="ref"`` must reach a final validation MSE within
+     1e-3 relative. Rounds, wall, the sum of n_recomputed, the final
+     validation MSE, peak device memory and the validation MSE against
+     the rounds' time are logged (phase 4's tb fit beside them), and the
+     second fit is profiled as phase 4's is. The two
+     tb families run once more shadowed: each round's step is also taken
+     with ``bounds="none"`` from the same state, and the labels may
+     differ from it only at near-ties (float64 gap within 1e-3
+     relative).
 
 The last two lines are a JSON object of the kernels and the JSON result
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -613,10 +633,15 @@ def profile_report(prof, wall_s: float, wall_profiled_s: float,
             f"{e.count:7d}x  {e.key[:90]}")
 
 
+#: phase 4's config: the paper's infMNIST experiment
+MAIN_CONFIG = dict(b0=5000, algorithm="tb", rho=math.inf, bounds="hamerly2",
+                   seed=0)
+
+
 def fit_once(X, Xv, **kw):
+    """Phase 4's fit, with ``kw`` over its config."""
     from repro_torch.api import FitConfig, NestedKMeans
-    cfg = FitConfig(k=K, b0=5000, algorithm="tb", rho=math.inf,
-                    bounds="hamerly2", seed=0, **kw)
+    cfg = FitConfig(k=K, **dict(MAIN_CONFIG, **kw))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     km = NestedKMeans(cfg, device=DEV).fit(X, X_val=Xv)
@@ -734,7 +759,7 @@ def main_path_phase() -> dict:
     need(rel <= 1e-3, "cuda and ref fits differ in val MSE beyond 1e-3")
     need(same_ref, "two ref fits on the card differ")
     shadow_fit(X, Xv, km)
-    return {"launches": launches, "X": X}
+    return {"launches": launches, "X": X, "Xv": Xv, "curve": _curve(km)}
 
 
 def shadow_fit(X, Xv, km) -> None:
@@ -1176,6 +1201,129 @@ def xl_phase() -> dict:
     return {"err": err, "launches": launches, "times": t}
 
 
+# ---------------------------------------------------------------- phase 7
+
+#: the paper's other algorithms and bound families at the infMNIST cell's
+#: width: (name, FitConfig over phase 4's, the kernels its fit must launch)
+OTHER_PATHS = (
+    ("lloyd", dict(algorithm="lloyd", max_rounds=100),
+     ("assign_top2", "cluster_sum")),
+    ("mb", dict(algorithm="mb", b0=2000, max_rounds=400),
+     ("assign_top2", "cluster_sum")),
+    ("mbf", dict(algorithm="mbf", b0=2000, max_rounds=400),
+     ("assign_top2", "cluster_sum")),
+    ("tb-elkan", dict(bounds="elkan"), ("cluster_sum",)),
+    ("tb-exponion", dict(bounds="exponion"), ("cluster_sum",)),
+    ("lloyd-elkan", dict(algorithm="lloyd-elkan", max_rounds=100),
+     ("cluster_sum",)),
+)
+
+
+def _curve(km) -> list:
+    """(time in the rounds, validation MSE) at each evaluation."""
+    return [(r.t, r.val_mse) for r in km.telemetry_
+            if r.val_mse is not None]
+
+
+def _curve_text(curve) -> str:
+    return " ".join(f"{t:.4f}:{m:.6f}" for t, m in curve)
+
+
+def other_paths_phase(X, Xv, tb_curve) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    log(f"[7] the other algorithms and bound families on phase 4's rows "
+        f"({N}, {D}), k={K}")
+    log(f"    tb (phase 4) val MSE against the rounds' time (s:MSE): "
+        f"{_curve_text(tb_curve)}")
+    for name, kw, kernels in OTHER_PATHS:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        km, wall = fit_once(X, Xv, **kw)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        tel = [r for r in km.telemetry_ if r.batch_mse is not None]
+        log(f"    {name}: {len(tel)} rounds, converged {km.converged_}, "
+            f"sum n_recomputed {sum(r.n_recomputed for r in tel)}, final "
+            f"val MSE {km.final_mse_!r}, wall {wall:.2f} s (rounds "
+            f"{km.telemetry_[-1].t:.3f} s), peak device memory "
+            f"{peak / 2 ** 30:.2f} GiB")
+        log(f"      launches: {launches}")
+        for kern in kernels:
+            need(launches[kern] > 0, f"{kern} was never launched on the "
+                 f"{name} path")
+        C, labels = km.cluster_centers_, km.labels_
+        need(C.shape == (K, D) and bool(np.isfinite(C).all()),
+             f"{name}: centroids are not finite (k, d)")
+        need(labels.shape == (N,) and labels.min() >= 0
+             and labels.max() < K, f"{name}: fit labels")
+        # the second fit runs under torch.profiler: where its time goes
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            km2, wall2 = fit_once(X, Xv, **kw)
+        same = np.array_equal(km2.cluster_centers_, C) \
+            and np.array_equal(km2.labels_, labels)
+        profile_report(prof, wall, wall2)
+        syncs = sync_counts(prof)
+        log(f"      host calls that wait for the device in the profiled "
+            f"fit: {sum(syncs.values())} ({syncs})")
+        kmr, wallr = fit_once(X, Xv, kernel_backend="ref", **kw)
+        rel = abs(kmr.final_mse_ - km.final_mse_) / abs(kmr.final_mse_)
+        n_ref = sum(r.batch_mse is not None for r in kmr.telemetry_)
+        log(f"      second fit (wall {wall2:.2f} s) bit-identical: {same}; "
+            f"ref fit: {n_ref} rounds, val MSE {kmr.final_mse_!r}, wall "
+            f"{wallr:.2f} s, relative gap {rel:.3g}")
+        log(f"      val MSE against the rounds' time (s:MSE): "
+            f"{_curve_text(_curve(km))}")
+        need(same, f"{name}: a second identical fit is not bit-identical")
+        need(rel <= 1e-3, f"{name}: cuda and ref fits differ in val MSE "
+             f"beyond 1e-3")
+        if name.startswith("tb-"):
+            shadow_bounds(X, Xv, km, kw)
+
+
+def shadow_bounds(X, Xv, km, kw) -> None:
+    """The bound family's fit once more, each round's step also taken
+    with ``bounds="none"`` (every active row scans all k) from the same
+    state: a bound only skips work that cannot change an assignment, so
+    a label may differ from the exhaustive step's only at a near-tie
+    (float64 distances to the two centroids within 1e-3 relative). The
+    fit itself must keep its bits."""
+    from repro_torch.api import FitConfig
+    from repro_torch.api.engines.local import LocalEngine
+    from repro_torch.api.loop import run_loop
+    from repro_torch.core import rounds
+    cfg = FitConfig(k=K, **dict(MAIN_CONFIG, **kw)).resolve(N)
+    run = LocalEngine().begin(X, cfg, X_val=Xv, device=DEV)
+    step = run.nested_step
+    seen = {"rounds": 0, "rows": 0, "worst": 0, "top": 0.0}
+
+    def both(state, b, capacity):
+        out = step(state, b, capacity)
+        alt = rounds.nested_round(
+            run._Xd, state, b=b, rho=cfg.rho, bounds="none",
+            capacity=capacity, use_shalf=cfg.use_shalf, plan=run.kernel_plan)
+        rows, _, gap = _near_ties(run._Xd[:b], state.stats.C,
+                                  out[0].points.a[:b], alt[0].points.a[:b])
+        seen["top"] = max(seen["top"], gap)
+        seen["rounds"] += 1
+        seen["rows"] += rows
+        seen["worst"] = max(seen["worst"], rows)
+        return out
+
+    run.nested_step = both
+    out = run_loop(run, cfg)
+    del run.nested_step       # the cycle run -> both -> run holds X
+    need(np.array_equal(out.C, km.cluster_centers_),
+         f"the shadowed {cfg.bounds} fit differs from its fit")
+    log(f"      shadow fit (each round's step also with bounds='none' from "
+        f"the same state): {seen['rounds']} steps; labels differ at "
+        f"{seen['rows']} rows in all (at most {seen['worst']} in a step), "
+        f"every one a near-tie (largest float64 gap {seen['top']:.3g} "
+        f"relative)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1188,8 +1336,9 @@ def main() -> int:
     build_phase()
     errs = compare_phase()
     main = main_path_phase()
-    times = timing_phase(main.pop("X"))
+    times = timing_phase(main["X"])
     xl = xl_phase()
+    other_paths_phase(main.pop("X"), main.pop("Xv"), main.pop("curve"))
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])

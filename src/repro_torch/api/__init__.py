@@ -5,9 +5,14 @@
     km = NestedKMeans(FitConfig(k=50, b0=5000)).fit(X_train, X_val=X_val)
     labels = km.predict(X_new)
 
-`NestedKMeans` runs on ``device="cuda"`` unless told otherwise.
+`NestedKMeans` runs on ``device="cuda"`` unless told otherwise, and so
+does `fit`, a functional form over it that returns the `FitOutcome`.
 """
 from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
 
 from repro_torch.api.config import (ALGORITHMS, BACKENDS, BOUNDS,
                                     CheckpointConfig, FitConfig)
@@ -17,8 +22,20 @@ from repro_torch.api.loop import (FitOutcome, HostRoundInfo, cap_bucket,
                                   fetch_round_info, next_pow2, run_loop)
 from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
 
+
+def fit(X, config: FitConfig, *, X_val=None,
+        init_C: Optional[np.ndarray] = None,
+        on_round: Optional[RoundCallback] = None,
+        device="cuda") -> FitOutcome:
+    """One-call fit: build the engine for ``config`` and run it."""
+    km = NestedKMeans(config, device=device, on_round=on_round)
+    km.fit(X, X_val=X_val, init_C=init_C)
+    return km.outcome_
+
+
 __all__ = [
     "FitConfig", "CheckpointConfig", "NestedKMeans", "NotFittedError",
+    "fit",
     "Engine", "EngineRun", "LocalEngine", "make_engine",
     "run_loop", "FitOutcome", "HostRoundInfo", "fetch_round_info",
     "Telemetry", "RoundCallback", "final_val_mse", "cap_bucket",

@@ -52,6 +52,16 @@ class EngineRun:
         raise NotImplementedError(
             f"{type(self).__name__} does not run the nested family")
 
+    def lloyd_step(self, state: KMeansState
+                   ) -> Tuple[KMeansState, RoundInfo]:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not run lloyd")
+
+    def mb_step(self, state: KMeansState, fixed: bool
+                ) -> Tuple[KMeansState, RoundInfo]:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not run mb/mbf")
+
     def eval_mse(self, state: KMeansState) -> Optional[float]:
         """Validation MSE of the current centroids (None: no val set)."""
         return None

@@ -2,9 +2,11 @@
 
 Port of `repro/api/engines/local.py` for in-memory data. The rows are
 shuffled with the same numpy permutation as the JAX engine
-(``default_rng(seed).permutation(N)``), so both packages see the same
-rows in the same order. The kernel plan is resolved once per fit.
-Streaming rows from a chunk store is ROADMAP Queue 1 item 6.
+(``default_rng(seed).permutation(N)``), and mb's batches come from the
+next permutations of the same generator, drawn in the same order, so
+both packages see the same rows in the same order. The kernel plan is
+resolved once per fit. Streaming rows from a chunk store is ROADMAP
+Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ class _LocalRun(EngineRun):
             X_val, dtype=np.float32)).to(self.device)
             if X_val is not None else None)
         self._config = config
-        state = init_state(self._Xd, config.k)
+        state = init_state(self._Xd, config.k, bounds=config.bounds)
         if init_C is not None:       # warm start
             C = torch.from_numpy(np.ascontiguousarray(
                 init_C, dtype=np.float32)).to(self.device)
@@ -61,12 +63,36 @@ class _LocalRun(EngineRun):
                                         k=config.k, d=self._Xd.shape[1],
                                         device=self.device,
                                         bounds=config.bounds)
+        # mb/mbf resampling stream (the paper's footnote 1: cycle through
+        # a reshuffle). Drawn here, after the shuffle, for every
+        # algorithm, as the JAX engine draws it; the card gets a copy
+        # once per permutation and each batch is a slice of that copy.
+        self._rng = rng
+        self._mb_pos = 0
+        self._mb_perm = rng.permutation(N)
+        self._mb_idx = None
 
     def nested_step(self, state, b, capacity):
         return rounds.nested_round(
             self._Xd, state, b=b, rho=self._config.rho,
             bounds=self._config.bounds, capacity=capacity,
             use_shalf=self._config.use_shalf, plan=self.kernel_plan)
+
+    def lloyd_step(self, state):
+        return rounds.lloyd_round(self._Xd, state, plan=self.kernel_plan)
+
+    def mb_step(self, state, fixed):
+        N, b = self.b_max, self.b
+        if self._mb_pos + b > N:
+            self._mb_perm = self._rng.permutation(N)
+            self._mb_pos = 0
+            self._mb_idx = None
+        if self._mb_idx is None:
+            self._mb_idx = torch.from_numpy(self._mb_perm).to(self.device)
+        idx = self._mb_idx[self._mb_pos:self._mb_pos + b]
+        self._mb_pos += b
+        return rounds.mb_round(self._Xd, idx, state, fixed=fixed,
+                               plan=self.kernel_plan)
 
     def eval_mse(self, state):
         if self._Xv is None:

@@ -5,7 +5,9 @@
     km = NestedKMeans(FitConfig(k=50, b0=5000)).fit(X_train, X_val=X_val)
     labels = km.predict(X_new)
 
-Port of `repro/api/estimator.py`. The estimator runs on ``device``,
+Port of `repro/api/estimator.py`. `fit` runs every algorithm of
+`config.ALGORITHMS` and every bound family of `config.BOUNDS`. The
+estimator runs on ``device``,
 "cuda" unless the caller asks for another: with no card it raises, it
 never falls back to the CPU. `partial_fit` folds one batch into the
 running statistics with one nested round, as in the JAX package.
@@ -104,7 +106,7 @@ class NestedKMeans:
             t0 = time.perf_counter()
             Xd = torch.from_numpy(np.ascontiguousarray(
                 X, dtype=np.float32)).to(self.device)
-            state = init_state(Xd, cfg.k)
+            state = init_state(Xd, cfg.k, bounds=cfg.bounds)
             if self._stats is not None:
                 # carry the running statistics; the bounds restart per
                 # batch (new points have no history to bound against)

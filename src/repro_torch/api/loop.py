@@ -7,7 +7,8 @@ the host by `fetch_round_info` in ONE transfer per round (one per
 overflow attempt), or on the resolved config. In-loop checkpoints and
 tracing are not ported yet: a config that sets ``checkpoint`` or
 ``trace_dir`` is refused (ROADMAP Queue 1 items 6 and 8), as are the
-algorithms and backends other than tb on "local".
+backends other than "local" (item 9). Every algorithm and bound family
+runs.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ import torch
 from repro_torch.api.config import FitConfig
 from repro_torch.api.engines.base import EngineRun
 from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
-from repro_torch.core.rounds import PORTED_BOUNDS, not_ported
 from repro_torch.core.state import KMeansState, RoundInfo
 from repro_torch.kernels.plan import next_pow2
 
@@ -30,10 +30,6 @@ from repro_torch.kernels.plan import next_pow2
 def check_ported(config: FitConfig) -> None:
     """Raise `NotImplementedError` for a resolved config this slice of
     the port cannot run yet."""
-    if config.algorithm != "tb":
-        raise not_ported(f"algorithm={config.algorithm!r}")
-    if config.bounds not in PORTED_BOUNDS:
-        raise not_ported(f"bounds={config.bounds!r}")
     if config.backend != "local":
         raise NotImplementedError(
             f"backend={config.backend!r} is not ported to repro_torch yet "
@@ -128,9 +124,12 @@ def run_loop(run: EngineRun, config: FitConfig, *,
              on_round: Optional[RoundCallback] = None) -> FitOutcome:
     """Growth schedule + capacity bucketing + overflow retry + patience.
 
-    ``config`` must already be `resolve()`d (no alias algorithms).
+    ``config`` must already be `resolve()`d (no alias algorithms):
+    lloyd, mb or mbf take one step a round; tb (gb and lloyd-elkan
+    resolve to it) takes nested rounds under the growth schedule.
     """
     check_ported(config)
+    algorithm = config.algorithm
     bounds = config.bounds
     state = run.state
     b = run.b
@@ -155,37 +154,49 @@ def run_loop(run: EngineRun, config: FitConfig, *,
                 and t_work >= config.time_budget_s:
             break
         t0 = time.perf_counter()
-        while True:
-            new_state, info = run.nested_step(state, b, capacity)
+        if algorithm == "lloyd":
+            new_state, info = run.lloyd_step(state)
             hinfo = fetch_round_info(info)
-            if not hinfo.overflow:
-                break
-            # overflow retry: same input state, doubled bucket —
-            # exactness is never traded for speed
-            capacity = (None if capacity is None or 2 * capacity >= b
-                        else 2 * capacity)
+        elif algorithm in ("mb", "mbf"):
+            new_state, info = run.mb_step(state, fixed=algorithm == "mbf")
+            hinfo = fetch_round_info(info)
+        else:  # the tb family (gb is tb with bounds="none")
+            while True:
+                new_state, info = run.nested_step(state, b, capacity)
+                hinfo = fetch_round_info(info)
+                if not hinfo.overflow:
+                    break
+                # overflow retry: same input state, doubled bucket —
+                # exactness is never traded for speed
+                capacity = (None if capacity is None or 2 * capacity >= b
+                            else 2 * capacity)
         t_work += time.perf_counter() - t0
         state = new_state
         record(hinfo)
 
-        if bounds == "hamerly2":
-            need = -(-hinfo.n_recomputed // run.n_shards)
-            if hinfo.grow and b < run.b_max:
-                # a doubling adds b new points that always need a full
-                # pass: start the grown bucket dense
-                capacity = None
+        if algorithm == "tb":
+            if bounds == "hamerly2":
+                need = -(-hinfo.n_recomputed // run.n_shards)
+                if hinfo.grow and b < run.b_max:
+                    # a doubling adds b new points that always need a
+                    # full pass: start the grown bucket dense
+                    capacity = None
+                else:
+                    capacity = cap_bucket(need, b, config.capacity_floor)
+            if hinfo.grow:
+                b = min(2 * b, run.b_max)
+            if (hinfo.n_active >= run.n_active_target
+                    and hinfo.n_changed == 0 and hinfo.p_max == 0.0):
+                quiet_rounds += 1
             else:
-                capacity = cap_bucket(need, b, config.capacity_floor)
-        if hinfo.grow:
-            b = min(2 * b, run.b_max)
-        if (hinfo.n_active >= run.n_active_target
-                and hinfo.n_changed == 0 and hinfo.p_max == 0.0):
-            quiet_rounds += 1
-        else:
-            quiet_rounds = 0
-        if quiet_rounds >= config.converge_patience:
+                quiet_rounds = 0
+            if quiet_rounds >= config.converge_patience:
+                converged = True
+                break
+        elif algorithm == "lloyd" and hinfo.n_changed == 0:
             converged = True
             break
+        # mb and mbf stop only at max_rounds or the time budget
 
     # final validation point, unless the last round already evaluated
     if not (telemetry and telemetry[-1].val_mse is not None):

@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.state import ClusterStats, KMeansState, PointState
+from repro_torch.core.state import (ClusterStats, ElkanBounds, KMeansState,
+                                   PointState)
 from repro_torch.kernels._build import resolve_device
 
 
@@ -28,10 +29,6 @@ def _t(x, dtype: torch.dtype, device) -> torch.Tensor:
 def state_from_numpy(tree, device="cuda") -> KMeansState:
     """The port's `KMeansState` for a numpy-leaved JAX `KMeansState`."""
     device = resolve_device(device)
-    if getattr(tree, "elkan", None) is not None:
-        raise NotImplementedError(
-            "elkan bounds are not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 5)")
     f32, i32 = torch.float32, torch.int32
     s, p = tree.stats, tree.points
     stats = ClusterStats(C=_t(s.C, f32, device), S=_t(s.S, f32, device),
@@ -39,7 +36,9 @@ def state_from_numpy(tree, device="cuda") -> KMeansState:
                          p=_t(s.p, f32, device))
     points = PointState(a=_t(p.a, i32, device), d=_t(p.d, f32, device),
                         lb=_t(p.lb, f32, device))
-    return KMeansState(stats=stats, points=points,
+    elkan = (None if tree.elkan is None
+             else ElkanBounds(l=_t(tree.elkan.l, f32, device)))
+    return KMeansState(stats=stats, points=points, elkan=elkan,
                        round=_t(tree.round, i32, device))
 
 

@@ -1,17 +1,27 @@
-"""One nested round (gb-rho / tb-rho) over the prefix ``X[:b]``.
+"""One-round update functions for every algorithm of the paper.
 
-Port of `repro/core/rounds.py::nested_round` for the bound families
-``"none"`` (gb: every active point scans all k) and ``"hamerly2"`` (tb:
-two bounds per point plus capacity compaction). Both are exact: the bound
-tests only skip work that provably cannot change an assignment.
+Port of `repro/core/rounds.py`. Each function takes a state and returns
+a new one (the caller's tensors are never written) with its `RoundInfo`:
 
-The bound DECISIONS stay here in plain torch (`_hamerly_settled`), exactly
-as the JAX package keeps them out of its kernels, so the growth and
-compaction schedule cannot drift between the plain and the kernel path.
+  * ``lloyd_round``   Lloyd's algorithm (full batch, fresh means);
+  * ``mb_round``      Sculley's mini-batch in its S/v form, and with
+                      ``fixed=True`` mb-f (``mbf_round``): the batch's
+                      previous contributions are removed first;
+  * ``nested_round``  gb-rho / tb-rho on the nested prefix ``X[:b]``,
+                      by bound family: ``"none"`` (gb: every active
+                      point scans all k), ``"hamerly2"`` (two bounds a
+                      point plus capacity compaction), ``"elkan"`` (one
+                      bound a (point, centroid) pair) and ``"exponion"``
+                      (the Hamerly test plus annular candidate pruning).
+
+Every bound family is exact: a bound test only skips work that provably
+cannot change an assignment. The bound DECISIONS stay here in plain torch
+(`_hamerly_settled`, `_assign_elkan`, `_assign_exponion`), as the JAX
+package keeps them out of its kernels, so the schedule cannot drift
+between the plain and the kernel path; elkan's and exponion's (b, k)
+distances are plain matrix products (`ref.pairwise_dist2`), as there.
 Per-cluster float sums go through `ops.cluster_sum`, whose kernel is
 deterministic (a CUDA `index_add_` adds with atomics in no fixed order).
-
-elkan, exponion, lloyd, mb and mbf are ROADMAP Queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -21,16 +31,12 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import collectives, controller
-from repro_torch.core.state import KMeansState, RoundInfo, centroid_update
+from repro_torch.core.state import (ElkanBounds, KMeansState, RoundInfo,
+                                   build_exponion_geom, centroid_update)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.plan import KernelPlan
 
-PORTED_BOUNDS = ("none", "hamerly2")
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item 5)")
+INF = float("inf")
 
 
 # --------------------------------------------------------------------------
@@ -92,6 +98,89 @@ def _scalar(x, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
     return torch.full((), x, dtype=dtype, device=like.device)
 
 
+def _no_growth_info(d: torch.Tensor, n_changed: torch.Tensor,
+                    stats) -> RoundInfo:
+    """The `RoundInfo` of a round outside the nested family: every row
+    of ``d`` recomputed and active, no overflow, no growth vote."""
+    n = _scalar(d.shape[0], d)
+    return RoundInfo(
+        batch_mse=torch.mean(d * d), n_changed=n_changed, n_recomputed=n,
+        n_active=n, overflow=_scalar(False, d, torch.bool),
+        grow=_scalar(False, d, torch.bool),
+        r_median=_scalar(INF, d, torch.float32), p_max=torch.max(stats.p))
+
+
+# --------------------------------------------------------------------------
+# Lloyd
+# --------------------------------------------------------------------------
+
+def lloyd_round(X: torch.Tensor, state: KMeansState, *,
+                plan: Optional[KernelPlan] = None
+                ) -> Tuple[KMeansState, RoundInfo]:
+    """Exact Lloyd iteration: full reassignment + fresh means."""
+    k = state.stats.C.shape[0]
+    a_new, d1sq, _ = ops.assign_top2(X, state.stats.C, plan=plan)
+    d = _euclid(d1sq)
+    S, v = ops.cluster_sum(X, a_new, k, plan=plan)
+    sse = _refresh_sse(d, a_new, k, plan)
+    stats = centroid_update(dataclasses.replace(state.stats, S=S, v=v,
+                                                sse=sse))
+    n_changed = (a_new != state.points.a).sum(dtype=torch.int32)
+    points = dataclasses.replace(state.points, a=a_new, d=d)
+    new_state = dataclasses.replace(state, stats=stats, points=points,
+                                    round=state.round + 1)
+    return new_state, _no_growth_info(d, n_changed, stats)
+
+
+# --------------------------------------------------------------------------
+# Mini-Batch (Sculley) and mb-f
+# --------------------------------------------------------------------------
+
+def mb_round(X: torch.Tensor, idx: torch.Tensor, state: KMeansState, *,
+             fixed: bool, plan: Optional[KernelPlan] = None
+             ) -> Tuple[KMeansState, RoundInfo]:
+    """One round of mb (the S/v form of Sculley's algorithm) or, with
+    ``fixed=True``, mb-f (each batch row's previous contribution is
+    removed before its new one is added).
+
+    ``idx``: (b,) int64 row indices of this round's batch, on X's device
+    (the engine cycles through a reshuffled permutation, so a batch holds
+    no row twice).
+    """
+    k = state.stats.C.shape[0]
+    x = X[idx]
+    a_new, d1sq, _ = ops.assign_top2(x, state.stats.C, plan=plan)
+    d = _euclid(d1sq)
+
+    if fixed:
+        a_prev = state.points.a[idx]
+        dS, dv = _delta_sv(x, a_prev, a_new, k, plan)
+        stats = dataclasses.replace(state.stats, S=state.stats.S + dS,
+                                    v=state.stats.v + dv)
+        n_changed = ((a_prev >= 0) & (a_new != a_prev)).sum(
+            dtype=torch.int32)
+    else:
+        # plain mb never removes: every (re)assignment accumulates
+        S_add, v_add = ops.cluster_sum(x, a_new, k, plan=plan)
+        stats = dataclasses.replace(state.stats, S=state.stats.S + S_add,
+                                    v=state.stats.v + v_add)
+        n_changed = _scalar(idx.shape[0], x)
+
+    stats = centroid_update(stats)
+    a_all = state.points.a.clone()
+    d_all = state.points.d.clone()
+    a_all[idx] = a_new
+    d_all[idx] = d
+    points = dataclasses.replace(state.points, a=a_all, d=d_all)
+    new_state = dataclasses.replace(state, stats=stats, points=points,
+                                    round=state.round + 1)
+    return new_state, _no_growth_info(d, n_changed, stats)
+
+
+def mbf_round(X, idx, state, *, plan=None):
+    return mb_round(X, idx, state, fixed=True, plan=plan)
+
+
 # --------------------------------------------------------------------------
 # nested rounds
 # --------------------------------------------------------------------------
@@ -105,11 +194,14 @@ def _assign_exhaustive(x, state, valid, *, plan):
             _scalar(False, x, torch.bool), None)
 
 
-def _hamerly_settled(x, state, a_prev, valid, *, use_shalf: bool):
+def _hamerly_settled(x, state, a_prev, valid, *, use_shalf: bool,
+                     s_half: Optional[torch.Tensor] = None):
     """The Hamerly bound DECISIONS for one round's active slice.
 
     Whatever executes the assignment, the settled mask (and so the bound
-    and compaction schedule) comes from this one function.
+    and compaction schedule) comes from this one function. ``s_half``
+    overrides the half inter-centroid distances (exponion reads them off
+    its geometry).
 
     Returns (settled, lb_dec, d_a, n_need).
     """
@@ -120,7 +212,8 @@ def _hamerly_settled(x, state, a_prev, valid, *, use_shalf: bool):
     d_a = _dist_to_assigned(x, C, a_prev)
     thresh = lb_dec
     if use_shalf:
-        s_half = _half_intercentroid(C)
+        if s_half is None:
+            s_half = _half_intercentroid(C)
         thresh = torch.maximum(lb_dec, s_half[a_prev.clamp_min(0).long()])
     settled = seen & (d_a <= thresh)
     if valid is not None:
@@ -201,6 +294,90 @@ def _assign_hamerly2(x, state, a_prev, valid, *, capacity: Optional[int],
             overflow, None)
 
 
+def _assign_elkan(x, state, a_prev, valid):
+    """Elkan's bounds: one lower bound l(i, j) per (point, centroid).
+
+    All the distances the bound tests let through are computed at once
+    instead of one by one; the assignment is the same, and
+    ``n_recomputed`` counts the pair distances a serial implementation
+    would compute (every pair that fails its test, plus each seen
+    point's distance to its own centroid). Pad rows (``valid`` false)
+    compute nothing; the caller resets their outputs. There is no
+    second-nearest bound: the 3rd slot is None and ``lb`` stays.
+    """
+    C = state.stats.C
+    k = C.shape[0]
+    b = x.shape[0]
+    seen = a_prev >= 0
+    l_dec = state.elkan.l[:b] - state.stats.p[None, :]
+    d_a = _dist_to_assigned(x, C, a_prev)
+
+    d_all = _euclid(ref.pairwise_dist2(x, C))                  # (b, k)
+    own = torch.arange(k, device=x.device)[None, :] == a_prev[:, None]
+    compute = (l_dec < d_a[:, None]) & ~own                    # bound test
+    compute = compute | ~seen[:, None]                         # new: all k
+    if valid is not None:
+        compute = compute & valid[:, None]
+
+    l_new = torch.where(compute, d_all, l_dec)
+    cand = torch.where(compute, d_all, INF)
+    cand = torch.where(own & seen[:, None], d_a[:, None], cand)
+    a_new = torch.argmin(cand, dim=1).to(torch.int32)
+    d_new = torch.min(cand, dim=1).values
+    # + the d_a's (pads are never seen, so they add nothing here)
+    n_comp = compute.sum(dtype=torch.int32) + seen.sum(dtype=torch.int32)
+    return (a_new, d_new, None, n_comp, _scalar(False, x, torch.bool),
+            l_new)
+
+
+def _assign_exponion(x, state, a_prev, valid, *, use_shalf: bool):
+    """Annular candidate pruning (Newling and Fleuret's exponion).
+
+    The Hamerly test of `_hamerly_settled`, with s/2 read off the
+    geometry table; a point that fails it scans only the centroids
+    within R = 2 d(x, c_a) + s(a) of its anchor c_a. Every centroid tied
+    at the minimum lies within 2 d(x, c_a) <= R, and so does the anchor's
+    nearest neighbour, so the candidates' argmin (lowest index first) and
+    second minimum are an exhaustive scan's. Centroids at exactly R are
+    in (a ``<=`` ring count). The top-2 is taken in squared space, as
+    `ops.assign_top2` takes it.
+
+    ``n_recomputed`` counts pair distances (the elkan convention): every
+    scanned (point, centroid) pair plus each seen point's d_a.
+    """
+    C = state.stats.C
+    k = C.shape[0]
+    geom = build_exponion_geom(C)
+    seen = a_prev >= 0
+    settled, lb_dec, d_a, _ = _hamerly_settled(
+        x, state, a_prev, valid, use_shalf=use_shalf, s_half=0.5 * geom.s)
+    needs = ~settled
+
+    anchor = a_prev.clamp(0, k - 1).long()
+    R = 2.0 * d_a + geom.s[anchor]
+    rows = geom.dist[anchor]                                   # (b, k)
+    m_exact = (rows <= R[:, None]).sum(dim=1, dtype=torch.int32)
+    ring = geom.rank[anchor] < m_exact[:, None]
+    scan = needs[:, None] & (ring | ~seen[:, None])            # new: all k
+    if valid is not None:
+        scan = scan & valid[:, None]
+
+    cand = torch.where(scan, ref.pairwise_dist2(x, C), INF)
+    a_f = torch.argmin(cand, dim=1)
+    d1sq = torch.gather(cand, 1, a_f[:, None])[:, 0]
+    rest = torch.where(torch.arange(k, device=x.device)[None, :]
+                       == a_f[:, None], INF, cand)
+    d1, d2 = _euclid(d1sq), _euclid(torch.min(rest, dim=1).values)
+
+    a_new = torch.where(settled, a_prev, a_f.to(torch.int32))
+    d_new = torch.where(settled, d_a, d1)
+    lb_new = torch.where(settled, lb_dec, d2)
+    # pads are never seen, so they add nothing
+    n_comp = scan.sum(dtype=torch.int32) + seen.sum(dtype=torch.int32)
+    return (a_new, d_new, lb_new, n_comp, _scalar(False, x, torch.bool),
+            None)
+
+
 def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
                  rho: float, bounds: str = "hamerly2",
                  capacity: Optional[int] = None, use_shalf: bool = True,
@@ -229,10 +406,6 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
     shapes (gb, or tb with capacity covering the batch) through the fused
     kernel.
     """
-    if bounds not in PORTED_BOUNDS:
-        if bounds in ("elkan", "exponion"):
-            raise not_ported(f"bounds={bounds!r}")
-        raise ValueError(f"unknown bounds {bounds!r}")
     k = state.stats.C.shape[0]
     x = X[:b]
     a_prev = state.points.a[:b]
@@ -243,7 +416,7 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
              and (bounds == "none"
                   or (bounds == "hamerly2"
                       and (capacity is None or capacity >= b))))
-    fused_acc = None
+    fused_acc = l_new = None
     if fused:
         a_new, d_new, lb2, n_rec, overflow, fused_acc = _fused_dense_round(
             x, state, a_prev, valid, bounds=bounds, use_shalf=use_shalf,
@@ -251,16 +424,29 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
     elif bounds == "none":
         a_new, d_new, lb2, n_rec, overflow, _ = _assign_exhaustive(
             x, state, valid, plan=plan)
-    else:
+    elif bounds == "hamerly2":
         a_new, d_new, lb2, n_rec, overflow, _ = _assign_hamerly2(
             x, state, a_prev, valid, capacity=capacity,
             use_shalf=use_shalf, plan=plan)
+    elif bounds == "elkan":
+        a_new, d_new, lb2, n_rec, overflow, l_new = _assign_elkan(
+            x, state, a_prev, valid)
+    elif bounds == "exponion":
+        a_new, d_new, lb2, n_rec, overflow, _ = _assign_exponion(
+            x, state, a_prev, valid, use_shalf=use_shalf)
+    else:
+        raise ValueError(f"unknown bounds {bounds!r}")
 
     if valid is not None:
         # idempotent on the fused path (the kernel already masked)
         a_new = torch.where(valid, a_new, torch.full_like(a_new, -1))
         d_new = torch.where(valid, d_new, torch.zeros_like(d_new))
-        lb2 = torch.where(valid, lb2, torch.zeros_like(lb2))
+        if lb2 is not None:
+            lb2 = torch.where(valid, lb2, torch.zeros_like(lb2))
+        if l_new is not None:
+            # pads keep a zero bound (their lanes are dead)
+            l_new = torch.where(valid[:, None], l_new,
+                                torch.zeros_like(l_new))
 
     if fused_acc is not None:
         dS, dv, sse = fused_acc
@@ -284,11 +470,18 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
 
     a_all = state.points.a.clone()
     d_all = state.points.d.clone()
-    lb_all = state.points.lb.clone()
     a_all[:b] = a_new
     d_all[:b] = d_new
-    lb_all[:b] = lb2
-    points = dataclasses.replace(state.points, a=a_all, d=d_all, lb=lb_all)
+    points = dataclasses.replace(state.points, a=a_all, d=d_all)
+    if lb2 is not None:
+        lb_all = state.points.lb.clone()
+        lb_all[:b] = lb2
+        points = dataclasses.replace(points, lb=lb_all)
+    elkan = state.elkan
+    if l_new is not None:
+        l_all = state.elkan.l.clone()
+        l_all[:b] = l_new
+        elkan = ElkanBounds(l=l_all)
 
     info = RoundInfo(
         batch_mse=mse_num / torch.clamp_min(n_active.float(), 1.0),
@@ -296,5 +489,5 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
         n_active=n_active, overflow=overflow.to(torch.bool), grow=grow,
         r_median=r_med, p_max=torch.max(stats.p))
     new_state = dataclasses.replace(state, stats=stats, points=points,
-                                    round=state.round + 1)
+                                    elkan=elkan, round=state.round + 1)
     return new_state, info

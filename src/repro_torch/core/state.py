@@ -36,12 +36,60 @@ class PointState:
     a: torch.Tensor       # (N,) int32 last assignment, -1 = never assigned
     d: torch.Tensor       # (N,) f32 distance at last (re)computation
     lb: torch.Tensor      # (N,) f32 lower bound on the 2nd-nearest distance
+                          #      (hamerly2 and exponion; elkan leaves it)
+
+
+@dataclasses.dataclass(frozen=True)
+class ElkanBounds:
+    """Per-(point, centroid) lower bounds of ``bounds="elkan"``."""
+    l: torch.Tensor       # (N, k) f32
+
+
+@dataclasses.dataclass(frozen=True)
+class ExponionGeom:
+    """Inter-centroid geometry of ``bounds="exponion"``, rebuilt each
+    round from the centroids (never part of the state).
+
+      order  (k, k) int32  each anchor's centroids sorted by distance
+      dist   (k, k) f32    the matching sorted euclidean distances
+      rank   (k, k) int32  inverse permutation: ``rank[j, c]`` is c's
+                           position around anchor j
+      s      (k,)   f32    distance to the nearest other centroid
+                           (``dist[:, 1]``; 0 at k = 1)
+    """
+    order: torch.Tensor
+    dist: torch.Tensor
+    rank: torch.Tensor
+    s: torch.Tensor
+
+
+def build_exponion_geom(C: torch.Tensor) -> ExponionGeom:
+    """Sorted inter-centroid neighbour table for the exponion family.
+
+    Both sorts are stable, as ``jnp.argsort`` is: tied distances (as
+    between duplicate centroids) keep their index order, so ``rank``
+    and the ring masks built on it are the JAX package's.
+    """
+    k = C.shape[0]
+    d2 = ref.pairwise_dist2(C, C)
+    # the self-distance sorts first with an exact 0 (the matrix product
+    # can leave rounding dust on the diagonal)
+    d2.fill_diagonal_(0.0)
+    dist_full = torch.sqrt(torch.clamp_min(d2, 0.0))
+    order = torch.argsort(dist_full, dim=1, stable=True)
+    dist = torch.take_along_dim(dist_full, order, dim=1)
+    rank = torch.argsort(order, dim=1, stable=True)
+    s = (dist[:, 1] if k > 1
+         else torch.zeros((k,), dtype=torch.float32, device=C.device))
+    return ExponionGeom(order=order.to(torch.int32), dist=dist,
+                        rank=rank.to(torch.int32), s=s)
 
 
 @dataclasses.dataclass(frozen=True)
 class KMeansState:
     stats: ClusterStats
     points: PointState
+    elkan: Optional[ElkanBounds]   # only for bounds="elkan"
     round: torch.Tensor   # () int32
 
 
@@ -58,11 +106,12 @@ class RoundInfo:
     p_max: torch.Tensor         # max centroid movement after the update
 
 
-def init_state(X: torch.Tensor, k: int, *,
+def init_state(X: torch.Tensor, k: int, *, bounds: str = "hamerly2",
                init_idx: Optional[torch.Tensor] = None) -> KMeansState:
     """Paper initialisation: the first k points of the (shuffled) data.
 
-    ``init_idx`` overrides with explicit centroid row indices.
+    ``init_idx`` overrides with explicit centroid row indices. Only
+    ``bounds="elkan"`` allocates the (N, k) per-pair bounds.
     """
     n, d = X.shape
     dev = X.device
@@ -75,7 +124,10 @@ def init_state(X: torch.Tensor, k: int, *,
         a=torch.full((n,), -1, dtype=torch.int32, device=dev),
         d=torch.zeros((n,), dtype=torch.float32, device=dev),
         lb=torch.zeros((n,), dtype=torch.float32, device=dev))
-    return KMeansState(stats=stats, points=points,
+    elkan = (ElkanBounds(l=torch.zeros((n, k), dtype=torch.float32,
+                                       device=dev))
+             if bounds == "elkan" else None)
+    return KMeansState(stats=stats, points=points, elkan=elkan,
                        round=torch.zeros((), dtype=torch.int32, device=dev))
 
 

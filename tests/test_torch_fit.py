@@ -98,8 +98,6 @@ def test_config_matches_jax_shape():
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"algorithm": "lloyd"}, "item 5"), ({"algorithm": "mbf"}, "item 5"),
-    ({"bounds": "elkan"}, "item 5"), ({"bounds": "exponion"}, "item 5"),
     ({"trace_dir": "t"}, "item 8"), ({"data_source": "s"}, "item 6"),
     ({"checkpoint": {"checkpoint_dir": "c"}}, "item 6"),
 ])

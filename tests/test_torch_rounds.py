@@ -7,7 +7,6 @@ compared at rtol 1e-5 (the two packages' matrix products sum in different
 orders, so their floats need not match bit for bit), with the absolute
 slack that the |x|^2 - 2 x.c + |c|^2 expansion leaves in distances.
 """
-import dataclasses
 import inspect
 import math
 
@@ -189,19 +188,6 @@ def test_nested_round_matches_jax(mid_fit, case, bounds, kernels):
     assert int(tst.round) == int(jst.round)
     if n_valid is not None:
         assert np.all(_np(tst.points.a)[n_valid:b] == -1)
-
-
-def test_nested_round_refuses_unported_bounds(mid_fit):
-    Xd, jtree = mid_fit
-    for bounds in ("elkan", "exponion"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            trounds.nested_round(torch.from_numpy(Xd),
-                                 state_from_numpy(jtree, device="cpu"),
-                                 b=1000, rho=INF, bounds=bounds)
-    with pytest.raises(NotImplementedError):
-        state_from_numpy(dataclasses.replace(
-            jtree, elkan=jstate.ElkanBounds(l=np.zeros((1, 8)))),
-            device="cpu")
 
 
 def test_round_scalars_are_filled_on_the_device():
