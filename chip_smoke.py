@@ -108,7 +108,25 @@ Phases (each raises on failure, so any fault exits non-zero):
      tb families run once more shadowed: each round's step is also taken
      with ``bounds="none"`` from the same state, and the labels may
      differ from it only at near-ties (float64 gap within 1e-3
-     relative).
+     relative);
+  8. out-of-core and kill-and-resume on phase 4's rows, under a
+     ``tempfile.mkdtemp()`` directory that is removed at the end (its
+     free disk space logged first): (a) the rows are written to a chunk
+     store (65,536-row chunks) and fitted with phase 4's config through
+     ``config.data_source``; C, labels and telemetry but ``t`` must be
+     bit-equal to the in-memory fit of ``X[store_permutation(...)]``
+     with ``shuffle=False``, and a second fit from an open `ChunkStore`
+     must repeat them; the store write time, the fit's wall and peak
+     device memory and the bytes read against one pass are logged. (b)
+     Phase 4's fit with a checkpoint every 25 rounds is killed by an
+     ``on_round`` that raises at round 137 (the last save is round 125),
+     then resumed with ``fit(resume=True)``: C, labels and telemetry but
+     ``t`` must be bit-equal to phase 4's unbroken fit. (c) The same for
+     phase 7's tb-elkan and mb fits with a checkpoint every 50 rounds,
+     each held to its unbroken fit. The saves, ms per save, restore ms
+     and checkpoint bytes are logged. Each fit's launch counts are set to
+     0 just before and read just after: kernels 1-3 must be launched in
+     the phase, and each resumed part must launch its path's kernels.
 
 The last two lines are a JSON object of the kernels and the JSON result
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -759,7 +777,8 @@ def main_path_phase() -> dict:
     need(rel <= 1e-3, "cuda and ref fits differ in val MSE beyond 1e-3")
     need(same_ref, "two ref fits on the card differ")
     shadow_fit(X, Xv, km)
-    return {"launches": launches, "X": X, "Xv": Xv, "curve": _curve(km)}
+    return {"launches": launches, "X": X, "Xv": Xv, "curve": _curve(km),
+            "fit": fit_record(km)}
 
 
 def shadow_fit(X, Xv, km) -> None:
@@ -1229,7 +1248,9 @@ def _curve_text(curve) -> str:
     return " ".join(f"{t:.4f}:{m:.6f}" for t, m in curve)
 
 
-def other_paths_phase(X, Xv, tb_curve) -> None:
+def other_paths_phase(X, Xv, tb_curve) -> dict:
+    """Fits each path of OTHER_PATHS; returns {name: `fit_record` of its
+    first fit}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
@@ -1237,6 +1258,7 @@ def other_paths_phase(X, Xv, tb_curve) -> None:
         f"({N}, {D}), k={K}")
     log(f"    tb (phase 4) val MSE against the rounds' time (s:MSE): "
         f"{_curve_text(tb_curve)}")
+    fits = {}
     for name, kw, kernels in OTHER_PATHS:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -1281,6 +1303,8 @@ def other_paths_phase(X, Xv, tb_curve) -> None:
              f"beyond 1e-3")
         if name.startswith("tb-"):
             shadow_bounds(X, Xv, km, kw)
+        fits[name] = fit_record(km)
+    return fits
 
 
 def shadow_bounds(X, Xv, km, kw) -> None:
@@ -1324,6 +1348,230 @@ def shadow_bounds(X, Xv, km, kw) -> None:
         f"relative)")
 
 
+# ---------------------------------------------------------------- phase 8
+
+#: the checkpointed fits of phase 8: (name, config over phase 4's,
+#: save_every, the kernels the resumed part must launch)
+RESUMED_PATHS = (
+    ("tb-hamerly2", {}, 25, ("assign_top2", "cluster_sum")),
+    ("tb-elkan", dict(bounds="elkan"), 50, ("cluster_sum",)),
+    ("mb", dict(algorithm="mb", b0=2000, max_rounds=400), 50,
+     ("assign_top2", "cluster_sum")),
+)
+#: the round whose ``on_round`` kills each checkpointed fit
+KILL_ROUND = 137
+STORE_CHUNK_ROWS = 65_536
+
+
+class Killed(Exception):
+    """Raised by ``on_round`` to kill a checkpointed fit mid-run."""
+
+
+def _tel_minus_t(km) -> list:
+    out = []
+    for r in km.telemetry_:
+        r = r.to_dict()
+        r.pop("t")
+        out.append(r)
+    return out
+
+
+def fit_record(km):
+    """What phase 8 holds a fit to (C, labels, telemetry), on the host:
+    the fit's state leaves the card."""
+    import types
+    return types.SimpleNamespace(cluster_centers_=km.cluster_centers_,
+                                 labels_=km.labels_,
+                                 telemetry_=km.telemetry_)
+
+
+def _same_fit(got, want, labels_perm=None) -> bool:
+    """C, labels and telemetry without ``t`` bit-equal; ``labels_perm``
+    maps ``got``'s labels to ``want``'s rows."""
+    labels = got.labels_ if labels_perm is None else got.labels_[labels_perm]
+    return (np.array_equal(got.cluster_centers_, want.cluster_centers_)
+            and np.array_equal(labels, want.labels_)
+            and _tel_minus_t(got) == _tel_minus_t(want))
+
+
+def _counted(launches: dict, fn):
+    """Runs ``fn`` with the launch counts set to 0 just before and read
+    just after; adds them into ``launches`` and returns (result, its
+    counts)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        launches[name] += n
+    return out, counts
+
+
+def store_fit(X, Xv, root: str, launches: dict) -> None:
+    """(a): phase 4's rows written to a chunk store, fitted from it
+    through ``config.data_source``, and held bit for bit to the
+    in-memory fit of the rows in `store_permutation`'s order."""
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.data.store import (ChunkStore, store_permutation,
+                                        write_store)
+    path = os.path.join(root, "store")
+    t0 = time.perf_counter()
+    write_store(path, X, chunk_rows=STORE_CHUNK_ROWS)
+    write_s = time.perf_counter() - t0
+    with ChunkStore(path) as st:
+        n_chunks = st.n_chunks
+    log(f"    (a) store: {N} x {D} f32 rows in {n_chunks} chunks of "
+        f"{STORE_CHUNK_ROWS} ({X.nbytes / 2 ** 30:.2f} GiB) written in "
+        f"{write_s:.2f} s")
+    cfg = FitConfig(k=K, data_source=path, **MAIN_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km, counts = _counted(launches, lambda: NestedKMeans(
+        cfg, device=DEV).fit(X_val=Xv))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"        fit through config.data_source: {km.n_rounds_} records, "
+        f"wall {wall:.2f} s (rounds {km.telemetry_[-1].t:.3f} s), peak "
+        f"device memory {peak / 2 ** 30:.2f} GiB, launches {counts}")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(counts[name] > 0, f"{name} was never launched in the store fit")
+    # the same fit from an open ChunkStore, whose read metrics we keep
+    st = ChunkStore(path)
+    t0 = time.perf_counter()
+    km2, _ = _counted(launches, lambda: NestedKMeans(
+        FitConfig(k=K, **MAIN_CONFIG), device=DEV).fit(st, X_val=Xv))
+    wall2 = time.perf_counter() - t0
+    m = st.metrics
+    st.close()
+    log(f"        the same fit from an open ChunkStore: wall {wall2:.2f} s, "
+        f"read {m.bytes_read} bytes = {m.bytes_read / X.nbytes:.3f} of one "
+        f"pass ({m.chunk_loads} chunk loads, {m.cache_hits} cache hits), "
+        f"bit-identical: {_same_fit(km2, km)}")
+    need(_same_fit(km2, km), "two fits from one store differ")
+    perm = store_permutation(N, STORE_CHUNK_ROWS, MAIN_CONFIG["seed"])
+    Xp = np.ascontiguousarray(X[perm])
+    torch.cuda.reset_peak_memory_stats()
+    km_m, wall_m = fit_once(Xp, Xv, shuffle=False)
+    peak_m = torch.cuda.max_memory_allocated()
+    same = _same_fit(km, km_m, labels_perm=perm)
+    log(f"        in-memory fit of X[store_permutation(...)], shuffle=False: "
+        f"wall {wall_m:.2f} s (rounds {km_m.telemetry_[-1].t:.3f} s), peak "
+        f"device memory {peak_m / 2 ** 30:.2f} GiB; the store fit's C, "
+        f"labels and telemetry (but t) are bit-equal to it: {same}")
+    need(same, "the store fit differs from the in-memory fit of the "
+         "permuted rows")
+
+
+def _timed_method(cls, name: str, times: list):
+    """Wraps ``cls.name`` to append each call's synchronised wall time
+    to ``times``; returns the original."""
+    orig = getattr(cls, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(cls, name, timed)
+    return orig
+
+
+def _step_bytes(store, step: int) -> int:
+    d = store._step_dirs()[step]
+    return sum(f.stat().st_size for f in d.iterdir())
+
+
+def resumed_fit(X, Xv, root: str, name: str, kw: dict, save_every: int,
+                kernels, unbroken, launches: dict) -> None:
+    """(b), (c): the fit with a checkpoint every ``save_every`` rounds,
+    killed by ``on_round`` at KILL_ROUND, then ``fit(resume=True)``; the
+    resumed fit must have ``unbroken``'s bits."""
+    from repro_torch.api import CheckpointConfig, FitConfig, NestedKMeans
+    from repro_torch.api.engines.local import _LocalRun
+    from repro_torch.checkpoint import CheckpointStore
+    ck = CheckpointConfig(checkpoint_dir=os.path.join(root, name),
+                          save_every=save_every)
+    cfg = FitConfig(k=K, checkpoint=ck, **dict(MAIN_CONFIG, **kw))
+
+    def kill(rec):
+        if rec.round == KILL_ROUND:
+            raise Killed
+
+    saves, restores = [], []
+    orig_save = _timed_method(CheckpointStore, "save", saves)
+    orig_restore = _timed_method(_LocalRun, "restore", restores)
+    try:
+        t0 = time.perf_counter()
+        try:
+            NestedKMeans(cfg, device=DEV, on_round=kill).fit(X, X_val=Xv)
+        except Killed:
+            pass
+        else:
+            raise Failure(f"{name}: the fit ended before round "
+                          f"{KILL_ROUND}")
+        wall_killed = time.perf_counter() - t0
+        store = CheckpointStore(ck.checkpoint_dir)
+        last = store.latest_step()
+        want_last = KILL_ROUND // save_every * save_every
+        need(last == want_last, f"{name}: the last save is round {last}, "
+             f"not {want_last}")
+        n_bytes = _step_bytes(store, last)
+        t0 = time.perf_counter()
+        km, counts = _counted(launches, lambda: NestedKMeans(
+            cfg, device=DEV).fit(X, X_val=Xv, resume=True))
+        wall = time.perf_counter() - t0
+    finally:
+        CheckpointStore.save = orig_save
+        _LocalRun.restore = orig_restore
+    same = _same_fit(km, unbroken)
+    log(f"    ({'b' if name == 'tb-hamerly2' else 'c'}) {name}, "
+        f"save_every={save_every}: killed at round {KILL_ROUND} after "
+        f"{wall_killed:.2f} s, last save round {last}; "
+        f"{len(saves)} saves in the two runs, "
+        f"{1e3 * sum(saves) / len(saves):.1f} ms a save (largest "
+        f"{1e3 * max(saves):.1f}), {n_bytes / 2 ** 20:.1f} MiB a checkpoint; "
+        f"restore {1e3 * restores[0]:.1f} ms; resumed fit: "
+        f"{km.n_rounds_ - last} more records, wall {wall:.2f} s, launches "
+        f"{counts}; bit-equal to the unbroken fit: {same}")
+    need(len(restores) == 1, f"{name}: the resume restored "
+         f"{len(restores)} times")
+    for kern in kernels:
+        need(counts[kern] > 0, f"{kern} was never launched in the resumed "
+             f"{name} fit")
+    need(same, f"{name}: the resumed fit differs from the unbroken fit")
+
+
+def resume_phase(X, Xv, unbroken: dict) -> dict:
+    """Phase 8: out-of-core and kill-and-resume at phase 4's width.
+    ``unbroken``: {path name: its unbroken fit} from phases 4 and 7.
+    Returns the launches of phase 8's fits."""
+    import shutil
+    import tempfile
+    launches = dict.fromkeys(REPLACES, 0)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        du = shutil.disk_usage(root)
+        log(f"[8] chunk store and checkpoints under {root}: "
+            f"{du.free / 2 ** 30:.1f} GiB free of {du.total / 2 ** 30:.1f}")
+        store_fit(X, Xv, root, launches)
+        for name, kw, every, kernels in RESUMED_PATHS:
+            resumed_fit(X, Xv, root, name, kw, every, kernels,
+                        unbroken[name], launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"    launches in phase 8's fits: {launches}; phase 8 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 8")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1338,7 +1586,9 @@ def main() -> int:
     main = main_path_phase()
     times = timing_phase(main["X"])
     xl = xl_phase()
-    other_paths_phase(main.pop("X"), main.pop("Xv"), main.pop("curve"))
+    X, Xv = main.pop("X"), main.pop("Xv")
+    unbroken = other_paths_phase(X, Xv, main.pop("curve"))
+    resume_phase(X, Xv, dict(unbroken, **{"tb-hamerly2": main.pop("fit")}))
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])

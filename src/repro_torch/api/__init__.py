@@ -27,7 +27,10 @@ def fit(X, config: FitConfig, *, X_val=None,
         init_C: Optional[np.ndarray] = None,
         on_round: Optional[RoundCallback] = None,
         device="cuda") -> FitOutcome:
-    """One-call fit: build the engine for ``config`` and run it."""
+    """One-call fit: build the engine for ``config`` and run it.
+
+    ``X``: an array, a chunk-store path or an open `ChunkStore`, passed
+    through to `NestedKMeans.fit`."""
     km = NestedKMeans(config, device=device, on_round=on_round)
     km.fit(X, X_val=X_val, init_C=init_C)
     return km.outcome_

@@ -6,9 +6,9 @@ difference is ``kernel_backend``, which takes None, "ref" or "cuda". A
 config is frozen (hashable), validates itself at construction, and
 round-trips through plain dicts.
 
-Fields whose feature is not ported yet (other backends and algorithms,
-checkpoint, data_source, trace_dir) are kept and validated here; the fit
-refuses them with `NotImplementedError` (see `api/loop.py`).
+Fields whose feature is not ported yet (the other backends, trace_dir)
+are kept and validated here; the fit refuses them with
+`NotImplementedError` (see `api/loop.py`).
 
 Non-finite floats (`rho=inf`, `time_budget_s=inf`) are encoded as the
 string ``"inf"`` in `to_dict()` so manifests stay strict-JSON.
@@ -64,7 +64,7 @@ def _dec_float(x: Any) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
-    """In-loop checkpointing policy for `repro.api.loop.run_loop`.
+    """In-loop checkpointing policy for `api.loop.run_loop`.
 
     Attributes:
       checkpoint_dir  directory for the `CheckpointStore` (created on

@@ -6,12 +6,15 @@ flight. The host loop (`repro_torch.api.loop.run_loop`) is written
 against this contract alone, and every quantity it branches on is either
 a field of the resolved `FitConfig` or a scalar out of `RoundInfo`.
 
-The process hooks, checkpoint capture/restore and the obs seam of the
-JAX contract are not ported yet (ROADMAP Queue 1 items 6, 8 and 9).
+Checkpoint capture/restore and the process hooks are here in their
+single-process form (`repro/api/engines/base.py:155-220`): one process
+is the coordinator, a barrier is a no-op and a flag is its own
+replica. The obs seam is ROADMAP Queue 1 item 8, the multi-process
+overrides item 9.
 """
 from __future__ import annotations
 
-from typing import Optional, Protocol, Tuple, runtime_checkable
+from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -35,6 +38,11 @@ class EngineRun:
       n_points         caller's dataset size
       kernel_plan      the fit's resolved `KernelPlan`
       device           the torch device every tensor of the fit lies on
+      data_fingerprint JSON-safe content identity of the fitted dataset
+                       (`repro_torch.data.store.dataset_fingerprint`);
+                       written into checkpoint extras so a resume
+                       against a different dataset fails loudly. None
+                       disables the check.
     """
     state: KMeansState
     b: int
@@ -45,6 +53,7 @@ class EngineRun:
     n_points: int = 0
     kernel_plan: Optional[KernelPlan] = None
     device: torch.device = torch.device("cpu")
+    data_fingerprint: Optional[Dict[str, Any]] = None
 
     def nested_step(self, state: KMeansState, b: int,
                     capacity: Optional[int]
@@ -73,6 +82,54 @@ class EngineRun:
     def fetch_stats(self, state: KMeansState) -> ClusterStats:
         """Cluster stats usable by the estimator after the fit."""
         return state.stats
+
+    def store_metrics(self) -> Optional[Dict[str, Any]]:
+        """Cumulative chunk-store read metrics as a JSON-safe dict, or
+        None when this run is not store-backed."""
+        return None
+
+    # -- checkpointing (canonical = global-shuffle row order) ---------------
+
+    def capture(self, state: KMeansState) -> Tuple[Dict[str, Any],
+                                                   Dict[str, Any]]:
+        """(tree of tensors and arrays, JSON-safe engine meta) for a
+        checkpoint; `CheckpointStore.save` copies the tree to the host.
+
+        Per-point arrays are in CANONICAL order: the position of each
+        row in the seed-determined shuffle. The tree's keys and the meta
+        are the JAX package's, so either package restores the other's
+        checkpoints.
+        """
+        raise NotImplementedError
+
+    def restore(self, store: Any, step: int,
+                meta: Dict[str, Any]) -> KMeansState:
+        """Rebuild this run's state (on ``device``) from a canonical
+        checkpoint."""
+        raise NotImplementedError
+
+    # -- process awareness (single-process forms) ---------------------------
+
+    #: True on the process allowed to touch the checkpoint directory.
+    is_coordinator: bool = True
+
+    def barrier(self) -> None:
+        """Block until every process reaches this point (one process:
+        returns at once). The loop calls it around checkpoint writes."""
+
+    def sync_flag(self, flag: bool) -> bool:
+        """The coordinator's value of a host-derived flag (the wall-clock
+        budget); one process: the flag itself."""
+        return bool(flag)
+
+    def resolve_resume(self, store: Any
+                       ) -> Tuple[Optional[int], Optional[Dict[str, Any]]]:
+        """(latest step, its ``extra`` dict); ``(None, None)`` when the
+        store holds no checkpoints."""
+        step = store.latest_step()
+        if step is None:
+            return None, None
+        return step, store.read_extra(step)
 
 
 @runtime_checkable

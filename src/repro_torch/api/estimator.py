@@ -6,16 +6,17 @@
     labels = km.predict(X_new)
 
 Port of `repro/api/estimator.py`. `fit` runs every algorithm of
-`config.ALGORITHMS` and every bound family of `config.BOUNDS`. The
-estimator runs on ``device``,
-"cuda" unless the caller asks for another: with no card it raises, it
-never falls back to the CPU. `partial_fit` folds one batch into the
-running statistics with one nested round, as in the JAX package.
-Resuming from a checkpoint is ROADMAP Queue 1 item 6.
+`config.ALGORITHMS` and every bound family of `config.BOUNDS`, from an
+array or (tb and gb) from an on-disk chunk store, and resumes from the
+checkpoints of either package. The estimator runs on ``device``, "cuda"
+unless the caller asks for another: with no card it raises, it never
+falls back to the CPU. `partial_fit` folds one batch into the running
+statistics with one nested round, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from typing import List, Optional
@@ -28,11 +29,19 @@ from repro_torch.api.engines import Engine, make_engine
 from repro_torch.api.loop import (FitOutcome, check_ported,
                                   fetch_round_info, run_loop)
 from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
+from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core import rounds
 from repro_torch.core.state import ClusterStats, full_mse, init_state
+from repro_torch.data.store import ChunkStore
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels._build import resolve_device
 from repro_torch.kernels.plan import resolve_plan
+
+# config fields that must agree between a checkpoint manifest and the
+# resuming config for the restored state to be meaningful (max_rounds /
+# budgets / backend may all change across a restart)
+_RESUME_KEYS = ("k", "algorithm", "rho", "b0", "bounds", "seed",
+                "use_shalf", "shuffle")
 
 
 class NotFittedError(RuntimeError):
@@ -69,19 +78,72 @@ class NestedKMeans:
 
     # -- fitting ------------------------------------------------------------
 
-    def fit(self, X, *, X_val=None, init_C: Optional[np.ndarray] = None,
+    def fit(self, X=None, *, X_val=None,
+            init_C: Optional[np.ndarray] = None,
             resume: bool = False) -> "NestedKMeans":
-        """Run the configured algorithm to convergence / budget."""
-        if resume:
-            raise NotImplementedError(
-                "resume is not ported to repro_torch yet (ROADMAP Queue 1 "
-                "item 6)")
+        """Run the configured algorithm to convergence / budget.
+
+        ``X`` may be an in-memory array, an on-disk chunk-store path (or
+        open `ChunkStore`) for an out-of-core fit, or omitted when
+        ``config.data_source`` names the store. Store-backed fits copy
+        the nested prefix from disk onto the device as it grows, and
+        are bit-identical to the in-memory fit over the same row
+        sequence (nested family only: mb and lloyd rescan the full
+        dataset every round).
+
+        ``resume=True`` (requires ``config.checkpoint``) restores the
+        latest in-loop checkpoint from ``checkpoint_dir`` (written by
+        either package) and continues the fit from there,
+        bit-identically. With no checkpoint on disk yet the fit starts
+        fresh. Resuming against a different dataset than the
+        checkpoint's is a loud error (the manifest carries a dataset
+        fingerprint).
+        """
         with self._lock:
-            cfg = self.config.resolve(len(X))
+            if X is None:
+                if self.config.data_source is None:
+                    raise ValueError(
+                        "fit() needs data: pass X (array or store "
+                        "path), or set config.data_source")
+                X = self.config.data_source
+            if isinstance(X, (str, os.PathLike)):
+                X = ChunkStore(X)
+            n = X.n if isinstance(X, ChunkStore) else len(X)
+            cfg = self.config.resolve(n)
             check_ported(cfg)
+            if isinstance(X, ChunkStore) and cfg.algorithm not in (
+                    "tb", "gb"):
+                raise ValueError(
+                    f"out-of-core fits stream the nested prefix; "
+                    f"algorithm={self.config.algorithm!r} needs the "
+                    f"full dataset in memory every round (pass X as an "
+                    f"array)")
+            if resume and cfg.checkpoint is None:
+                raise ValueError(
+                    "fit(resume=True) requires config.checkpoint")
             run = self.engine.begin(X, cfg, X_val=X_val, init_C=init_C,
                                     device=self.device)
-            out = run_loop(run, cfg, on_round=self.on_round)
+            resume_from = None
+            resolved = None
+            if resume:
+                store = CheckpointStore(cfg.checkpoint.checkpoint_dir,
+                                        keep=cfg.checkpoint.keep)
+                step, extra = run.resolve_resume(store)
+                if step is not None:
+                    saved = (extra or {}).get("config")
+                    if saved:
+                        want = cfg.to_dict()
+                        bad = [k for k in _RESUME_KEYS
+                               if k in saved and saved[k] != want[k]]
+                        if bad:
+                            raise ValueError(
+                                f"checkpoint manifest disagrees with the "
+                                f"resuming config on {bad}; refusing to "
+                                f"restore a foreign fit")
+                    resume_from = store
+                    resolved = (step, extra)
+            out = run_loop(run, cfg, on_round=self.on_round,
+                           resume_from=resume_from, resolved_resume=resolved)
             self._outcome = out
             self._stats = run.fetch_stats(out.state)
             self._outcome_stale = False

@@ -4,18 +4,19 @@ retry and convergence patience.
 Port of `repro/api/loop.py::run_loop` for one process. Every per-round
 decision branches only on `HostRoundInfo`, the round's scalars landed on
 the host by `fetch_round_info` in ONE transfer per round (one per
-overflow attempt), or on the resolved config. In-loop checkpoints and
-tracing are not ported yet: a config that sets ``checkpoint`` or
-``trace_dir`` is refused (ROADMAP Queue 1 items 6 and 8), as are the
-backends other than "local" (item 9). Every algorithm and bound family
-runs.
+overflow attempt), or on the resolved config. Every algorithm and bound
+family runs, with in-loop checkpoints and resume in the JAX package's
+on-disk format. Tracing is not ported yet: a config that sets
+``trace_dir`` is refused (ROADMAP Queue 1 item 8), as are the backends
+other than "local" (item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Any, Dict, List, Optional
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ import torch
 from repro_torch.api.config import FitConfig
 from repro_torch.api.engines.base import EngineRun
 from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
+from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core.state import KMeansState, RoundInfo
 from repro_torch.kernels.plan import next_pow2
 
@@ -34,10 +36,6 @@ def check_ported(config: FitConfig) -> None:
         raise NotImplementedError(
             f"backend={config.backend!r} is not ported to repro_torch yet "
             f"(ROADMAP Queue 1 item 9)")
-    if config.checkpoint is not None or config.data_source is not None:
-        raise NotImplementedError(
-            "checkpoints and chunk stores are not ported to repro_torch "
-            "yet (ROADMAP Queue 1 item 6)")
     if config.trace_dir is not None:
         raise NotImplementedError(
             "tracing is not ported to repro_torch yet (ROADMAP Queue 1 "
@@ -121,12 +119,24 @@ def cap_bucket(need: int, b: int, floor: int) -> Optional[int]:
 # --------------------------------------------------------------------------
 
 def run_loop(run: EngineRun, config: FitConfig, *,
-             on_round: Optional[RoundCallback] = None) -> FitOutcome:
+             on_round: Optional[RoundCallback] = None,
+             resume_from: Optional[Union[str, Path, CheckpointStore]] = None,
+             resolved_resume: Optional[Tuple[int, Dict[str, Any]]] = None
+             ) -> FitOutcome:
     """Growth schedule + capacity bucketing + overflow retry + patience.
 
     ``config`` must already be `resolve()`d (no alias algorithms):
     lloyd, mb or mbf take one step a round; tb (gb and lloyd-elkan
     resolve to it) takes nested rounds under the growth schedule.
+
+    When ``config.checkpoint`` is set, the FULL loop state (engine
+    state, batch size, capacity bucket, patience counter, work clock and
+    telemetry) is saved atomically every ``save_every`` rounds, plus
+    once at loop exit, beside the ``config.to_dict()`` manifest.
+    ``resume_from`` (a directory or `CheckpointStore`) restores the
+    latest such checkpoint, so a killed fit continues bit-identically.
+    ``resolved_resume``: the ``(step, extra)`` pair a caller already
+    read with ``run.resolve_resume`` from the same store.
     """
     check_ported(config)
     algorithm = config.algorithm
@@ -138,6 +148,64 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     t_work = 0.0
     quiet_rounds = 0
     converged = False
+    start_round = 0
+
+    ckpt = config.checkpoint
+    store = (CheckpointStore(ckpt.checkpoint_dir, keep=ckpt.keep)
+             if ckpt is not None else None)
+
+    if store is not None and resume_from is None:
+        # a FRESH checkpointed fit supersedes whatever run lives in the
+        # directory: left in place, the old (higher-numbered) steps
+        # would garbage-collect this run's early saves on arrival and a
+        # later resume would silently restore the stale fit
+        if run.is_coordinator and store.latest_step() is not None:
+            store.clear()
+        run.barrier()
+
+    if resume_from is not None:
+        rstore = (resume_from if isinstance(resume_from, CheckpointStore)
+                  else CheckpointStore(resume_from,
+                                       keep=ckpt.keep if ckpt else 3))
+        step, extra = (resolved_resume if resolved_resume is not None
+                       else run.resolve_resume(rstore))
+        if step is None:
+            raise FileNotFoundError(
+                f"resume_from={resume_from!r} holds no checkpoints")
+        if not extra or "loop" not in extra:
+            raise ValueError(
+                f"checkpoint step {step} has no loop metadata; it was "
+                f"not written by run_loop")
+        emeta, loop = extra["engine"], extra["loop"]
+        # dataset identity gate: a resume against a DIFFERENT dataset
+        # would restore per-point state that describes rows the new data
+        # does not have. Checkpoints with no "data" key skip the check.
+        saved_fp = extra.get("data")
+        fp = run.data_fingerprint
+        if saved_fp is not None and fp is not None and saved_fp != fp:
+            diff = sorted(k for k in set(saved_fp) | set(fp)
+                          if saved_fp.get(k) != fp.get(k))
+            raise ValueError(
+                f"checkpoint step {step} was written for a different "
+                f"dataset (fingerprint differs on {diff}: checkpoint "
+                f"{saved_fp} vs this fit {fp}); resuming would silently "
+                f"mislabel the new data — refusing")
+        state = run.restore(rstore, step, emeta)
+        telemetry = [Telemetry.from_dict(r) for r in extra["telemetry"]]
+        t_work = float(loop["t_work"])
+        quiet_rounds = int(loop["quiet_rounds"])
+        converged = bool(loop.get("converged", False))
+        start_round = int(loop["rounds_done"])
+        # b is stored in GLOBAL rows; ceil-divide onto this engine's
+        # shard count so every previously-seen point stays inside the
+        # prefix when the shard count changed across the restore
+        b = max(1, min(-(-int(loop["b_global"]) // run.n_shards),
+                       run.b_max))
+        cap = loop.get("capacity")
+        capacity = (int(cap) if cap is not None
+                    and int(emeta.get("n_shards", 0)) == run.n_shards
+                    else None)
+        run.barrier()
 
     def record(hinfo: HostRoundInfo) -> None:
         val_mse = None
@@ -149,9 +217,28 @@ def run_loop(run: EngineRun, config: FitConfig, *,
         if on_round:
             on_round(rec)
 
-    for _ in range(config.max_rounds):
+    def save_checkpoint() -> None:
+        tree, emeta = run.capture(state)
+        extra = {
+            "config": config.to_dict(),
+            "data": run.data_fingerprint,
+            "engine": emeta,
+            "loop": {"rounds_done": len(telemetry),
+                     "b_global": b * run.n_shards, "capacity": capacity,
+                     "quiet_rounds": quiet_rounds, "t_work": t_work,
+                     "converged": converged},
+            "telemetry": [r.to_dict() for r in telemetry],
+        }
+        if run.is_coordinator:
+            store.save(len(telemetry), tree, extra=extra,
+                       background=ckpt.background)
+        run.barrier()
+
+    for _ in range(start_round, config.max_rounds):
+        if converged:        # resumed an already-finished fit
+            break
         if math.isfinite(config.time_budget_s) \
-                and t_work >= config.time_budget_s:
+                and run.sync_flag(t_work >= config.time_budget_s):
             break
         t0 = time.perf_counter()
         if algorithm == "lloyd":
@@ -197,6 +284,16 @@ def run_loop(run: EngineRun, config: FitConfig, *,
             converged = True
             break
         # mb and mbf stop only at max_rounds or the time budget
+
+        if store is not None and len(telemetry) % ckpt.save_every == 0:
+            save_checkpoint()
+
+    if store is not None:
+        # one final save so a resumed-after-finish fit is a no-op loop
+        save_checkpoint()
+        if run.is_coordinator:
+            store.wait()
+        run.barrier()
 
     # final validation point, unless the last round already evaluated
     if not (telemetry and telemetry[-1].val_mse is not None):

@@ -5,7 +5,8 @@ The same data through `repro.api.NestedKMeans` (kernel_backend="ref") and
 schedule (b, n_recomputed, n_changed, grow) and convergence must be
 equal, centroids allclose, and `predict` equal. Plus the port's own
 rules: device="cuda" is the default and never falls back to the CPU, and
-what is not ported yet is refused by name.
+what is not ported yet is refused by name. Checkpoints and chunk stores
+are held to JAX in tests/test_torch_{checkpoint,resume,store}.py.
 """
 import dataclasses
 
@@ -97,10 +98,7 @@ def test_config_matches_jax_shape():
     assert FitConfig.from_dict(cfg.to_dict()) == cfg
 
 
-@pytest.mark.parametrize("change,item", [
-    ({"trace_dir": "t"}, "item 8"), ({"data_source": "s"}, "item 6"),
-    ({"checkpoint": {"checkpoint_dir": "c"}}, "item 6"),
-])
+@pytest.mark.parametrize("change,item", [({"trace_dir": "t"}, "item 8")])
 def test_unported_features_are_refused(blobs, change, item):
     X, _ = blobs
     cfg = dataclasses.replace(FitConfig(k=4), **change)
@@ -108,11 +106,17 @@ def test_unported_features_are_refused(blobs, change, item):
         NestedKMeans(cfg, device="cpu").fit(X[:200])
 
 
-def test_unported_backend_and_resume_are_refused(blobs):
+def test_unported_backend_and_resume_are_refused(tmp_path, blobs):
+    """The sharded backends are refused by name; resume and chunk
+    stores are ported, and refuse what the JAX package refuses: a resume
+    with no checkpoint config, a store fit of a non-nested algorithm."""
+    from repro_torch.data.store import write_store
     X, _ = blobs
     with pytest.raises(NotImplementedError, match="item 9"):
         NestedKMeans(FitConfig(k=4, backend="mesh"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="requires config.checkpoint"):
         NestedKMeans(FitConfig(k=4), device="cpu").fit(X, resume=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        NestedKMeans(FitConfig(k=4), device="cpu").fit("some/store")
+    write_store(tmp_path / "st", X[:500], chunk_rows=128)
+    with pytest.raises(ValueError, match="out-of-core"):
+        NestedKMeans(FitConfig(k=4, algorithm="lloyd"),
+                     device="cpu").fit(str(tmp_path / "st"))

@@ -608,3 +608,101 @@ def test_new_algorithms_fit_on_card_match_cpu(cuda, name):
         [(r.b, r.n_changed) for r in cpu.telemetry_]
     np.testing.assert_allclose(gpu.cluster_centers_, cpu.cluster_centers_,
                                rtol=1e-5, atol=1e-4)
+
+
+GPU_KILLS = {"tb_hamerly2": {"b0": 512},
+             "tb_elkan": {"b0": 512, "bounds": "elkan"},
+             "mb": {"algorithm": "mb", "b0": 700, "max_rounds": 14}}
+
+
+def _tel_minus_t(records):
+    out = []
+    for r in records:
+        r = r.to_dict()
+        r.pop("t")
+        out.append(r)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GPU_KILLS))
+def test_kill_and_resume_on_card_bit_identical(cuda, tmp_path, name):
+    """A fit through the kernels cut at round 7 (last save at round 6)
+    and resumed on the card gives the unbroken fit's bits."""
+    import dataclasses
+
+    from repro_torch.api import (CheckpointConfig, FitConfig, NestedKMeans,
+                                 fit)
+    from repro_torch.data.synthetic import gaussian_blobs
+    X, _ = gaussian_blobs(4000, k=8, dim=16, spread=5.0, seed=0)
+    cfg = FitConfig(**dict(dict(k=8, max_rounds=40, seed=0),
+                           **GPU_KILLS[name]))
+    whole = fit(X, cfg, device=cuda)
+    ck = CheckpointConfig(checkpoint_dir=str(tmp_path), save_every=3)
+    fit(X, dataclasses.replace(cfg, max_rounds=7, checkpoint=ck),
+        device=cuda)
+    ops.reset_launch_counts()
+    km = NestedKMeans(dataclasses.replace(cfg, checkpoint=ck), device=cuda)
+    km.fit(X, resume=True)
+    assert ops.launch_counts()["cluster_sum"] > 0
+    np.testing.assert_array_equal(km.cluster_centers_, whole.C)
+    np.testing.assert_array_equal(km.labels_, whole.labels)
+    assert _tel_minus_t(km.telemetry_) == _tel_minus_t(whole.telemetry)
+
+
+@pytest.mark.gpu
+def test_store_fit_on_card_equals_in_memory_fit(cuda, tmp_path):
+    """A store-backed fit on the card (the device buffer filled in place
+    as the prefix grows) has the bits of the in-memory fit of the rows
+    in `store_permutation`'s order."""
+    from repro_torch.api import FitConfig, fit
+    from repro_torch.data.store import (ChunkStore, store_permutation,
+                                        write_store)
+    from repro_torch.data.synthetic import gaussian_blobs
+    X, _ = gaussian_blobs(5003, k=8, dim=16, spread=5.0, seed=0)
+    write_store(tmp_path / "st", X, chunk_rows=512)
+    st = ChunkStore(tmp_path / "st")
+    ops.reset_launch_counts()
+    out_s = fit(st, FitConfig(k=8, b0=256, seed=2), device=cuda)
+    counts = ops.launch_counts()
+    assert all(counts[n] > 0 for n in ("assign_top2", "cluster_sum",
+                                       "fused_nested_round")), counts
+    perm = store_permutation(len(X), 512, seed=2)
+    out_m = fit(X[perm], FitConfig(k=8, b0=256, seed=2, shuffle=False),
+                device=cuda)
+    np.testing.assert_array_equal(out_s.C, out_m.C)
+    np.testing.assert_array_equal(out_s.labels[perm], out_m.labels)
+    assert _tel_minus_t(out_s.telemetry) == _tel_minus_t(out_m.telemetry)
+    assert st.metrics.bytes_read <= 1.6 * X.nbytes
+
+
+@pytest.mark.gpu
+def test_card_checkpoint_restores_on_the_cpu(cuda, tmp_path):
+    """A checkpoint written from the card's state restores into a CPU
+    run of the port with equal leaves and engine meta."""
+    from repro_torch.api import FitConfig
+    from repro_torch.api.engines.local import LocalEngine
+    from repro_torch.api.loop import run_loop
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data.synthetic import gaussian_blobs
+    X, _ = gaussian_blobs(4000, k=8, dim=16, spread=5.0, seed=0)
+    cfg = FitConfig(k=8, b0=512, bounds="elkan", max_rounds=5,
+                    seed=0).resolve(len(X))
+    gpu = LocalEngine().begin(X, cfg, device=cuda)
+    out = run_loop(gpu, cfg)
+    tree, meta = gpu.capture(out.state)
+    store = CheckpointStore(tmp_path)
+    store.save(5, tree, extra={"engine": meta})
+    cpu = LocalEngine().begin(X, cfg, device="cpu")
+    got = cpu.restore(store, 5, store.read_extra()["engine"])
+    for f in ("C", "S", "v", "sse", "p"):
+        assert torch.equal(getattr(got.stats, f),
+                           getattr(out.state.stats, f).cpu())
+    for f in ("a", "d", "lb"):
+        assert torch.equal(getattr(got.points, f),
+                           getattr(out.state.points, f).cpu())
+    assert torch.equal(got.elkan.l, out.state.elkan.l.cpu())
+    assert torch.equal(got.round, out.state.round.cpu())
+    assert got.points.a.device.type == "cpu"
+    np.testing.assert_array_equal(cpu._mb_perm, gpu._mb_perm)
+    assert cpu.capture(got)[1] == meta
