@@ -126,7 +126,37 @@ Phases (each raises on failure, so any fault exits non-zero):
      each held to its unbroken fit. The saves, ms per save, restore ms
      and checkpoint bytes are logged. Each fit's launch counts are set to
      0 just before and read just after: kernels 1-3 must be launched in
-     the phase, and each resumed part must launch its path's kernels.
+     the phase, and each resumed part must launch its path's kernels;
+  9. the streaming service (``repro_torch.serve.ClusterService``) on
+     phase 4's rows and fit, adopted by fresh estimators, with a stream
+     of ``infmnist_like(120_000, seed=2)`` rows. (a) The latency design of
+     benchmarks/serve_latency.py: 2048-row predicts, 256 stream rows a
+     request, 1,000 timed requests a mode after a warm-up with the
+     refresh off (before and after the others; the worse p99 counts),
+     inline (the serving thread folds 16,384 rows at a time) and in the
+     background (a service with 256-row micro-batches); p50, p99, max
+     and the background-to-off p99 ratio are logged beside the JAX
+     package's 1.5x claim, with no limit on times. (b) 4 reader threads
+     predict for 5 s while one producer delivers every row twice under
+     one id into a dedup ``IngestQueue(max_rows=16384,
+     policy="block")``, and goes on alone: every snapshot a reader loads
+     must verify, its versions may not fall, at least 10 refreshes must
+     run while they read, after ``stop(drain=True)`` the rows folded in
+     must equal the unique rows delivered and the rise of sum(counts)
+     (exactly once), and every 50th request's labels must equal
+     ``ref.assign_top2_ref`` on its snapshot's C on the card but at
+     near-ties. (c) The stream's first 32,768 rows, scaled x3 after the
+     first 16,384, into a service with a 65,536-row history and a
+     checkpointed estimator, readers reading throughout: at least one
+     escalation, each followed by a newer snapshot that verifies; its
+     wall and the readers' p99 during it are logged. (d)
+     The same 20 ``partial_fit(256)`` batches from the adopted codebook
+     on two fresh estimators give bit-equal C, counts and telemetry but
+     ``t``, and C within 1e-5 relative (Frobenius) of the same batches on
+     the plain versions (``kernel_backend="ref"``). The launch counts are
+     set to 0 before (a) and read after (d): assign_top2 and
+     fused_nested_round must be > 0. Last, a predict's time is split into
+     the upload of its rows, the kernel and the rest (host).
 
 The last two lines are a JSON object of the kernels and the JSON result
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -778,7 +808,7 @@ def main_path_phase() -> dict:
     need(same_ref, "two ref fits on the card differ")
     shadow_fit(X, Xv, km)
     return {"launches": launches, "X": X, "Xv": Xv, "curve": _curve(km),
-            "fit": fit_record(km)}
+            "fit": fit_record(km), "outcome": km.outcome_}
 
 
 def shadow_fit(X, Xv, km) -> None:
@@ -1572,6 +1602,402 @@ def resume_phase(X, Xv, unbroken: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+#: phase 9: the stream the service folds in, and the latency design of
+#: benchmarks/serve_latency.py (its folder is not ported; this repeats it)
+SERVE_ROWS = 120_000
+QUERY_ROWS, ROWS_PER_REQ, MICRO, COARSE = 2048, 256, 256, 16384
+N_REQ = 1000                 # timed requests a mode
+P99_CLAIM = 1.5              # the JAX package's background/off p99 claim
+READ_S = 5.0                 # (b)'s reading window
+N_READERS = 4
+CHECK_EVERY = 50             # (b): every 50th request's labels are checked
+HISTORY_ROWS = 65_536
+DRIFT_ROWS = 32_768          # (c): the stream's rows it feeds, of which
+DRIFT_CLEAN_ROWS = 16_384    # the first are fed as they are, then x3
+REPEAT_BATCHES = 20
+SERVE_WAIT_S = 120.0         # deadline of every wait and join of phase 9
+
+
+def _adopted(outcome, **kw):
+    """A fresh estimator on phase 4's config (``kw`` over it) that has
+    adopted phase 4's fit."""
+    from repro_torch.api import FitConfig, NestedKMeans
+    return NestedKMeans(FitConfig(k=K, **dict(MAIN_CONFIG, **kw)),
+                        device=DEV).adopt(outcome)
+
+
+def _pcts(lat) -> dict:
+    lat = np.asarray(lat, dtype=np.float64) * 1e3
+    if not lat.size:
+        return {"p50_ms": float("nan"), "p99_ms": float("nan"),
+                "max_ms": float("nan"), "n": 0}
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "max_ms": float(lat.max()), "n": int(lat.size)}
+
+
+def _pcts_text(p: dict) -> str:
+    return (f"p50 {p['p50_ms']:.3f} ms, p99 {p['p99_ms']:.3f} ms, max "
+            f"{p['max_ms']:.3f} ms over {p['n']} requests")
+
+
+def _join(threads, what: str) -> None:
+    for t in threads:
+        t.join(SERVE_WAIT_S)
+    need(not any(t.is_alive() for t in threads), f"{what} did not end "
+         f"within {SERVE_WAIT_S} s")
+
+
+def _wait(pred, what: str) -> None:
+    t0 = time.perf_counter()
+    while not pred():
+        need(time.perf_counter() - t0 < SERVE_WAIT_S,
+             f"{what}: not reached within {SERVE_WAIT_S} s")
+        time.sleep(0.005)
+
+
+def _lat_off(km, Q) -> list:
+    lat = []
+    for _ in range(N_REQ):
+        t0 = time.perf_counter()
+        km.predict(Q)
+        lat.append(time.perf_counter() - t0)
+    return lat
+
+
+def _lat_inline(km, Q, stream):
+    """The serving thread folds each COARSE rows of stream in itself."""
+    lat, pos, buf, folds = [], 0, 0, 0
+    for _ in range(N_REQ):
+        t0 = time.perf_counter()
+        buf += ROWS_PER_REQ
+        if buf >= COARSE:
+            km.partial_fit(stream[pos:pos + COARSE])
+            pos = (pos + COARSE) % (len(stream) - COARSE + 1)
+            buf = 0
+            folds += 1
+        km.predict(Q)
+        lat.append(time.perf_counter() - t0)
+    return lat, folds
+
+
+def _lat_background(km, Q, stream):
+    """A `ClusterService` folds the stream in on its refresher thread
+    while this thread serves."""
+    from repro_torch.serve import ClusterService, IngestQueue
+    queue = IngestQueue(max_rows=4 * COARSE, policy="drop-oldest")
+    svc = ClusterService(km, micro_batch=MICRO, flush_after_s=0.02,
+                         queue=queue).start()
+    lat, pos = [], 0
+    for _ in range(N_REQ):
+        svc.ingest(stream[pos:pos + ROWS_PER_REQ])
+        pos = (pos + ROWS_PER_REQ) % (len(stream) - ROWS_PER_REQ + 1)
+        t0 = time.perf_counter()
+        svc.predict(Q)
+        lat.append(time.perf_counter() - t0)
+    metrics = svc.export_metrics()
+    svc.stop()
+    return lat, metrics, queue.peak_depth
+
+
+def predict_parts(snap, Q) -> None:
+    """Where a request's time goes: the upload of its rows (host clock,
+    synchronised), the kernel alone on rows already on the card (CUDA
+    events), and the whole `CodebookSnapshot.predict` (host clock)."""
+    from repro_torch.kernels import ops
+    reps = 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        Qd = torch.from_numpy(Q).to(DEV)
+        torch.cuda.synchronize()
+    up = (time.perf_counter() - t0) / reps * 1e3
+    Cd = torch.from_numpy(np.array(snap.centroids)).to(DEV)
+    kern = time_ms(lambda: ops.assign_top2(Qd, Cd), iters=reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        snap.predict(Q)
+    whole = (time.perf_counter() - t0) / reps * 1e3
+    log(f"    a {QUERY_ROWS}-row predict: {whole:.3f} ms in all (host "
+        f"clock), of which the upload of its {Q.nbytes / 2 ** 20:.1f} MiB "
+        f"of rows {up:.3f} ms (host clock, synchronised) and the "
+        f"assign_top2 kernel {kern:.3f} ms (CUDA events); the rest is the "
+        f"host: C's upload, the plan, the wrapper and the copy back")
+
+
+def serve_latency(outcome, Q, stream):
+    """(a): refresh off, inline and in the background; returns the
+    estimator of the off mode."""
+    kms = [_adopted(outcome) for _ in range(3)]
+    for km in kms:                       # first calls outside the timing
+        km.predict(Q)
+        km.partial_fit(stream[:MICRO])
+        km.partial_fit(stream[:COARSE])
+    torch.cuda.synchronize()
+    # the off floor is taken before and after the other modes, and the
+    # worse p99 is the denominator (as benchmarks/serve_latency.py does)
+    off_a = _lat_off(kms[0], Q)
+    inline, folds = _lat_inline(kms[1], Q, stream)
+    bg, metrics, peak = _lat_background(kms[2], Q, stream)
+    off_b = _lat_off(kms[0], Q)
+    p_a, p_b = _pcts(off_a), _pcts(off_b)
+    off = p_a if p_a["p99_ms"] >= p_b["p99_ms"] else p_b
+    p_in, p_bg = _pcts(inline), _pcts(bg)
+    r_in, r_bg = (p_in["p99_ms"] / off["p99_ms"],
+                  p_bg["p99_ms"] / off["p99_ms"])
+    log(f"    (a) latency of a {QUERY_ROWS}-row predict, {ROWS_PER_REQ} "
+        f"stream rows a request:")
+    log(f"        off:        {_pcts_text(off)} (the worse of two runs; "
+        f"the other p99 {min(p_a['p99_ms'], p_b['p99_ms']):.3f} ms)")
+    log(f"        inline:     {_pcts_text(p_in)}; {r_in:.3f}x the off "
+        f"p99, {folds} folds of {COARSE} rows")
+    log(f"        background: {_pcts_text(p_bg)}; {r_bg:.3f}x the off p99 "
+        f"(the JAX package claims <= {P99_CLAIM}x), "
+        f"{metrics['refresh']['count']} refreshes of {MICRO} rows (refresh "
+        f"p50 {metrics['refresh']['latency']['p50_s'] * 1e3:.3f} ms, p99 "
+        f"{metrics['refresh']['latency']['p99_s'] * 1e3:.3f} ms), queue "
+        f"peak depth {peak}")
+    need(metrics["refresh"]["count"] >= 3,
+         "(a): the background refresher did not run while serving")
+    return kms[0]
+
+
+def _reader(svc, Q, stop, out: dict) -> None:
+    """Reads until ``stop``: every loaded snapshot must verify, versions
+    may not fall, and the first request at or after each CHECK_EVERY-th
+    one that one known snapshot served has its labels held to
+    `ref.assign_top2_ref` on that snapshot's C on the card."""
+    from repro_torch.kernels import ref
+    Qd = torch.from_numpy(Q).to(DEV)
+    last, due = 0, False
+    try:
+        while not stop.is_set():
+            snap = svc.snapshot
+            need(snap.verify(), f"a torn read at version {snap.version}")
+            need(snap.version >= last, f"version {snap.version} after "
+                 f"{last}")
+            last = snap.version
+            t0 = time.perf_counter()
+            labels = svc.predict(Q)
+            out["lat"].append((t0, time.perf_counter() - t0))
+            due = due or len(out["lat"]) % CHECK_EVERY == 0
+            if due and svc.snapshot is snap:
+                C = torch.from_numpy(np.array(snap.centroids)).to(DEV)
+                want = ref.assign_top2_ref(Qd, C)[0]
+                out["ties"] += _labels_ok(
+                    torch.from_numpy(labels).to(DEV), want,
+                    ref.pairwise_dist2(Qd, C), TOL["f32"], relative=True)
+                out["checked"] += 1
+                due = False
+    except BaseException as e:           # noqa: BLE001 — reported below
+        out["error"] = e
+
+
+def _readers(svc, Xq):
+    import threading
+    stop = threading.Event()
+    outs = [{"lat": [], "checked": 0, "ties": 0, "error": None}
+            for _ in range(N_READERS)]
+    threads = [threading.Thread(
+        target=_reader, daemon=True,
+        args=(svc, Xq[i * QUERY_ROWS:(i + 1) * QUERY_ROWS], stop, outs[i]))
+        for i in range(N_READERS)]
+    for t in threads:
+        t.start()
+    return stop, threads, outs
+
+
+def _stop_readers(stop, threads, outs) -> None:
+    stop.set()
+    _join(threads, "a reader")
+    for i, o in enumerate(outs):
+        if o["error"] is not None:
+            raise Failure(f"reader {i}: {o['error']!r}")
+
+
+def serve_concurrency(outcome, Xq, stream) -> None:
+    """(b): 4 readers while one producer delivers every row twice."""
+    import threading
+
+    from repro_torch.serve import ClusterService, IngestQueue
+    km = _adopted(outcome)
+    n0 = float(np.sum(km.counts_, dtype=np.float64))
+    queue = IngestQueue(max_rows=16384, policy="block", dedup=True)
+    svc = ClusterService(km, micro_batch=MICRO, flush_after_s=0.02,
+                         queue=queue).start()
+    v0 = svc.snapshot.version
+    errors = []
+
+    def produce():
+        try:
+            for lo in range(0, len(stream), ROWS_PER_REQ):
+                rows = stream[lo:lo + ROWS_PER_REQ]
+                ids = range(lo, lo + len(rows))
+                for _ in range(2):       # at-least-once delivery
+                    svc.ingest(rows, ids=ids)
+        except BaseException as e:       # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    stop, readers, outs = _readers(svc, Xq)
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    time.sleep(READ_S)
+    refreshes_read = svc.metrics.refreshes
+    _stop_readers(stop, readers, outs)
+    read_s = time.perf_counter() - t0
+    # the rest of the stream is folded in with no reader beside it
+    _join([producer], "the producer")
+    produce_s = time.perf_counter() - t0
+    svc.stop(drain=True)
+    need(not errors, f"the producer failed: {errors!r}")
+    m = svc.export_metrics()
+    rise = float(np.sum(km.counts_, dtype=np.float64)) - n0
+    lat = [s for o in outs for _, s in o["lat"]]
+    log(f"    (b) {N_READERS} readers for {read_s:.2f} s while one producer "
+        f"delivered {len(stream)} rows twice (done after {produce_s:.2f} "
+        f"s): {len(lat)} requests, {_pcts_text(_pcts(lat))}; "
+        f"{refreshes_read} refreshes while they read, "
+        f"{m['refresh']['count']} in all (versions {v0} to "
+        f"{svc.snapshot.version}), refresh p50 "
+        f"{m['refresh']['latency']['p50_s'] * 1e3:.3f} ms; queue "
+        f"{m['queue']}")
+    log(f"        refresh_rows {m['refresh']['rows']}, unique rows "
+        f"delivered {len(stream)}, rise in sum(counts) {rise!r}; labels "
+        f"checked against the plain assignment in "
+        f"{sum(o['checked'] for o in outs)} requests "
+        f"({sum(o['ties'] for o in outs)} near-tied rows differ)")
+    need(refreshes_read >= 10, "(b): fewer than 10 refreshes while the "
+         "readers read")
+    need(m["refresh"]["rows"] == len(stream) == m["queue"]["accepted"]
+         and rise == len(stream),
+         "(b): the rows folded in are not the unique rows delivered")
+    need(all(o["checked"] > 0 for o in outs),
+         "(b): a reader had no request checked against the plain version")
+
+
+def serve_drift(outcome, Xq, stream) -> None:
+    """(c): the first DRIFT_ROWS rows of the stream, scaled x3 after the
+    first DRIFT_CLEAN_ROWS; the service must escalate to a checkpointed
+    re-fit while readers keep reading."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import CheckpointConfig
+    from repro_torch.serve import ClusterService, IngestQueue
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        km = _adopted(outcome, checkpoint=CheckpointConfig(
+            checkpoint_dir=root, save_every=25))
+        svc = ClusterService(
+            km, micro_batch=MICRO, flush_after_s=0.02,
+            queue=IngestQueue(max_rows=16384, policy="block"),
+            history_rows=HISTORY_ROWS, drift_window=8, drift_factor=2.0)
+        spans = []
+        escalate = svc.escalate
+
+        def timed(**kw):
+            t0 = time.perf_counter()
+            v, rows = svc.snapshot.version, len(svc._history)
+            escalate(**kw)
+            spans.append((t0, time.perf_counter(), v, svc.snapshot, rows,
+                          km.n_rounds_))
+
+        svc.escalate = timed
+        svc.start()
+        stop, readers, outs = _readers(svc, Xq)
+        t0 = time.perf_counter()
+        for lo in range(0, DRIFT_ROWS, ROWS_PER_REQ):
+            rows = stream[lo:lo + ROWS_PER_REQ]
+            svc.ingest(rows if lo < DRIFT_CLEAN_ROWS else 3.0 * rows)
+        _wait(lambda: svc.queue.depth == 0, "(c): the queue drained")
+        _stop_readers(stop, readers, outs)
+        svc.stop(drain=True)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    m = svc.export_metrics()
+    log(f"    (c) drift: {DRIFT_ROWS} rows, x3 after the first "
+        f"{DRIFT_CLEAN_ROWS}, in {wall:.2f} s: {m['refresh']['count']} "
+        f"refreshes, {m['refresh']['escalations']} escalations")
+    need(m["refresh"]["escalations"] >= 1, "(c): no escalation")
+    for t_start, t_end, v, snap, rows, records in spans:
+        during = [s for o in outs for t, s in o["lat"]
+                  if t_start <= t <= t_end]
+        log(f"        escalation: a checkpointed fit of {rows} history rows "
+            f"({records} records), wall {t_end - t_start:.3f} s; snapshot "
+            f"{v} -> {snap.version}; readers during it: "
+            f"{_pcts_text(_pcts(during))}")
+        need(snap.version > v and snap.verify(),
+             "(c): no newer snapshot that verifies after an escalation")
+    lat = [s for o in outs for _, s in o["lat"]]
+    log(f"        readers over the whole run: {_pcts_text(_pcts(lat))}")
+
+
+def serve_repeat(outcome, stream) -> None:
+    """(d): the same REPEAT_BATCHES micro-batches from the adopted
+    codebook on two fresh estimators and on the plain versions."""
+    batches = [stream[i * MICRO:(i + 1) * MICRO]
+               for i in range(REPEAT_BATCHES)]
+    runs, walls = [], []
+    for kw in ({}, {}, {"kernel_backend": "ref"}):
+        km = _adopted(outcome, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            km.partial_fit(b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / len(batches) * 1e3)
+        runs.append(km)
+    a, b, r = runs
+    same = (np.array_equal(a.cluster_centers_, b.cluster_centers_)
+            and np.array_equal(a.counts_, b.counts_)
+            and _tel_minus_t(a) == _tel_minus_t(b))
+    C, Cr = a.cluster_centers_, r.cluster_centers_
+    rel = float(np.linalg.norm(C - Cr) / np.linalg.norm(Cr))
+    log(f"    (d) {REPEAT_BATCHES} partial_fit({MICRO}) from the adopted "
+        f"codebook twice: C, counts and telemetry but t bit-equal: {same}; "
+        f"C against the same batches on the plain versions: {rel:.3g} "
+        f"relative (Frobenius), counts equal: "
+        f"{np.array_equal(a.counts_, r.counts_)}; a partial_fit takes "
+        f"{walls[0]:.3f} / {walls[1]:.3f} ms on the kernels, {walls[2]:.3f} "
+        f"ms on the plain versions (host clock, synchronised, no other "
+        f"thread)")
+    need(same, "(d): two runs of the same batches differ")
+    need(rel <= 1e-5, "(d): C is not within 1e-5 of the plain versions'")
+
+
+def serve_phase(X, outcome) -> dict:
+    """Phase 9: the streaming service on the card, on phase 4's rows and
+    fit. Returns its launches (the breakdown of a predict that follows
+    them launches the kernel outside the count)."""
+    from repro_torch.data.synthetic import infmnist_like
+    from repro_torch.kernels import ops
+    from repro_torch.serve import CodebookSnapshot
+    t0 = time.perf_counter()
+    stream = infmnist_like(SERVE_ROWS, seed=2)
+    log(f"[9] the streaming service on phase 4's fit (adopted); stream "
+        f"infmnist_like({SERVE_ROWS}, seed=2) made in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    Q = X[:QUERY_ROWS]
+    ops.reset_launch_counts()
+    km = serve_latency(outcome, Q, stream)
+    serve_concurrency(outcome, X, stream)
+    serve_drift(outcome, X, stream)
+    serve_repeat(outcome, stream)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"    launches in phase 9: {launches}")
+    for name in ("assign_top2", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 9")
+    predict_parts(CodebookSnapshot.create(1, km.export_codebook(),
+                                          device=DEV), Q)
+    log(f"    phase 9 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1589,6 +2015,7 @@ def main() -> int:
     X, Xv = main.pop("X"), main.pop("Xv")
     unbroken = other_paths_phase(X, Xv, main.pop("curve"))
     resume_phase(X, Xv, dict(unbroken, **{"tb-hamerly2": main.pop("fit")}))
+    serve_phase(X, main.pop("outcome"))
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])

@@ -11,7 +11,8 @@ array or (tb and gb) from an on-disk chunk store, and resumes from the
 checkpoints of either package. The estimator runs on ``device``, "cuda"
 unless the caller asks for another: with no card it raises, it never
 falls back to the CPU. `partial_fit` folds one batch into the running
-statistics with one nested round, as in the JAX package.
+statistics with one nested round, as in the JAX package; `adopt`,
+`export_codebook` and `stats_` serve `repro_torch.serve`.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import dataclasses
 import os
 import threading
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -59,8 +60,13 @@ class NestedKMeans:
       converged_         bool
       n_rounds_          len(telemetry_)
 
-    `fit` / `partial_fit` serialise on an internal lock; `predict` and
-    `transform` read the stats once and never take it.
+    Thread-safety: `fit` / `partial_fit` / `adopt` serialise on an
+    internal lock, so a background refresher may stream batches while
+    other threads call `predict` / `transform`. The readers never take
+    the lock: they load ``_stats`` once and work on that `ClusterStats`,
+    which is replaced whole and never changed in place (every round
+    returns new C, S and v tensors). `export_codebook` copies the
+    codebook to the host under the same lock for `repro_torch.serve`.
     """
 
     def __init__(self, config: FitConfig, *, device="cuda",
@@ -74,6 +80,8 @@ class NestedKMeans:
         self._outcome: Optional[FitOutcome] = None
         self._stats: Optional[ClusterStats] = None
         self._outcome_stale = False
+        # serialises the WRITERS (fit/partial_fit/adopt); readers load
+        # self._stats once and work on that ClusterStats
         self._lock = threading.RLock()
 
     # -- fitting ------------------------------------------------------------
@@ -192,6 +200,49 @@ class NestedKMeans:
                 self.on_round(rec)
             return self
 
+    def adopt(self, outcome: FitOutcome) -> "NestedKMeans":
+        """Rehydrate this estimator from a previously produced outcome.
+
+        Lets a serving process rebuild an estimator from a `FitOutcome`
+        computed elsewhere (by `repro_torch.api.fit` in a training job,
+        or by the JAX package through `convert.outcome_from_numpy`) and
+        keep streaming into it with `partial_fit`. The statistics are
+        placed on this estimator's device.
+        """
+        if outcome.config.k != self.config.k:
+            raise ValueError(
+                f"cannot adopt an outcome fitted with "
+                f"k={outcome.config.k} into an estimator configured "
+                f"for k={self.config.k}")
+        s = outcome.state.stats
+        stats = ClusterStats(*(t.to(self.device) for t in (
+            s.C, s.S, s.v, s.sse, s.p)))
+        with self._lock:
+            self._outcome = outcome
+            self._stats = stats
+            self._outcome_stale = False
+            self.telemetry_ = list(outcome.telemetry)
+            return self
+
+    def export_codebook(self) -> Dict[str, Any]:
+        """Atomic host-side copy of the codebook, for snapshot publishers.
+
+        Returns ``{"centroids", "counts", "n_rounds", "batch_mse"}``
+        captured under the writer lock, so a concurrent `partial_fit`
+        can never be observed half-applied. The arrays are fresh numpy
+        copies owned by the caller.
+        """
+        with self._lock:
+            stats = self._require_fitted()
+            return {
+                "centroids": np.array(stats.C.cpu().numpy(),
+                                      dtype=np.float32, copy=True),
+                "counts": np.array(stats.v.cpu().numpy(),
+                                   dtype=np.float32, copy=True),
+                "n_rounds": len(self.telemetry_),
+                "batch_mse": self.inertia_,
+            }
+
     # -- fitted attributes --------------------------------------------------
 
     def _require_fitted(self) -> ClusterStats:
@@ -208,6 +259,12 @@ class NestedKMeans:
     def counts_(self) -> np.ndarray:
         """Per-cluster membership counts v (codebook occupancy)."""
         return self._require_fitted().v.cpu().numpy()
+
+    @property
+    def stats_(self) -> ClusterStats:
+        """The running `ClusterStats` (C/S/v/sse/p) on the estimator's
+        device: what `adopt` placed or the last fit / partial_fit made."""
+        return self._require_fitted()
 
     def _require_fresh_outcome(self, what: str) -> FitOutcome:
         if self._outcome is None:

@@ -4,8 +4,11 @@
 arrays (as ``jax.tree.map(np.asarray, state)`` gives) and returns the
 port's `KMeansState` on ``device``; `codebook_from_numpy` does the same
 for a fitted codebook (centroids and counts). The tests use them to start
-one round from the same state in both packages. Only attribute access is
-used, so this module imports nothing of the JAX package.
+one round from the same state in both packages. `outcome_from_numpy`
+carries a whole JAX `FitOutcome` over, so that a serving process can
+`adopt` a codebook the JAX package fitted. Only attribute access and the
+records' `to_dict` forms are used, so this module imports nothing of the
+JAX package.
 
 ``device`` defaults to ``"cuda"``, as the estimator's does, and raises
 where there is no card (`resolve_device`); pass ``device="cpu"`` for the
@@ -16,6 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.api.config import FitConfig
+from repro_torch.api.loop import FitOutcome
+from repro_torch.api.telemetry import Telemetry
 from repro_torch.core.state import (ClusterStats, ElkanBounds, KMeansState,
                                    PointState)
 from repro_torch.kernels._build import resolve_device
@@ -51,3 +57,26 @@ def codebook_from_numpy(C, counts, device="cuda") -> ClusterStats:
     zeros = torch.zeros_like(v)
     return ClusterStats(C=Ct, S=Ct * v[:, None], v=v, sse=zeros,
                         p=zeros.clone())
+
+
+def outcome_from_numpy(outcome, device="cuda") -> FitOutcome:
+    """The port's `FitOutcome` for a JAX `FitOutcome`: the state through
+    `state_from_numpy` on ``device`` (its leaves may be numpy or JAX
+    arrays), telemetry and config through their ``to_dict`` forms. The
+    JAX package's ``kernel_backend="pallas"`` becomes "cuda" (the hand
+    kernels); ``kernel_plan`` says which kernels made the fit and is kept
+    as it was."""
+    cfg = outcome.config.to_dict()
+    if cfg.get("kernel_backend") == "pallas":
+        cfg["kernel_backend"] = "cuda"
+    return FitOutcome(
+        C=np.array(outcome.C, dtype=np.float32, copy=True),
+        state=state_from_numpy(outcome.state, device),
+        labels=np.array(outcome.labels, copy=True),
+        telemetry=[Telemetry.from_dict(r.to_dict())
+                   for r in outcome.telemetry],
+        converged=bool(outcome.converged),
+        algorithm=str(outcome.algorithm),
+        config=FitConfig.from_dict(cfg),
+        kernel_plan=(None if outcome.kernel_plan is None
+                     else dict(outcome.kernel_plan)))

@@ -32,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+#: guards the kernel modules' launch counts (``launches += 1`` is a read
+#: and a write, and the service launches kernels from several threads)
+launch_lock = threading.Lock()
 
 
 def nvcc() -> str:

@@ -70,5 +70,6 @@ def cluster_sum_cuda(x: torch.Tensor, a: torch.Tensor, k: int, *,
                     partial.data_ptr(), lists.data_ptr(), out.data_ptr(),
                     n, k, d, rows, _build.stream(dev))
         _build.check(err, "cluster_sum", "cluster_sum_f32")
-        launches += 1
+        with _build.launch_lock:
+            launches += 1
     return out[:k * d].view(k, d), out[k * d:]

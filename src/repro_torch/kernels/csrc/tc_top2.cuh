@@ -634,6 +634,15 @@ template <int EPI>
 int launch_top2(const float* x, const float* c, float* c_big, float* c_small,
                 float* cn, float* xn, Top2Args p, cudaStream_t s) {
   if (p.n <= 0 || p.k <= 0) return static_cast<int>(cudaSuccess);
+  // cuTensorMapEncodeTiled (not a runtime call) needs the device's
+  // primary context current on this thread, and the runtime makes it so
+  // only at its first call on a thread. A thread whose first CUDA work is
+  // this launch (its tensors already on the card) has none, so set the
+  // current device, which makes the primary context current.
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const bool narrow = EPI != EPI_PARTIAL && p.k <= 64;
   const int bn = narrow ? 64 : 128;
   CUtensorMap xmap, cbmap, csmap;

@@ -126,7 +126,8 @@ def fused_round_cuda(x: torch.Tensor, c: torch.Tensor):
                           lists.data_ptr(), out.data_ptr(), n, k, d, dp,
                           rows, _build.stream(dev))
         _build.check(err, "fused_round", "fused_round_f32")
-        round_launches += 1
+        with _build.launch_lock:
+            round_launches += 1
     kd = k * d
     return (a, d1, d2, out[:kd].view(k, d), out[kd:kd + k],
             out[kd + k:])
@@ -231,7 +232,8 @@ def fused_nested_round_cuda(x, c, a_prev, settled, d_keep, lb_keep, valid):
                     partial.data_ptr(), lists.data_ptr(), out.data_ptr(),
                     n, k, d, dp, rows, _build.stream(dev))
         _build.check(err, "fused_nested_round", "fused_nested_round_f32")
-        launches += 1
+        with _build.launch_lock:
+            launches += 1
     kd = k * d
     return (a_new, d_new, lb_new, out[:kd].view(k, d), out[kd:kd + k],
             out[kd + k:])

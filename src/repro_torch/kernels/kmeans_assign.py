@@ -69,5 +69,6 @@ def assign_top2_cuda(x: torch.Tensor, c: torch.Tensor
                          a.data_ptr(), d1.data_ptr(), d2.data_ptr(),
                          n, k, d, _build.stream(dev))
     _build.check(err, "assign_top2", entry)
-    launches += 1
+    with _build.launch_lock:
+        launches += 1
     return a, d1, d2

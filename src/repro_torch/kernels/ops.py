@@ -9,8 +9,10 @@ Port of `repro/kernels/ops.py`. The rule for every op:
     or raises. Nothing gives way to the plain version.
 
 Each kernel's wrapper keeps a plain integer count of its launches in its
-module; `launch_counts` reads them and `reset_launch_counts` sets them to
-0.
+module, raised under `_build.launch_lock` so that launches from several
+threads are all counted; `launch_counts` reads them and
+`reset_launch_counts` sets them to 0, under the same lock.
+`bind_kernels` builds and binds every kernel on the calling thread.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import cluster_sum as _cs
 from repro_torch.kernels import fused_round as _fr
 from repro_torch.kernels import kmeans_assign as _ka
@@ -78,10 +81,23 @@ def fused_nested_round(x, c, a_prev, settled, d_keep, lb_keep, valid, *,
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
-    return {name: getattr(mod, attr)
-            for name, (mod, attr) in _MODULES.items()}
+    with _build.launch_lock:
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in _MODULES.values():
-        setattr(mod, attr, 0)
+    with _build.launch_lock:
+        for mod, attr in _MODULES.values():
+            setattr(mod, attr, 0)
+
+
+def bind_kernels() -> None:
+    """Build (where stale), load and bind every kernel's entry points on
+    the calling thread, so that threads which launch them later find them
+    ready: the wrappers' binders are cached without a lock."""
+    for entry in _ka._ENTRY.values():
+        _ka._fn(entry)
+    _cs._fn()
+    _fr._fn()
+    _fr._round_fn()

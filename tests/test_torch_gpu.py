@@ -706,3 +706,117 @@ def test_card_checkpoint_restores_on_the_cpu(cuda, tmp_path):
     assert got.points.a.device.type == "cpu"
     np.testing.assert_array_equal(cpu._mb_perm, gpu._mb_perm)
     assert cpu.capture(got)[1] == meta
+
+
+# -- the streaming service on the card ---------------------------------------
+
+@pytest.mark.gpu
+def test_service_on_card_serves_readers_and_folds_each_row_once(cuda):
+    """A small `ClusterService` on the card: 2 reader threads predict
+    while 1 producer delivers every row twice under its id. No reader
+    sees a torn snapshot or a falling version, labels equal the plain
+    assignment on the serving snapshot's C but at near-ties, each row
+    lands in the counts once, and the kernels ran: the refresher's
+    rounds (fused_nested_round, on the service's own stream) and the
+    readers' assign_top2. Every join takes a timeout."""
+    import threading
+    import time
+
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.data.synthetic import gaussian_blobs
+    from repro_torch.serve import ClusterService, IngestQueue
+    X, _ = gaussian_blobs(6000, k=8, dim=16, spread=5.0, seed=0)
+    km = NestedKMeans(FitConfig(k=8, b0=500, seed=0), device=cuda)
+    km.fit(X[:2000])
+    n0 = float(np.sum(km.counts_, dtype=np.float64))
+    before = ops.launch_counts()
+    svc = ClusterService(km, queue=IngestQueue(max_rows=1024, dedup=True),
+                         micro_batch=128, flush_after_s=0.01).start()
+    assert svc.stream is not None
+    assert svc.stream != torch.cuda.current_stream(cuda)
+    stop = threading.Event()
+    errors, checked = [], [0, 0]
+
+    def reader(slot):
+        Q = X[slot * 200:(slot + 1) * 200]
+        Qd = torch.from_numpy(Q).to(cuda)
+        last = 0
+        try:
+            while not stop.is_set():
+                snap = svc.snapshot
+                assert snap.verify(), f"torn read at v{snap.version}"
+                assert snap.version >= last, (last, snap.version)
+                last = snap.version
+                labels = svc.predict(Q)
+                if svc.snapshot is snap:     # this snapshot served it
+                    C = torch.from_numpy(np.array(snap.centroids)).to(cuda)
+                    want = ref.assign_top2_ref(Qd, C)[0]
+                    _assert_labels(torch.from_numpy(labels).to(cuda), want,
+                                   ref.pairwise_dist2(Qd, C), TOL["f32"])
+                    checked[slot] += 1
+        except Exception as e:               # noqa: BLE001 — asserted below
+            errors.append(repr(e))
+
+    def producer():
+        for lo in range(2000, 6000, 100):
+            for _ in range(2):
+                svc.ingest(X[lo:lo + 100], ids=range(lo, lo + 100))
+
+    threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+               for i in range(2)]
+    threads.append(threading.Thread(target=producer, daemon=True))
+    for t in threads:
+        t.start()
+    threads[2].join(60)
+    t0 = time.time()
+    while svc.queue.depth and time.time() - t0 < 60:
+        time.sleep(0.01)
+    time.sleep(0.2)
+    stop.set()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    svc.stop(drain=True)
+    assert not errors, errors
+    assert all(n > 0 for n in checked)
+    m = svc.export_metrics()
+    assert m["refresh"]["rows"] == 4000 and m["queue"]["deduped"] == 4000
+    assert float(np.sum(km.counts_, dtype=np.float64)) == n0 + 4000
+    after = ops.launch_counts()
+    for name in ("assign_top2", "fused_nested_round"):
+        assert after[name] > before[name], name
+
+
+@pytest.mark.gpu
+def test_launch_counts_are_exact_under_threads(cuda):
+    """8 threads launch assign_top2 200 times each with a short switch
+    interval: every launch is counted (the counts rise under one lock)."""
+    import sys
+    import threading
+    x, c = _inputs(64, 16, 8, 0, cuda)
+    ops.assign_top2(x, c)                # the library loads once, here
+    before = ops.launch_counts()["assign_top2"]
+    errors = []
+
+    def launch():
+        try:
+            for _ in range(200):
+                ops.assign_top2(x, c)
+        except Exception as e:           # noqa: BLE001 — asserted below
+            errors.append(repr(e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch, daemon=True)
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert ops.launch_counts()["assign_top2"] == before + 8 * 200
