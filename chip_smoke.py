@@ -157,6 +157,27 @@ Phases (each raises on failure, so any fault exits non-zero):
      set to 0 before (a) and read after (d): assign_top2 and
      fused_nested_round must be > 0. Last, a predict's time is split into
      the upload of its rows, the kernel and the rest (host).
+  10. tracing and the invariant checkers on phase 4's rows and config,
+     under a ``tempfile.mkdtemp()`` directory removed at the end: (a) the
+     fit with ``trace_dir`` set must be bit-equal (C, labels, telemetry
+     but ``t``) to phase 4's untraced fit; `repro_torch.obs.summarize`
+     of its directory must count its rounds and a ``kscans_total`` equal
+     to the sum of ``n_recomputed``, every round's H100 ``utilization``
+     must be <= 1.0 (higher means the roofline model is wrong), and the
+     last and mean utilization, each round's bottleneck and the spans'
+     totals are logged. (b) After a warm-up, untraced and traced fits
+     alternate, 3 each; the median per-round wall of each is logged
+     beside the JAX package's 3 % claim (benchmarks/obs_overhead.py), with
+     no limit on the times. (c) ``hostsync.audit_backend("local")`` on
+     this fit with tracing on must report 0 violations, and its selftest
+     must show sync-debug mode catching the planted per-round coercion at
+     its line on the card. (d) ``retrace.audit_backend`` on this fit must
+     report no violation; the count of distinct (b, capacity) buckets is
+     logged. (e) ``donation.check_inplace`` on a store fit of the rows
+     (65,536-row chunks, as in phase 8): the device buffer's pointer must
+     never move; the peak allocated over the growth is logged against the
+     buffer's bytes. The launch counts are set to 0 before (a) and read
+     after (e): kernels 1-3 must be > 0.
 
 The last two lines are a JSON object of the kernels and the JSON result
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -180,11 +201,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# fails without the rest of the repository beside this script
+from repro_torch.roofline.analysis import (  # noqa: E402
+    PEAK_TF32_FLOPS, roofline_terms)
+
 N, D, K = 400_000, 784, 50           # KMEANS_INFMNIST
 N_VAL = 10_000
-PEAK_BYTES_S = 3.35e12               # H100 SXM HBM3
-PEAK_F32_FLOPS = 67e12               # H100 SXM f32, no tensor cores
-PEAK_TF32_FLOPS = 495e12             # H100 SXM TF32 tensor cores, dense
 TOL = {"f32": 1e-5, "bf16": 2e-2}
 DEV = "cuda"
 N_XL, D_XL, K_XL = 2 ** 22, 1024, 4096  # KMEANS_XL, one chip's rows
@@ -886,10 +908,11 @@ def bound(n_bytes: float, flops: float, tf32_flops: float = 0.0):
     """The least time (ms) for the work, and what bounds it: the larger of
     the bytes over the memory rate and the operations over the peak rate
     of their type (``flops`` f32 on the CUDA cores, ``tf32_flops`` TF32 on
-    the tensor cores)."""
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    the tensor cores), at the H100 SXM rates of
+    `repro_torch.roofline.analysis`."""
+    r = roofline_terms(flops, n_bytes, tf32_flops=tf32_flops)
+    return (r.step_time_s() * 1e3,
+            "bytes" if r.bottleneck == "memory" else "operations")
 
 
 def timing_phase(X) -> dict:
@@ -1998,12 +2021,147 @@ def serve_phase(X, outcome) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+
+#: traced and untraced fits of phase 10 (b), each, after a warm-up
+OVERHEAD_PAIRS = 3
+
+
+def _round_wall(km) -> float:
+    """Median wall of one round of a fit (the steps of its work clock)."""
+    t = [r.t for r in km.telemetry_ if r.batch_mse is not None]
+    return float(np.median(np.diff([0.0] + t)))
+
+
+def traced_fit(X, Xv, root: str, untraced) -> None:
+    """(a): phase 4's fit traced, read back and held to the untraced."""
+    from repro_torch.obs import read_events, summarize
+    td = os.path.join(root, "trace")
+    km, wall = fit_once(X, Xv, trace_dir=td)
+    same = _same_fit(km, untraced)
+    events = read_events(td)
+    s = summarize(events)
+    tel = [r for r in km.telemetry_ if r.batch_mse is not None]
+    rounds = [e["attrs"] for e in events if e.get("name") == "round"]
+    util = [r["utilization"] for r in rounds]
+    log(f"    (a) traced fit: wall {wall:.2f} s, {s['rounds']} rounds, "
+        f"kscans_total {s['kscans_total']}, bytes_total {s['bytes_total']}, "
+        f"bit-equal to phase 4's untraced fit: {same}; files "
+        f"{sorted(os.listdir(td))}")
+    need(same, "the traced fit differs from phase 4's untraced fit")
+    need(s["rounds"] == len(tel) == len(rounds),
+         "the trace does not count the fit's rounds")
+    need(s["kscans_total"] == sum(r.n_recomputed for r in tel),
+         "kscans_total is not the sum of n_recomputed")
+    need(all(u is not None and 0.0 < u <= 1.0 for u in util),
+         f"a round's utilization is outside (0, 1]: {max(util)} (the H100 "
+         f"roofline model is wrong)")
+    bottlenecks = {b: sum(r["bottleneck"] == b for r in rounds)
+                   for b in sorted({r["bottleneck"] for r in rounds})}
+    log(f"        utilization_last {s['utilization_last']!r}, mean "
+        f"{float(np.mean(util))!r}, max {max(util)!r}; work-weighted "
+        f"{sum(r['bound_s'] for r in rounds) / s['round_s_total']!r} (sum "
+        f"of bounds {sum(r['bound_s'] for r in rounds) * 1e3:.3f} ms over "
+        f"{s['round_s_total']:.3f} s of rounds); rounds by bottleneck "
+        f"{bottlenecks}")
+    for name, sp in s["spans"].items():
+        log(f"        span {name}: {sp['count']} x, total "
+            f"{sp['total_s'] * 1e3:.2f} ms, max {sp['max_s'] * 1e3:.2f} ms")
+    worst = sorted(rounds, key=lambda r: r["dt_s"], reverse=True)[:3]
+    log("        slowest rounds: " + "; ".join(
+        f"round {r['round']} b {r['b_global']} capacity {r['capacity']} "
+        f"kscans {r['kscans']} {r['dt_s'] * 1e3:.2f} ms (bound "
+        f"{r['bound_s'] * 1e3:.3f} ms)" for r in worst))
+
+
+def obs_overhead(X, Xv, root: str) -> None:
+    """(b): alternate untraced and traced fits after a warm-up."""
+    fit_once(X, Xv)
+    walls = {"untraced": [], "traced": []}
+    fits = {"untraced": [], "traced": []}
+    for i in range(OVERHEAD_PAIRS):
+        order = ("untraced", "traced") if i % 2 == 0 else ("traced",
+                                                           "untraced")
+        for arm in order:
+            kw = ({"trace_dir": os.path.join(root, f"overhead{i}")}
+                  if arm == "traced" else {})
+            km, wall = fit_once(X, Xv, **kw)
+            walls[arm].append(_round_wall(km))
+            fits[arm].append(wall)
+    med = {arm: float(np.median(w)) for arm, w in walls.items()}
+    log(f"    (b) median per-round wall: untraced {med['untraced'] * 1e3:.4f}"
+        f" ms ({', '.join(f'{w * 1e3:.4f}' for w in walls['untraced'])}), "
+        f"traced {med['traced'] * 1e3:.4f} ms ("
+        f"{', '.join(f'{w * 1e3:.4f}' for w in walls['traced'])}): traced/"
+        f"untraced {med['traced'] / med['untraced']:.4f} (the JAX package "
+        f"claims within 3 %, benchmarks/obs_overhead.py); fit walls "
+        f"untraced {[round(w, 3) for w in fits['untraced']]} s, traced "
+        f"{[round(w, 3) for w in fits['traced']]} s")
+
+
+def obs_phase(X, Xv, untraced) -> dict:
+    """Phase 10: tracing and the invariant checkers at phase 4's width.
+    Returns the launch counts of the phase."""
+    import logging
+    import shutil
+    import tempfile
+
+    from repro_torch.analysis import donation, hostsync, retrace
+    from repro_torch.api import FitConfig
+    from repro_torch.data.store import write_store
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    log("[10] tracing and the invariant checkers on phase 4's rows and "
+        "config")
+    # the auditors log what they measured (buckets, peak memory)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("        %(message)s"))
+    alog = logging.getLogger("repro_torch.analysis")
+    alog.addHandler(handler)
+    alog.setLevel(logging.INFO)
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    ops.reset_launch_counts()
+    try:
+        traced_fit(X, Xv, root, untraced)
+        obs_overhead(X, Xv, root)
+        cfg = FitConfig(k=K, **MAIN_CONFIG)
+        found = hostsync.audit_backend(
+            "local", X=X, X_val=Xv, config=cfg, device=DEV,
+            trace_dir=os.path.join(root, "hostsync"))
+        log(f"    (c) hostsync audit (warm-up fit, then the audited fit with "
+            f"tracing on): {len(found)} violations {[str(v) for v in found]}")
+        need(found == [], "the hostsync audit found synchronisations")
+        planted = hostsync.selftest(device=DEV)
+        log(f"        selftest: the planted per-round coercion flagged as "
+            f"{[str(v) for v in planted]}")
+        found = retrace.audit_backend("local", X=X, config=cfg, device=DEV)
+        log(f"    (d) retrace audit: {len(found)} violations "
+            f"{[str(v) for v in found]}")
+        need(found == [], "the retrace audit found violations")
+        path = os.path.join(root, "store")
+        write_store(path, X, chunk_rows=STORE_CHUNK_ROWS)
+        found = donation.scan() + donation.check_inplace(
+            path, cfg, device=DEV)
+        log(f"    (e) in-place check of a store fit ({STORE_CHUNK_ROWS}-row "
+            f"chunks): {len(found)} violations {[str(v) for v in found]}")
+        need(found == [], "the store fit's buffer was not filled in place")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        alog.removeHandler(handler)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"    launches in phase 10: {launches}; phase 10 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 10")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    import repro_torch  # noqa: F401  (fails without the repository)
 
     t0 = time.perf_counter()
     dev = device_phase()
@@ -2013,9 +2171,11 @@ def main() -> int:
     times = timing_phase(main["X"])
     xl = xl_phase()
     X, Xv = main.pop("X"), main.pop("Xv")
+    untraced = main.pop("fit")
     unbroken = other_paths_phase(X, Xv, main.pop("curve"))
-    resume_phase(X, Xv, dict(unbroken, **{"tb-hamerly2": main.pop("fit")}))
+    resume_phase(X, Xv, dict(unbroken, **{"tb-hamerly2": untraced}))
     serve_phase(X, main.pop("outcome"))
+    obs_phase(X, Xv, untraced)
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])

@@ -6,8 +6,8 @@ difference is ``kernel_backend``, which takes None, "ref" or "cuda". A
 config is frozen (hashable), validates itself at construction, and
 round-trips through plain dicts.
 
-Fields whose feature is not ported yet (the other backends, trace_dir)
-are kept and validated here; the fit refuses them with
+Fields whose feature is not ported yet (the backends other than
+"local") are kept and validated here; the fit refuses them with
 `NotImplementedError` (see `api/loop.py`).
 
 Non-finite floats (`rho=inf`, `time_budget_s=inf`) are encoded as the
@@ -167,12 +167,12 @@ class FitConfig:
                   "multihost" (set all three, with a per-process
                   process_id, or none — None means the caller already
                   initialised jax.distributed, or runs one process).
-      trace_dir   directory for `repro.obs` structured traces: the
-                  estimator attaches a `FitObserver` writing rotating
-                  JSONL span/event logs (per-process files on
-                  multihost) plus a metrics export. None (default)
-                  disables tracing — the loop's obs seam is a no-op.
-                  Read back with ``python -m repro.obs summarize DIR``.
+      trace_dir   directory for `repro_torch.obs` structured traces:
+                  the estimator attaches a `FitObserver` writing
+                  rotating JSONL span/event logs plus a metrics export,
+                  in the JAX package's format. None (default) disables
+                  tracing — the loop's obs seam is a no-op. Read back
+                  with ``python -m repro_torch.obs summarize DIR``.
     """
     k: int
     algorithm: str = "tb"

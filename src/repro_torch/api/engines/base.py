@@ -9,11 +9,14 @@ a field of the resolved `FitConfig` or a scalar out of `RoundInfo`.
 Checkpoint capture/restore and the process hooks are here in their
 single-process form (`repro/api/engines/base.py:155-220`): one process
 is the coordinator, a barrier is a no-op and a flag is its own
-replica. The obs seam is ROADMAP Queue 1 item 8, the multi-process
-overrides item 9.
+replica; the multi-process overrides are ROADMAP Queue 1 item 9. The
+obs and audit seams (`bind_obs`, `bind_audit`) let an engine's body
+report spans to the fit's `ObsSink` and bracket its mid-fit uploads for
+the fit's `LoopAudit`.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
@@ -22,6 +25,25 @@ import torch
 from repro_torch.api.config import FitConfig
 from repro_torch.core.state import ClusterStats, KMeansState, RoundInfo
 from repro_torch.kernels.plan import KernelPlan
+
+
+class _NullSeam:
+    """Default obs sink and audit of a run: the hooks an engine body
+    touches, all no-ops. Not `api.loop.ObsSink`/`LoopAudit` (loop
+    imports this module); `run_loop` binds the real ones before round 0.
+    """
+
+    def span(self, name: str, **attrs):
+        return contextlib.nullcontext()
+
+    def count(self, name: str, n: int = 1) -> None:
+        pass
+
+    def sanctioned_scope(self, what: str):
+        return contextlib.nullcontext()
+
+
+_NULL_SEAM = _NullSeam()
 
 
 class EngineRun:
@@ -83,9 +105,29 @@ class EngineRun:
         """Cluster stats usable by the estimator after the fit."""
         return state.stats
 
+    # -- observability and audit (see api.loop; default: no-ops) -----------
+
+    #: the bound obs sink and audit; engine bodies call
+    #: ``self._obs.span(...)`` and ``self._audit.sanctioned_scope(...)``
+    #: unconditionally
+    _obs: Any = _NULL_SEAM
+    _audit: Any = _NULL_SEAM
+
+    def bind_obs(self, obs: Any) -> None:
+        """Attach the fit's obs sink (called by `run_loop` before round
+        0). The sink is only ever handed HOST values, never a tensor."""
+        self._obs = obs if obs is not None else _NULL_SEAM
+
+    def bind_audit(self, audit: Any) -> None:
+        """Attach the fit's `LoopAudit` (called by `run_loop` before
+        round 0). The engine enters ``sanctioned_scope("upload")`` around
+        each host->device copy of data it places mid-fit."""
+        self._audit = audit if audit is not None else _NULL_SEAM
+
     def store_metrics(self) -> Optional[Dict[str, Any]]:
         """Cumulative chunk-store read metrics as a JSON-safe dict, or
-        None when this run is not store-backed."""
+        None when this run is not store-backed. Host-side counters only:
+        reading them touches no device."""
         return None
 
     # -- checkpointing (canonical = global-shuffle row order) ---------------

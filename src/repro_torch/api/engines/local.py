@@ -99,16 +99,19 @@ class _LocalRun(EngineRun):
         and for prefixes already filled: only growth rounds read."""
         if self._store is None or b <= self._filled:
             return
-        lo = self._filled
-        while lo < b:
-            hi = min(b, lo + _IO_SEG_ROWS)
-            rows = self._store.take(self._perm[lo:hi]).astype(
-                np.float32, copy=False)
-            # from pageable memory: the copy is done when copy_ returns,
-            # so the next segment's rows may be read into fresh memory
-            self._Xd[lo:hi].copy_(torch.from_numpy(rows))
-            lo = hi
-        self._filled = b
+        with self._obs.span("ingest", rows=b - self._filled), \
+                self._audit.sanctioned_scope("upload"):
+            lo = self._filled
+            while lo < b:
+                hi = min(b, lo + _IO_SEG_ROWS)
+                rows = self._store.take(self._perm[lo:hi]).astype(
+                    np.float32, copy=False)
+                # from pageable memory: the copy is done when copy_
+                # returns, so the next segment's rows may be read into
+                # fresh memory
+                self._Xd[lo:hi].copy_(torch.from_numpy(rows))
+                lo = hi
+            self._filled = b
 
     def store_metrics(self):
         if self._store is None:
@@ -132,7 +135,9 @@ class _LocalRun(EngineRun):
             self._mb_pos = 0
             self._mb_idx = None
         if self._mb_idx is None:
-            self._mb_idx = torch.from_numpy(self._mb_perm).to(self.device)
+            with self._audit.sanctioned_scope("upload"):
+                self._mb_idx = torch.from_numpy(self._mb_perm).to(
+                    self.device)
         idx = self._mb_idx[self._mb_pos:self._mb_pos + b]
         self._mb_pos += b
         return rounds.mb_round(self._Xd, idx, state, fixed=fixed,

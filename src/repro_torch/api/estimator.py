@@ -131,6 +131,18 @@ class NestedKMeans:
                     "fit(resume=True) requires config.checkpoint")
             run = self.engine.begin(X, cfg, X_val=X_val, init_C=init_C,
                                     device=self.device)
+            obs = None
+            if cfg.trace_dir is not None:
+                # built lazily so untraced fits never import repro_torch.obs
+                from repro_torch.obs import FitObserver
+                obs = FitObserver(
+                    cfg.trace_dir, process_id=0, k=cfg.k,
+                    d=int(run.state.stats.C.shape[-1]), bounds=cfg.bounds,
+                    meta={"backend": cfg.backend,
+                          "algorithm": cfg.algorithm,
+                          "bounds": cfg.bounds,
+                          "n_points": run.n_points,
+                          "n_shards": run.n_shards, "seed": cfg.seed})
             resume_from = None
             resolved = None
             if resume:
@@ -150,8 +162,13 @@ class NestedKMeans:
                                 f"restore a foreign fit")
                     resume_from = store
                     resolved = (step, extra)
-            out = run_loop(run, cfg, on_round=self.on_round,
-                           resume_from=resume_from, resolved_resume=resolved)
+            try:
+                out = run_loop(run, cfg, on_round=self.on_round,
+                               resume_from=resume_from,
+                               resolved_resume=resolved, obs=obs)
+            finally:
+                if obs is not None:
+                    obs.close()
             self._outcome = out
             self._stats = run.fetch_stats(out.state)
             self._outcome_stale = False

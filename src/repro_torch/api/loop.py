@@ -6,12 +6,22 @@ decision branches only on `HostRoundInfo`, the round's scalars landed on
 the host by `fetch_round_info` in ONE transfer per round (one per
 overflow attempt), or on the resolved config. Every algorithm and bound
 family runs, with in-loop checkpoints and resume in the JAX package's
-on-disk format. Tracing is not ported yet: a config that sets
-``trace_dir`` is refused (ROADMAP Queue 1 item 8), as are the backends
-other than "local" (item 9).
+on-disk format. The backends other than "local" are refused (ROADMAP
+Queue 1 item 9).
+
+Two seams make the loop observable and checkable, as in the JAX
+package: `LoopAudit` brackets each round and each sanctioned
+device<->host crossing (`repro_torch.analysis.hostsync` audits a live
+fit through it), and `ObsSink` receives each round's host-landed scalars
+(`repro_torch.obs.FitObserver` writes them to the trace directory of
+``FitConfig(trace_dir=...)``). `repro_torch.analysis` also lints this
+module for branches that do not derive from `HostRoundInfo`, the
+resolved config or the sanctioned `run` primitives (``python -m
+repro_torch.analysis lint``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -36,10 +46,6 @@ def check_ported(config: FitConfig) -> None:
         raise NotImplementedError(
             f"backend={config.backend!r} is not ported to repro_torch yet "
             f"(ROADMAP Queue 1 item 9)")
-    if config.trace_dir is not None:
-        raise NotImplementedError(
-            "tracing is not ported to repro_torch yet (ROADMAP Queue 1 "
-            "item 8)")
 
 
 # --------------------------------------------------------------------------
@@ -77,6 +83,78 @@ def fetch_round_info(info: RoundInfo) -> HostRoundInfo:
         n_recomputed=int(v["n_recomputed"]), n_active=int(v["n_active"]),
         overflow=bool(v["overflow"]), grow=bool(v["grow"]),
         r_median=v["r_median"], p_max=v["p_max"])
+
+
+class LoopAudit:
+    """Instrumentation seam for `repro_torch.analysis.hostsync`.
+
+    `run_loop` brackets every round body with ``round_scope()`` and each
+    sanctioned crossing inside it with ``sanctioned_scope(what)``, where
+    ``what`` is one of:
+
+      * ``"round_info"`` — the `fetch_round_info` scalar landing;
+      * ``"eval_mse"``   — validation eval at the configured cadence;
+      * ``"sync_flag"``  — the coordinator's wall-clock flag;
+      * ``"checkpoint"`` — `run.capture` and the store write;
+      * ``"upload"``     — a host->device copy of data the engine places
+                           mid-fit (`_LocalRun._ensure_prefix`'s store
+                           segments, mb's permutation), entered by the
+                           engine through `EngineRun.bind_audit`. From
+                           pageable memory such a copy waits for the
+                           stream, which the card's sync-debug mode
+                           reports; the JAX package leaves host->device
+                           ungated altogether.
+
+    The default scopes are no-ops, so production fits pay nothing. The
+    host-sync auditor subclasses this to record every OTHER
+    synchronisation inside the round scope as a violation.
+    """
+
+    def round_scope(self):
+        return contextlib.nullcontext()
+
+    def sanctioned_scope(self, what: str):
+        return contextlib.nullcontext()
+
+
+_NULL_AUDIT = LoopAudit()
+
+
+class ObsSink:
+    """Observability seam for `repro_torch.obs`, sibling of `LoopAudit`.
+
+    `run_loop` hands every completed round's HOST-landed scalars (the
+    `HostRoundInfo`, the schedule's b/capacity/patience values, the
+    round's wall time and work clock, the chunk store's read counters)
+    to ``round_end``, brackets eval and checkpoint (and, through
+    `EngineRun.bind_obs`, store ingest) with ``span``, and notes overflow
+    retries with ``count``.
+
+    The base class is a no-op, so untraced fits pay a few method calls a
+    round. The real sink is `repro_torch.obs.FitObserver`, which this
+    seam does not import: it consumes only values that already crossed
+    at a sanctioned point, so tracing adds no synchronisation (the
+    host-sync auditor runs with tracing on to show it).
+    """
+
+    def span(self, name: str, **attrs):
+        return contextlib.nullcontext()
+
+    def count(self, name: str, n: int = 1) -> None:
+        pass
+
+    def round_end(self, round: int, hinfo: "HostRoundInfo",
+                  **attrs) -> None:
+        pass
+
+    def fit_end(self, **summary) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+_NULL_OBS = ObsSink()
 
 
 # --------------------------------------------------------------------------
@@ -121,7 +199,10 @@ def cap_bucket(need: int, b: int, floor: int) -> Optional[int]:
 def run_loop(run: EngineRun, config: FitConfig, *,
              on_round: Optional[RoundCallback] = None,
              resume_from: Optional[Union[str, Path, CheckpointStore]] = None,
-             resolved_resume: Optional[Tuple[int, Dict[str, Any]]] = None
+             resolved_resume: Optional[Tuple[int, Dict[str, Any]]] = None,
+             trace: Optional[List[Dict[str, Any]]] = None,
+             audit: Optional[LoopAudit] = None,
+             obs: Optional[ObsSink] = None
              ) -> FitOutcome:
     """Growth schedule + capacity bucketing + overflow retry + patience.
 
@@ -137,8 +218,24 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     latest such checkpoint, so a killed fit continues bit-identically.
     ``resolved_resume``: the ``(step, extra)`` pair a caller already
     read with ``run.resolve_resume`` from the same store.
+
+    ``trace``: optional list; one dict per completed tb round —
+    ``{"round", "b_global", "capacity", "quiet_rounds"}`` — is appended
+    AFTER the round's schedule updates: the loop's control-flow
+    fingerprint, the same as the JAX package's for the same fit.
+
+    ``audit``: optional `LoopAudit` whose scopes bracket each round body
+    and its sanctioned crossings (the host-sync auditor's hook). ``None``
+    uses the no-op scopes.
+
+    ``obs``: optional `ObsSink` receiving each round's host-landed
+    scalars, span timings (eval, checkpoint, store ingest) and overflow
+    retries, usually a `repro_torch.obs.FitObserver`. ``None`` uses the
+    no-op sink. The loop does not close the sink; its creator does.
     """
     check_ported(config)
+    audit = audit if audit is not None else _NULL_AUDIT
+    obs = obs if obs is not None else _NULL_OBS
     algorithm = config.algorithm
     bounds = config.bounds
     state = run.state
@@ -149,6 +246,8 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     quiet_rounds = 0
     converged = False
     start_round = 0
+    run.bind_obs(obs)
+    run.bind_audit(audit)
 
     ckpt = config.checkpoint
     store = (CheckpointStore(ckpt.checkpoint_dir, keep=ckpt.keep)
@@ -207,13 +306,23 @@ def run_loop(run: EngineRun, config: FitConfig, *,
                     else None)
         run.barrier()
 
-    def record(hinfo: HostRoundInfo) -> None:
+    def record(hinfo: HostRoundInfo, dt_s: float) -> None:
         val_mse = None
         if len(telemetry) % config.eval_every == 0:
-            val_mse = run.eval_mse(state)
+            # validation eval is a sanctioned device->host read (outside
+            # the paper's timed region, like every eval)
+            with audit.sanctioned_scope("eval_mse"), obs.span("eval_mse"):
+                val_mse = run.eval_mse(state)
         rec = Telemetry.from_round(hinfo, round=len(telemetry), t=t_work,
                                    val_mse=val_mse)
         telemetry.append(rec)
+        # the sink sees only host values; b and capacity are the ones
+        # THIS round used (before the schedule's updates)
+        obs.round_end(rec.round, hinfo, dt_s=dt_s, t_work=t_work,
+                      b_global=min(b * run.n_shards, run.n_points),
+                      capacity=capacity, quiet_rounds=quiet_rounds,
+                      algorithm=algorithm, val_mse=val_mse,
+                      store=run.store_metrics())
         if on_round:
             on_round(rec)
 
@@ -237,62 +346,84 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     for _ in range(start_round, config.max_rounds):
         if converged:        # resumed an already-finished fit
             break
-        if math.isfinite(config.time_budget_s) \
-                and run.sync_flag(t_work >= config.time_budget_s):
-            break
-        t0 = time.perf_counter()
-        if algorithm == "lloyd":
-            new_state, info = run.lloyd_step(state)
-            hinfo = fetch_round_info(info)
-        elif algorithm in ("mb", "mbf"):
-            new_state, info = run.mb_step(state, fixed=algorithm == "mbf")
-            hinfo = fetch_round_info(info)
-        else:  # the tb family (gb is tb with bounds="none")
-            while True:
-                new_state, info = run.nested_step(state, b, capacity)
-                hinfo = fetch_round_info(info)
-                if not hinfo.overflow:
+        with audit.round_scope():
+            if math.isfinite(config.time_budget_s):
+                # the wall clock is the one host-local input to the
+                # schedule: the coordinator decides, every process obeys
+                with audit.sanctioned_scope("sync_flag"):
+                    out_of_time = run.sync_flag(
+                        t_work >= config.time_budget_s)
+                if out_of_time:
                     break
-                # overflow retry: same input state, doubled bucket —
-                # exactness is never traded for speed
-                capacity = (None if capacity is None or 2 * capacity >= b
-                            else 2 * capacity)
-        t_work += time.perf_counter() - t0
-        state = new_state
-        record(hinfo)
+            t0 = time.perf_counter()
+            if algorithm == "lloyd":
+                new_state, info = run.lloyd_step(state)
+                with audit.sanctioned_scope("round_info"):
+                    hinfo = fetch_round_info(info)
+            elif algorithm in ("mb", "mbf"):
+                new_state, info = run.mb_step(state,
+                                              fixed=algorithm == "mbf")
+                with audit.sanctioned_scope("round_info"):
+                    hinfo = fetch_round_info(info)
+            else:  # the tb family (gb is tb with bounds="none")
+                while True:
+                    new_state, info = run.nested_step(state, b, capacity)
+                    with audit.sanctioned_scope("round_info"):
+                        hinfo = fetch_round_info(info)
+                    if not hinfo.overflow:
+                        break
+                    # overflow retry: same input state, doubled bucket —
+                    # exactness is never traded for speed
+                    obs.count("overflow_retry")
+                    capacity = (None
+                                if capacity is None or 2 * capacity >= b
+                                else 2 * capacity)
+            dt_s = time.perf_counter() - t0
+            t_work += dt_s
+            state = new_state
+            record(hinfo, dt_s)
 
-        if algorithm == "tb":
-            if bounds == "hamerly2":
-                need = -(-hinfo.n_recomputed // run.n_shards)
-                if hinfo.grow and b < run.b_max:
-                    # a doubling adds b new points that always need a
-                    # full pass: start the grown bucket dense
-                    capacity = None
+            if algorithm == "tb":
+                if bounds == "hamerly2":
+                    need = -(-hinfo.n_recomputed // run.n_shards)
+                    if hinfo.grow and b < run.b_max:
+                        # a doubling adds b new points that always need
+                        # a full pass: start the grown bucket dense
+                        capacity = None
+                    else:
+                        capacity = cap_bucket(need, b,
+                                              config.capacity_floor)
+                if hinfo.grow:
+                    b = min(2 * b, run.b_max)
+                if (hinfo.n_active >= run.n_active_target
+                        and hinfo.n_changed == 0 and hinfo.p_max == 0.0):
+                    quiet_rounds += 1
                 else:
-                    capacity = cap_bucket(need, b, config.capacity_floor)
-            if hinfo.grow:
-                b = min(2 * b, run.b_max)
-            if (hinfo.n_active >= run.n_active_target
-                    and hinfo.n_changed == 0 and hinfo.p_max == 0.0):
-                quiet_rounds += 1
-            else:
-                quiet_rounds = 0
-            if quiet_rounds >= config.converge_patience:
+                    quiet_rounds = 0
+                if trace is not None:
+                    trace.append({"round": len(telemetry) - 1,
+                                  "b_global": b * run.n_shards,
+                                  "capacity": capacity,
+                                  "quiet_rounds": quiet_rounds})
+                if quiet_rounds >= config.converge_patience:
+                    converged = True
+                    break
+            elif algorithm == "lloyd" and hinfo.n_changed == 0:
                 converged = True
                 break
-        elif algorithm == "lloyd" and hinfo.n_changed == 0:
-            converged = True
-            break
-        # mb and mbf stop only at max_rounds or the time budget
+            # mb and mbf stop only at max_rounds or the time budget
 
-        if store is not None and len(telemetry) % ckpt.save_every == 0:
-            save_checkpoint()
+            if store is not None and len(telemetry) % ckpt.save_every == 0:
+                with audit.sanctioned_scope("checkpoint"), \
+                        obs.span("checkpoint"):
+                    save_checkpoint()
 
     if store is not None:
         # one final save so a resumed-after-finish fit is a no-op loop
-        save_checkpoint()
-        if run.is_coordinator:
-            store.wait()
+        with obs.span("checkpoint"):
+            save_checkpoint()
+            if run.is_coordinator:
+                store.wait()
         run.barrier()
 
     # final validation point, unless the last round already evaluated
@@ -304,6 +435,8 @@ def run_loop(run: EngineRun, config: FitConfig, *,
                 b=min(b * run.n_shards, run.n_points), batch_mse=None,
                 n_changed=0, n_recomputed=0, grow=False, r_median=None,
                 val_mse=final))
+
+    obs.fit_end(rounds=len(telemetry), t_work=t_work, converged=converged)
 
     # un-shuffle the final assignments back to the caller's row order
     a = run.host_points(state)

@@ -35,6 +35,7 @@ from repro_torch.core.state import (ElkanBounds, KMeansState, RoundInfo,
                                    build_exponion_geom, centroid_update)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.plan import KernelPlan
+from repro_torch.util import tracecount
 
 INF = float("inf")
 
@@ -406,6 +407,12 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
     shapes (gb, or tb with capacity covering the batch) through the fused
     kernel.
     """
+    # trace accounting: the statics that would key one compiled
+    # executable (or one CUDA graph) of this round; the first call of
+    # each key counts as its trace (`repro_torch.analysis.retrace`
+    # checks that a fit's keys never exceed its pow2 buckets)
+    tracecount.record("nested_round", b=b, capacity=capacity, rho=rho,
+                      bounds=bounds, plan=plan)
     k = state.stats.C.shape[0]
     x = X[:b]
     a_prev = state.points.a[:b]

@@ -5,10 +5,11 @@ The same data through `repro.api.NestedKMeans` (kernel_backend="ref") and
 schedule (b, n_recomputed, n_changed, grow) and convergence must be
 equal, centroids allclose, and `predict` equal. Plus the port's own
 rules: device="cuda" is the default and never falls back to the CPU, and
-what is not ported yet is refused by name. Checkpoints and chunk stores
-are held to JAX in tests/test_torch_{checkpoint,resume,store}.py.
+what is not ported yet (the sharded backends) is refused by name.
+Checkpoints and chunk stores are held to JAX in
+tests/test_torch_{checkpoint,resume,store}.py; traced fits in
+tests/test_torch_obs.py.
 """
-import dataclasses
 
 import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 import numpy as np
@@ -96,14 +97,6 @@ def test_config_matches_jax_shape():
         FitConfig(k=3, kernel_backend="pallas")
     cfg = FitConfig(k=3, rho=2.5, b0=7)
     assert FitConfig.from_dict(cfg.to_dict()) == cfg
-
-
-@pytest.mark.parametrize("change,item", [({"trace_dir": "t"}, "item 8")])
-def test_unported_features_are_refused(blobs, change, item):
-    X, _ = blobs
-    cfg = dataclasses.replace(FitConfig(k=4), **change)
-    with pytest.raises(NotImplementedError, match=item):
-        NestedKMeans(cfg, device="cpu").fit(X[:200])
 
 
 def test_unported_backend_and_resume_are_refused(tmp_path, blobs):

@@ -820,3 +820,72 @@ def test_launch_counts_are_exact_under_threads(cuda):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert ops.launch_counts()["assign_top2"] == before + 8 * 200
+
+
+# -- the host-sync auditor on the card ----------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["tb_traced", "mb", "lloyd", "elkan",
+                                  "store"])
+def test_hostsync_audit_on_the_card_is_clean(cuda, tmp_path, path):
+    """Small fits under `hostsync`'s two layers on the card
+    (``set_sync_debug_mode`` in the round scope, the interceptor on
+    `torch.Tensor`): no synchronisation outside the sanctioned crossings,
+    with tracing on; the store fit's segment uploads and mb's
+    permutation upload run in the engine's sanctioned "upload" scope."""
+    from repro_torch.analysis import hostsync
+    from repro_torch.api.config import FitConfig
+    from repro_torch.api.engines import make_engine
+    from repro_torch.api.loop import run_loop
+    from repro_torch.data.store import ChunkStore, write_store
+    from repro_torch.obs import read_events, summarize
+    if path == "tb_traced":
+        assert hostsync.audit_backend("local", device=cuda,
+                                      trace_dir=str(tmp_path)) == []
+        assert summarize(read_events(tmp_path))["rounds"] > 0
+        return
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(4096, 16)).astype(np.float32)
+    if path == "store":
+        write_store(tmp_path / "st", X, chunk_rows=512)
+        config = FitConfig(k=8, b0=256, capacity_floor=32,
+                           max_rounds=30).resolve(4096)
+        data = [ChunkStore(tmp_path / "st") for _ in range(2)]
+    else:
+        kw = {"mb": dict(algorithm="mb", b0=512, max_rounds=20),
+              "lloyd": dict(algorithm="lloyd", max_rounds=10),
+              "elkan": dict(bounds="elkan", b0=256, max_rounds=30)}[path]
+        config = FitConfig(k=8, eval_every=4, **kw).resolve(4096)
+        data = [X, X]
+    run_loop(make_engine(config).begin(data[0], config, X_val=X[:256],
+                                       device=cuda), config)   # warm-up
+    audit = hostsync.HostSyncAudit(device=cuda)
+    with audit.installed():
+        run_loop(make_engine(config).begin(data[1], config, X_val=X[:256],
+                                           device=cuda), config, audit=audit)
+    assert audit.violations == [], [str(v) for v in audit.violations]
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.gpu
+def test_hostsync_sync_debug_layer_catches_the_planted_leak(cuda):
+    """Layer (a) alone (sync-debug mode, no interceptor) flags an
+    ``.item()`` in the round scope at its caller's line and leaves the
+    mode as it found it; the selftest's planted per-round ``float()`` of
+    a device scalar is caught by it at the planted line."""
+    from repro_torch.analysis import _selftest as fx
+    from repro_torch.analysis import hostsync
+    audit = hostsync.HostSyncAudit(device=cuda)
+    x = torch.ones((), device=cuda)
+    with audit.round_scope():
+        assert torch.cuda.get_sync_debug_mode() == 1
+        with audit.sanctioned_scope("round_info"):
+            assert x.item() == 1.0                # sanctioned: silent
+        assert x.item() == 1.0                    # flagged
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert [(v.kind, v.file) for v in audit.violations] == \
+        [("cuda-sync", "tests/test_torch_gpu.py")]
+    found = hostsync.selftest(device=cuda)
+    line = fx.leaky_line("if float(torch.max(state.stats.p)) > 1e9:")
+    assert {v.kind for v in found} >= {"cuda-sync", "d2h-float"}
+    assert all(v.line == line for v in found)
