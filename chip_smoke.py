@@ -165,18 +165,23 @@ Phases (each raises on failure, so any fault exits non-zero):
      to the sum of ``n_recomputed``, every round's H100 ``utilization``
      must be <= 1.0 (higher means the roofline model is wrong), and the
      last and mean utilization, each round's bottleneck and the spans'
-     totals are logged. (b) After a warm-up, untraced and traced fits
-     alternate, 3 each; the median per-round wall of each is logged
-     beside the JAX package's 3 % claim (benchmarks/obs_overhead.py), with
-     no limit on the times. (c) ``hostsync.audit_backend("local")`` on
+     totals are logged. (b) After a warm-up, untraced fits, traced fits
+     and fits whose observer is the no-op seam rotate, 8 each; the
+     median per-round wall of each (the work clock, which stops before
+     the round reaches the sink) is logged beside the JAX package's 3 %
+     claim (benchmarks/obs_overhead.py), and each fit's wall is split
+     into its rounds, the observer's own calls, the collector's pauses
+     and the rest, with no limit on the times. (c) ``hostsync.audit_backend("local")`` on
      this fit with tracing on must report 0 violations, and its selftest
      must show sync-debug mode catching the planted per-round coercion at
-     its line on the card. (d) ``retrace.audit_backend`` on this fit must
-     report no violation; the count of distinct (b, capacity) buckets is
-     logged. (e) ``donation.check_inplace`` on a store fit of the rows
-     (65,536-row chunks, as in phase 8): the device buffer's pointer must
-     never move; the peak allocated over the growth is logged against the
-     buffer's bytes. The launch counts are set to 0 before (a) and read
+     its line on the card. (d) ``retrace.audit_backend`` on this fit, from
+     empty trace counters, must report no violation, and its first-seen
+     round keys must equal its distinct (b, capacity) buckets, whose
+     count is logged. (e) ``donation.check_inplace`` on a store fit of
+     the rows (65,536-row chunks, as in phase 8): the device buffer's
+     pointer must never move, and no growth may allocate a second
+     buffer; what a growth allocates is logged against the buffer's
+     bytes. The launch counts are set to 0 before (a) and read
      after (e): kernels 1-3 must be > 0.
 
 The last two lines are a JSON object of the kernels and the JSON result
@@ -2023,14 +2028,21 @@ def serve_phase(X, outcome) -> dict:
 
 # ---------------------------------------------------------------- phase 10
 
-#: traced and untraced fits of phase 10 (b), each, after a warm-up
-OVERHEAD_PAIRS = 3
+#: fits of each arm of phase 10 (b), after a warm-up
+OVERHEAD_PAIRS = 8
+
+
+def _round_ts(km) -> list:
+    """The fit's work clock at the end of each round."""
+    return [r.t for r in km.telemetry_ if r.batch_mse is not None]
 
 
 def _round_wall(km) -> float:
-    """Median wall of one round of a fit (the steps of its work clock)."""
-    t = [r.t for r in km.telemetry_ if r.batch_mse is not None]
-    return float(np.median(np.diff([0.0] + t)))
+    """Median wall of one round of a fit (the steps of its work clock).
+    The work clock stops before the loop hands the round to the obs sink
+    (`round_end`), as the JAX package's `benchmarks/obs_overhead.py`
+    does, so this wall does not see the sink's own work."""
+    return float(np.median(np.diff([0.0] + _round_ts(km))))
 
 
 def traced_fit(X, Xv, root: str, untraced) -> None:
@@ -2074,29 +2086,137 @@ def traced_fit(X, Xv, root: str, untraced) -> None:
         f"{r['bound_s'] * 1e3:.3f} ms)" for r in worst))
 
 
+def _timed_observer(cost: dict):
+    """A `FitObserver` that adds the host time of its own calls (set-up,
+    round_end, count, fit_end, close and the spans' own enter and exit)
+    to ``cost["observer"]``."""
+    import contextlib
+
+    from repro_torch.obs import FitObserver
+
+    def timed(fn):
+        def call(self, *a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                cost["observer"] += time.perf_counter() - t
+        return call
+
+    @contextlib.contextmanager
+    def span(self, name, **attrs):
+        t = time.perf_counter()
+        cm = FitObserver.span(self, name, **attrs)
+        cm.__enter__()
+        cost["observer"] += time.perf_counter() - t
+        try:
+            yield
+        finally:
+            t = time.perf_counter()
+            cm.__exit__(None, None, None)
+            cost["observer"] += time.perf_counter() - t
+
+    body = {n: timed(getattr(FitObserver, n)) for n in (
+        "__init__", "round_end", "count", "fit_end", "close")}
+    return type("TimedFitObserver", (FitObserver,), dict(body, span=span))
+
+
 def obs_overhead(X, Xv, root: str) -> None:
-    """(b): alternate untraced and traced fits after a warm-up."""
+    """(b): after a warm-up, rotate three arms: untraced fits, traced fits,
+    and fits with ``trace_dir`` set whose observer is the no-op seam
+    (``sink off``: the estimator's path without the sink's work). Each
+    fit's wall is split into its rounds (the work clock), the observer's
+    own calls, the garbage collector's pauses and the rest (the engine's
+    set-up, evals, the loop's bookkeeping, the fit's tail)."""
+    import gc
+
+    import repro_torch.obs as obs_pkg
+    from repro_torch.api.loop import ObsSink
+    from repro_torch.util import tracecount
     fit_once(X, Xv)
-    walls = {"untraced": [], "traced": []}
-    fits = {"untraced": [], "traced": []}
-    for i in range(OVERHEAD_PAIRS):
-        order = ("untraced", "traced") if i % 2 == 0 else ("traced",
-                                                           "untraced")
-        for arm in order:
-            kw = ({"trace_dir": os.path.join(root, f"overhead{i}")}
-                  if arm == "traced" else {})
-            km, wall = fit_once(X, Xv, **kw)
-            walls[arm].append(_round_wall(km))
-            fits[arm].append(wall)
-    med = {arm: float(np.median(w)) for arm, w in walls.items()}
-    log(f"    (b) median per-round wall: untraced {med['untraced'] * 1e3:.4f}"
-        f" ms ({', '.join(f'{w * 1e3:.4f}' for w in walls['untraced'])}), "
-        f"traced {med['traced'] * 1e3:.4f} ms ("
-        f"{', '.join(f'{w * 1e3:.4f}' for w in walls['traced'])}): traced/"
-        f"untraced {med['traced'] / med['untraced']:.4f} (the JAX package "
-        f"claims within 3 %, benchmarks/obs_overhead.py); fit walls "
-        f"untraced {[round(w, 3) for w in fits['untraced']]} s, traced "
-        f"{[round(w, 3) for w in fits['traced']]} s")
+    log(f"    (b) round keys the process has seen before it: "
+        f"{tracecount.mark()[1]}")
+    cost = {"observer": 0.0, "gc": 0.0, "gc_gen2": 0}
+    gc_t0 = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            cost["gc"] += time.perf_counter() - gc_t0[0]
+            cost["gc_gen2"] += info["generation"] == 2
+
+    class NoSink(ObsSink):
+        def __init__(self, *args, **kwargs):
+            pass
+
+    plain = obs_pkg.FitObserver
+    observers = {"untraced": plain, "traced": _timed_observer(cost),
+                 "sink off": NoSink}
+    names = list(observers)
+    keys = ("wall", "rounds", "observer", "gc", "rest", "round_median",
+            "gc_gen2")
+    arms = {arm: {k: [] for k in keys} for arm in names}
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(OVERHEAD_PAIRS):
+            for arm in names[i % 3:] + names[:i % 3]:
+                kw = ({} if arm == "untraced" else
+                      {"trace_dir": os.path.join(root, f"overhead{i}")})
+                obs_pkg.FitObserver = observers[arm]
+                cost.update(observer=0.0, gc=0.0, gc_gen2=0)
+                km, wall = fit_once(X, Xv, **kw)
+                rounds = _round_ts(km)[-1]
+                row = dict(wall=wall, rounds=rounds,
+                           observer=cost["observer"], gc=cost["gc"],
+                           rest=wall - rounds - cost["observer"]
+                           - cost["gc"],
+                           round_median=_round_wall(km),
+                           gc_gen2=cost["gc_gen2"])
+                for k in keys:
+                    arms[arm][k].append(row[k])
+    finally:
+        gc.callbacks.remove(on_gc)
+        obs_pkg.FitObserver = plain
+    med = {arm: {k: float(np.median(v)) for k, v in a.items()}
+           for arm, a in arms.items()}
+    u = med["untraced"]
+    log(f"        medians of {OVERHEAD_PAIRS} fits an arm, untraced: wall "
+        f"{u['wall']:.4f} s, rounds {u['rounds'] * 1e3:.1f} ms, rest "
+        f"{u['rest'] * 1e3:.1f} ms, a round (work clock, without "
+        f"round_end) {u['round_median'] * 1e3:.4f} ms")
+    for arm in ("traced", "sink off"):
+        t = med[arm]
+        log(f"        {arm}: wall {t['wall']:.4f} s, {arm}/untraced "
+            f"{t['wall'] / u['wall']:.4f} ({(t['wall'] - u['wall']) * 1e3:+.1f}"
+            f" ms); " + "; ".join(
+                f"{k} {t[k] * 1e3:.1f} ms ({(t[k] - u[k]) * 1e3:+.1f})"
+                for k in ("rounds", "observer", "gc", "rest"))
+            + f"; a round {t['round_median'] * 1e3:.4f} ms, "
+            f"{t['round_median'] / u['round_median']:.4f}x (the JAX "
+            f"package claims within 3 % on this clock, "
+            f"benchmarks/obs_overhead.py); gen-2 collections "
+            f"{t['gc_gen2']:.0f}")
+    log(f"        the observer {med['traced']['observer'] / len(_round_ts(km)) * 1e3:.4f}"
+        f" ms a round")
+    # the sink's per-round lookup of new round keys at this process's
+    # key count: a diff against a snapshot (what `round_end` did before
+    # `tracecount.since`) against `since` a mark, 288 calls each
+    snap, mark = tracecount.snapshot(), tracecount.mark()
+    t0 = time.perf_counter()
+    for _ in range(288):
+        tracecount.diff(snap)
+    t1 = time.perf_counter()
+    for _ in range(288):
+        tracecount.since(mark)
+    t2 = time.perf_counter()
+    log(f"        a round's key lookup at {mark[1]} keys: diff of a "
+        f"snapshot {(t1 - t0) / 288 * 1e3:.4f} ms, since a mark "
+        f"{(t2 - t1) / 288 * 1e3:.4f} ms")
+    for arm in names:
+        log(f"        {arm} fits (wall, rounds s): " + "; ".join(
+            f"{w:.3f} {r:.3f}" for w, r in zip(arms[arm]["wall"],
+                                               arms[arm]["rounds"])))
 
 
 def obs_phase(X, Xv, untraced) -> dict:
@@ -2134,10 +2254,14 @@ def obs_phase(X, Xv, untraced) -> dict:
         planted = hostsync.selftest(device=DEV)
         log(f"        selftest: the planted per-round coercion flagged as "
             f"{[str(v) for v in planted]}")
-        found = retrace.audit_backend("local", X=X, config=cfg, device=DEV)
-        log(f"    (d) retrace audit: {len(found)} violations "
-            f"{[str(v) for v in found]}")
+        keys = {}
+        found = retrace.audit_backend("local", X=X, config=cfg, device=DEV,
+                                      stats=keys)
+        log(f"    (d) retrace audit from empty counters: {len(found)} "
+            f"violations {[str(v) for v in found]}; {keys}")
         need(found == [], "the retrace audit found violations")
+        need(keys["keys"] == keys["buckets"] > 1,
+             f"the fit's first-seen round keys are not its buckets: {keys}")
         path = os.path.join(root, "store")
         write_store(path, X, chunk_rows=STORE_CHUNK_ROWS)
         found = donation.scan() + donation.check_inplace(

@@ -6,15 +6,17 @@ Usage::
     python -m repro_torch.analysis hostsync retrace     # runtime auditors
     python -m repro_torch.analysis all                  # everything
     python -m repro_torch.analysis all --selftest       # planted-bug check
+    python -m repro_torch.analysis all --selftest --device cpu
     python -m repro_torch.analysis hostsync --trace-dir DIR
 
 Exit status 0 iff every requested check is clean (or, with
 ``--selftest``, iff every checker still flags its planted bug class).
-The runtime auditors run on ``--device``: by default the card where
-there is one, else the CPU, where hostsync's sync-debug layer has
-nothing to watch and its interceptor layer alone runs; the device
-audited is printed. Only the "local" backend is ported: the sharded
-backends wait for ROADMAP Queue 1 item 9 and are refused by name.
+The runtime auditors run on ``--device``, the card by default: without
+one they refuse to run unless the caller asks for ``--device cpu``,
+where hostsync's sync-debug layer has nothing to watch and its
+interceptor layer alone runs. Only the "local" backend is ported: the
+sharded backends wait for ROADMAP Queue 1 item 9 and are refused by
+name.
 """
 from __future__ import annotations
 
@@ -39,11 +41,9 @@ def main(argv=None) -> int:
     p.add_argument("--backends", default="local",
                    help="comma-separated backends for the runtime "
                         "auditors (default and only ported: local)")
-    p.add_argument("--device", default=None,
-                   help="device of the runtime auditors (default: cuda "
-                        "where there is a card, else cpu)")
-    p.add_argument("--allowlist", default=None,
-                   help="alternate allowlist file for the lint")
+    p.add_argument("--device", default="cuda",
+                   help="device of the runtime auditors (default: cuda; "
+                        "cpu audits without the sync-debug layer)")
     p.add_argument("--trace-dir", default=None,
                    help="attach a repro_torch.obs FitObserver to the "
                         "hostsync audits (per-backend subdirectories): "
@@ -63,9 +63,14 @@ def main(argv=None) -> int:
                 f"(ROADMAP Queue 1 item 9); only {list(PORTED_BACKENDS)}")
     logging.basicConfig(level=logging.INFO, format="    %(message)s",
                         stream=sys.stdout)
-    if set(checks) & RUNTIME_CHECKS and args.device is None:
+    if set(checks) & RUNTIME_CHECKS:
         import torch
-        args.device = "cuda" if torch.cuda.is_available() else "cpu"
+        if (torch.device(args.device).type == "cuda"
+                and not torch.cuda.is_available()):
+            print(f"{p.prog}: no CUDA device for the runtime auditors "
+                  f"(torch.cuda.is_available() is False); pass --device "
+                  f"cpu to audit on the CPU", file=sys.stderr)
+            return 2
         print(f"runtime auditors on device={args.device}")
 
     failures = 0
@@ -112,7 +117,7 @@ def _run_check(check: str, args, backends: List[str]):
                     f"lint selftest: planted kinds not flagged: "
                     f"{sorted(missing)}")
             return found
-        return replicated_lint.run(allowlist_path=args.allowlist)
+        return replicated_lint.run()
     if check == "hostsync":
         from repro_torch.analysis import hostsync
         if args.selftest:

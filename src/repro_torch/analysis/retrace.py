@@ -9,9 +9,10 @@ capacity sneaking into the key, so that every round is a new key.
 
 `repro_torch.util.tracecount` hooks `core.rounds.nested_round`; the
 port has no jit, so a "trace" is the first call of a (site, statics) key
-in the process. The auditor runs a full growth schedule, records which
-(b, capacity) buckets the loop invoked (overflow retries included), logs
-their count, and asserts:
+in the process. The auditor empties the counters (the port has no real
+compile cache, so this costs nothing), runs a full growth schedule,
+records which (b, capacity) buckets the loop invoked (overflow retries
+included), logs their count, and asserts:
 
   retrace             one (b, capacity) bucket seen under more than one
                       key — something off-lattice (rho, flags) varies
@@ -20,9 +21,13 @@ their count, and asserts:
   off-lattice-bucket  an invoked bucket off the pow2 lattice (b not in
                       the b0-doubling chain, capacity not a power of
                       two below b)
+  missing-trace       an invoked bucket that keyed nothing: the hook no
+                      longer sees the round, or its key drops the bucket
 
-Missing traces are NOT violations: the counters are process-global, so
-a bucket another fit already keyed legitimately counts zero here.
+From empty counters the fit must key each invoked bucket exactly once,
+so a clean audit means first-seen keys == distinct buckets.
+`trace_violations` alone (the JAX package's contract, also used on a
+warm cache) does not treat a missing trace as a violation.
 """
 from __future__ import annotations
 
@@ -124,14 +129,18 @@ def _round_site():
 
 
 def audit_backend(backend: str = "local", *, X=None, config=None,
-                  device="cuda") -> List[Violation]:
-    """Run one full growth schedule on ``backend`` and check the key
-    contract; logs the count of distinct (b, capacity) buckets the fit
-    invoked. ``X``/``config`` (an unresolved `FitConfig`) audit a given
-    fit; by default a small one (4096 x 8 normal rows, k = 8, b0 = 64,
-    40 rounds) is made from a seed. ``device``: the card unless the
-    caller asks for the CPU. Only the "local" backend is ported; the
-    others wait for ROADMAP Queue 1 item 9."""
+                  device="cuda", stats: Optional[Dict[str, int]] = None
+                  ) -> List[Violation]:
+    """Empty the trace counters, run one full growth schedule on
+    ``backend`` and check the key contract; logs the count of distinct
+    (b, capacity) buckets the fit invoked. ``X``/``config`` (an
+    unresolved `FitConfig`) audit a given fit; by default a small one
+    (4096 x 8 normal rows, k = 8, b0 = 64, 40 rounds) is made from a
+    seed. ``device``: the card unless the caller asks for the CPU.
+    ``stats``, if given, is filled with the fit's ``calls`` (round
+    calls), ``buckets`` (distinct (b, capacity) buckets) and ``keys``
+    (first-seen keys). Only the "local" backend is ported; the others
+    wait for ROADMAP Queue 1 item 9."""
     import numpy as np
 
     from repro_torch.api.config import FitConfig
@@ -160,6 +169,7 @@ def audit_backend(backend: str = "local", *, X=None, config=None,
 
     run.nested_step = logged_step
     b0_local, b_max = run.b, run.b_max
+    tracecount.reset()              # a fresh cache: every key counts
     before = tracecount.snapshot()
     run_loop(run, config)
     diff = tracecount.diff(before)
@@ -172,10 +182,21 @@ def audit_backend(backend: str = "local", *, X=None, config=None,
     out.extend(lattice_violations(invoked, b0_local, b_max,
                                   site_file=site_file,
                                   site_line=site_line, qualname=qual))
+    keyed = {_parse_bucket(statics) for (s, statics) in diff if s == site}
     buckets = sorted(set(invoked), key=lambda t: (t[0], t[1] or 0))
+    for b, cap in buckets:
+        if (b, cap) not in keyed:
+            out.append(Violation(
+                checker="retrace", kind="missing-trace", file=site_file,
+                line=site_line, qualname=qual,
+                detail=(f"bucket (b={b}, capacity={cap}) was invoked but "
+                        f"keyed nothing from empty counters")))
+    n_keys = sum(n for (s, _), n in diff.items() if s == site)
     _log.info("retrace[%s]: %d round calls over %d distinct (b, capacity) "
               "buckets, %d first-seen keys: %s", backend, len(invoked),
-              len(buckets), sum(diff.values()), buckets)
+              len(buckets), n_keys, buckets)
+    if stats is not None:
+        stats.update(calls=len(invoked), buckets=len(buckets), keys=n_keys)
     return out
 
 

@@ -10,9 +10,11 @@ Checkpoint capture/restore and the process hooks are here in their
 single-process form (`repro/api/engines/base.py:155-220`): one process
 is the coordinator, a barrier is a no-op and a flag is its own
 replica; the multi-process overrides are ROADMAP Queue 1 item 9. The
-obs and audit seams (`bind_obs`, `bind_audit`) let an engine's body
-report spans to the fit's `ObsSink` and bracket its mid-fit uploads for
-the fit's `LoopAudit`.
+obs and audit seams, `ObsSink` and `LoopAudit` (defined here and
+re-exported by `api.loop`, whose `run_loop` binds them through
+`bind_obs` and `bind_audit`), let an engine's body report spans to the
+fit's sink and bracket its mid-fit uploads for the fit's audit; their
+no-op instances are a run's defaults.
 """
 from __future__ import annotations
 
@@ -27,10 +29,56 @@ from repro_torch.core.state import ClusterStats, KMeansState, RoundInfo
 from repro_torch.kernels.plan import KernelPlan
 
 
-class _NullSeam:
-    """Default obs sink and audit of a run: the hooks an engine body
-    touches, all no-ops. Not `api.loop.ObsSink`/`LoopAudit` (loop
-    imports this module); `run_loop` binds the real ones before round 0.
+class LoopAudit:
+    """Instrumentation seam for `repro_torch.analysis.hostsync`.
+
+    `run_loop` brackets every round body with ``round_scope()`` and each
+    sanctioned crossing inside it with ``sanctioned_scope(what)``, where
+    ``what`` is one of:
+
+      * ``"round_info"`` — the `fetch_round_info` scalar landing;
+      * ``"eval_mse"``   — validation eval at the configured cadence;
+      * ``"sync_flag"``  — the coordinator's wall-clock flag;
+      * ``"checkpoint"`` — `run.capture` and the store write;
+      * ``"upload"``     — a host->device copy of data the engine places
+                           mid-fit (`_LocalRun._ensure_prefix`'s store
+                           segments, mb's permutation), entered by the
+                           engine through `EngineRun.bind_audit`. From
+                           pageable memory such a copy waits for the
+                           stream, which the card's sync-debug mode
+                           reports; the JAX package leaves host->device
+                           ungated altogether.
+
+    The default scopes are no-ops, so production fits pay nothing. The
+    host-sync auditor subclasses this to record every OTHER
+    synchronisation inside the round scope as a violation.
+    """
+
+    def round_scope(self):
+        return contextlib.nullcontext()
+
+    def sanctioned_scope(self, what: str):
+        return contextlib.nullcontext()
+
+
+_NULL_AUDIT = LoopAudit()
+
+
+class ObsSink:
+    """Observability seam for `repro_torch.obs`, sibling of `LoopAudit`.
+
+    `run_loop` hands every completed round's HOST-landed scalars (the
+    `HostRoundInfo`, the schedule's b/capacity/patience values, the
+    round's wall time and work clock, the chunk store's read counters)
+    to ``round_end``, brackets eval and checkpoint (and, through
+    `EngineRun.bind_obs`, store ingest) with ``span``, and notes overflow
+    retries with ``count``.
+
+    The base class is a no-op, so untraced fits pay a few method calls a
+    round. The real sink is `repro_torch.obs.FitObserver`, which this
+    seam does not import: it consumes only values that already crossed
+    at a sanctioned point, so tracing adds no synchronisation (the
+    host-sync auditor runs with tracing on to show it).
     """
 
     def span(self, name: str, **attrs):
@@ -39,11 +87,18 @@ class _NullSeam:
     def count(self, name: str, n: int = 1) -> None:
         pass
 
-    def sanctioned_scope(self, what: str):
-        return contextlib.nullcontext()
+    def round_end(self, round: int, hinfo: "HostRoundInfo",
+                  **attrs) -> None:
+        pass
+
+    def fit_end(self, **summary) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
-_NULL_SEAM = _NullSeam()
+_NULL_OBS = ObsSink()
 
 
 class EngineRun:
@@ -110,19 +165,19 @@ class EngineRun:
     #: the bound obs sink and audit; engine bodies call
     #: ``self._obs.span(...)`` and ``self._audit.sanctioned_scope(...)``
     #: unconditionally
-    _obs: Any = _NULL_SEAM
-    _audit: Any = _NULL_SEAM
+    _obs: "ObsSink" = _NULL_OBS
+    _audit: "LoopAudit" = _NULL_AUDIT
 
     def bind_obs(self, obs: Any) -> None:
         """Attach the fit's obs sink (called by `run_loop` before round
         0). The sink is only ever handed HOST values, never a tensor."""
-        self._obs = obs if obs is not None else _NULL_SEAM
+        self._obs = obs if obs is not None else _NULL_OBS
 
     def bind_audit(self, audit: Any) -> None:
         """Attach the fit's `LoopAudit` (called by `run_loop` before
         round 0). The engine enters ``sanctioned_scope("upload")`` around
         each host->device copy of data it places mid-fit."""
-        self._audit = audit if audit is not None else _NULL_SEAM
+        self._audit = audit if audit is not None else _NULL_AUDIT
 
     def store_metrics(self) -> Optional[Dict[str, Any]]:
         """Cumulative chunk-store read metrics as a JSON-safe dict, or

@@ -10,7 +10,8 @@ on-disk format. The backends other than "local" are refused (ROADMAP
 Queue 1 item 9).
 
 Two seams make the loop observable and checkable, as in the JAX
-package: `LoopAudit` brackets each round and each sanctioned
+package (both defined in `api.engines.base`, whose `EngineRun` reports
+through them too): `LoopAudit` brackets each round and each sanctioned
 device<->host crossing (`repro_torch.analysis.hostsync` audits a live
 fit through it), and `ObsSink` receives each round's host-landed scalars
 (`repro_torch.obs.FitObserver` writes them to the trace directory of
@@ -32,7 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import FitConfig
-from repro_torch.api.engines.base import EngineRun
+from repro_torch.api.engines.base import (_NULL_AUDIT, _NULL_OBS,
+                                          EngineRun, LoopAudit, ObsSink)
 from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core.state import KMeansState, RoundInfo
@@ -83,78 +85,6 @@ def fetch_round_info(info: RoundInfo) -> HostRoundInfo:
         n_recomputed=int(v["n_recomputed"]), n_active=int(v["n_active"]),
         overflow=bool(v["overflow"]), grow=bool(v["grow"]),
         r_median=v["r_median"], p_max=v["p_max"])
-
-
-class LoopAudit:
-    """Instrumentation seam for `repro_torch.analysis.hostsync`.
-
-    `run_loop` brackets every round body with ``round_scope()`` and each
-    sanctioned crossing inside it with ``sanctioned_scope(what)``, where
-    ``what`` is one of:
-
-      * ``"round_info"`` — the `fetch_round_info` scalar landing;
-      * ``"eval_mse"``   — validation eval at the configured cadence;
-      * ``"sync_flag"``  — the coordinator's wall-clock flag;
-      * ``"checkpoint"`` — `run.capture` and the store write;
-      * ``"upload"``     — a host->device copy of data the engine places
-                           mid-fit (`_LocalRun._ensure_prefix`'s store
-                           segments, mb's permutation), entered by the
-                           engine through `EngineRun.bind_audit`. From
-                           pageable memory such a copy waits for the
-                           stream, which the card's sync-debug mode
-                           reports; the JAX package leaves host->device
-                           ungated altogether.
-
-    The default scopes are no-ops, so production fits pay nothing. The
-    host-sync auditor subclasses this to record every OTHER
-    synchronisation inside the round scope as a violation.
-    """
-
-    def round_scope(self):
-        return contextlib.nullcontext()
-
-    def sanctioned_scope(self, what: str):
-        return contextlib.nullcontext()
-
-
-_NULL_AUDIT = LoopAudit()
-
-
-class ObsSink:
-    """Observability seam for `repro_torch.obs`, sibling of `LoopAudit`.
-
-    `run_loop` hands every completed round's HOST-landed scalars (the
-    `HostRoundInfo`, the schedule's b/capacity/patience values, the
-    round's wall time and work clock, the chunk store's read counters)
-    to ``round_end``, brackets eval and checkpoint (and, through
-    `EngineRun.bind_obs`, store ingest) with ``span``, and notes overflow
-    retries with ``count``.
-
-    The base class is a no-op, so untraced fits pay a few method calls a
-    round. The real sink is `repro_torch.obs.FitObserver`, which this
-    seam does not import: it consumes only values that already crossed
-    at a sanctioned point, so tracing adds no synchronisation (the
-    host-sync auditor runs with tracing on to show it).
-    """
-
-    def span(self, name: str, **attrs):
-        return contextlib.nullcontext()
-
-    def count(self, name: str, n: int = 1) -> None:
-        pass
-
-    def round_end(self, round: int, hinfo: "HostRoundInfo",
-                  **attrs) -> None:
-        pass
-
-    def fit_end(self, **summary) -> None:
-        pass
-
-    def close(self) -> None:
-        pass
-
-
-_NULL_OBS = ObsSink()
 
 
 # --------------------------------------------------------------------------

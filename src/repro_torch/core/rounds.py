@@ -408,12 +408,14 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
     kernel.
     """
     # trace accounting: the statics that would key one compiled
-    # executable (or one CUDA graph) of this round; the first call of
-    # each key counts as its trace (`repro_torch.analysis.retrace`
-    # checks that a fit's keys never exceed its pow2 buckets)
-    tracecount.record("nested_round", b=b, capacity=capacity, rho=rho,
-                      bounds=bounds, plan=plan)
+    # executable (or one CUDA graph) of this round, the operands' width,
+    # type and device among them; the first call of each key counts as
+    # its trace (`repro_torch.analysis.retrace` checks that a fit keys
+    # each of its pow2 buckets exactly once)
     k = state.stats.C.shape[0]
+    tracecount.record("nested_round", b=b, capacity=capacity, rho=rho,
+                      bounds=bounds, plan=plan, k=k, d=X.shape[-1],
+                      dtype=X.dtype, device=X.device)
     x = X[:b]
     a_prev = state.points.a[:b]
     valid = (None if n_valid is None

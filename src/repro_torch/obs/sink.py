@@ -11,7 +11,7 @@ a `WorkModel` prices each round against the H100 roofline.
 The observer is **duck-typed** (it does not import `api.loop`) and
 imports no torch: every value handed to `round_end` is already
 host-landed plain Python (`HostRoundInfo` fields, `time.perf_counter`
-floats, `StoreMetrics` dicts, `util.tracecount` snapshots). It never
+floats, `StoreMetrics` dicts, `util.tracecount` marks). It never
 sees a tensor, which is what keeps the host-sync auditor silent with
 tracing on (`tests/test_torch_obs.py`, `tests/test_torch_analysis.py`).
 """
@@ -68,7 +68,7 @@ class FitObserver:
         self.work = (WorkModel.for_bounds(k, d, bounds or "hamerly2")
                      if k and d else None)
         self._closed = False
-        self._tc_before = tracecount.snapshot()
+        self._tc_mark = tracecount.mark()
         self._store_before: Dict[str, Any] = {}
         r = self.registry
         self._rounds = r.counter("fit_rounds", "completed loop rounds")
@@ -147,9 +147,12 @@ class FitObserver:
                      if isinstance(v, (int, float))}
             self._store_before = dict(store)
             attrs.update(delta)
-        traced = tracecount.diff(self._tc_before)
+        # the keys first seen since the last round; `since` costs only
+        # the new keys (a diff of snapshots walked every key the process
+        # had seen, a cost that grew with the process's earlier fits)
+        traced = tracecount.since(self._tc_mark)
         if traced:
-            self._tc_before = tracecount.snapshot()
+            self._tc_mark = tracecount.mark()
             n_traces = sum(traced.values())
             self._retraces.inc(n_traces)
             for (site, statics), n in sorted(traced.items()):

@@ -15,17 +15,22 @@ capacity) varies per round. `repro_torch.analysis.retrace` drives a
 full growth schedule and checks it.
 
 ``record`` takes a lock and a set lookup per call, nothing per point,
-and never touches a tensor: the hooks stay on unconditionally.
+and never touches a tensor: the hooks stay on unconditionally. A
+snapshot or a diff walks every key the process has seen; a caller that
+asks every round (the obs sink) takes a `mark` and asks `since` it
+instead, which costs only the keys that are new.
 """
 from __future__ import annotations
 
 import threading
 from collections import Counter
-from typing import Dict, Set, Tuple
+from typing import Dict, List, Set, Tuple
 
 _lock = threading.Lock()
 _counts: Counter = Counter()
 _seen: Set = set()
+_order: List = []          # keys in the order first seen
+_epoch = 0                 # bumped by every reset
 
 #: key: (site, sorted tuple of (static name, repr(value)))
 TraceKey = Tuple[str, Tuple[Tuple[str, str], ...]]
@@ -43,6 +48,7 @@ def record(site: str, **statics) -> None:
     with _lock:
         if key not in _seen:
             _seen.add(key)
+            _order.append(key)
             _counts[key] += 1
 
 
@@ -60,8 +66,26 @@ def diff(before: Dict[TraceKey, int]) -> Dict[TraceKey, int]:
                 if v - before.get(k, 0) > 0}
 
 
+def mark() -> Tuple[int, int]:
+    """A position in the stream of first sightings, for `since`."""
+    with _lock:
+        return _epoch, len(_order)
+
+
+def since(m: Tuple[int, int]) -> Dict[TraceKey, int]:
+    """Traces recorded since the `mark` ``m`` (what ``diff`` of a
+    snapshot taken then would give), in time proportional to the new
+    keys; every key counts as new if the counters were reset since."""
+    with _lock:
+        start = m[1] if m[0] == _epoch else 0
+        return {k: 1 for k in _order[start:]}
+
+
 def reset() -> None:
     """Forget every key, as if no executable had been compiled."""
+    global _epoch
     with _lock:
         _counts.clear()
         _seen.clear()
+        _order.clear()
+        _epoch += 1

@@ -221,15 +221,45 @@ def test_retrace_selftest_flags_rho_key_and_non_pow2_capacity():
 
 
 def test_local_fit_keys_only_its_pow2_buckets(caplog):
-    from repro_torch.util import tracecount
-    tracecount.reset()                 # a fresh cache: every key counts
-    with caplog.at_level(logging.INFO, logger=retrace.__name__):
-        assert retrace.audit_backend("local", device="cpu") == []
-    m = re.search(r"over (\d+) distinct \(b, capacity\) buckets, (\d+) "
-                  r"first-seen keys", caplog.records[-1].getMessage())
-    assert m and 1 < int(m[1]) == int(m[2])
+    # the audit empties the counters itself: a second audit of the same
+    # fit, every key of which the first one saw, counts them all again
+    for _ in range(2):
+        stats = {}
+        with caplog.at_level(logging.INFO, logger=retrace.__name__):
+            assert retrace.audit_backend("local", device="cpu",
+                                         stats=stats) == []
+        m = re.search(r"over (\d+) distinct \(b, capacity\) buckets, "
+                      r"(\d+) first-seen keys",
+                      caplog.records[-1].getMessage())
+        assert m and 1 < int(m[1]) == int(m[2])
+        assert stats["keys"] == stats["buckets"] == int(m[1])
     with pytest.raises(NotImplementedError, match="item 9"):
         retrace.audit_backend("mesh", device="cpu")
+
+
+def test_round_key_carries_width_type_and_device():
+    from repro_torch.core.rounds import nested_round
+    from repro_torch.core.state import init_state
+    from repro_torch.util import tracecount
+    tracecount.reset()
+    for d in (4, 6):
+        X = torch.from_numpy(
+            np.random.default_rng(d).normal(size=(64, d)).astype(np.float32))
+        nested_round(X, init_state(X, 4), b=32, rho=1.9, bounds="hamerly2",
+                     capacity=16, plan=None)
+    keys = [dict(statics) for (_, statics) in tracecount.snapshot()]
+    assert sorted(k["d"] for k in keys) == ["4", "6"]
+    assert {(k["k"], k["dtype"], k["device"]) for k in keys} == {
+        ("4", "torch.float32", "device(type='cpu')")}
+
+
+def test_retrace_audit_flags_a_round_the_hook_does_not_see(monkeypatch):
+    from repro_torch.core import rounds
+    monkeypatch.setattr(rounds.tracecount, "record",
+                        lambda site, **statics: None)
+    found = retrace.audit_backend("local", device="cpu")
+    assert found and {v.kind for v in found} == {"missing-trace"}
+    assert all(v.file == "src/repro_torch/core/rounds.py" for v in found)
 
 
 # -- in-place reuse (the port's donation check) -------------------------------
@@ -377,11 +407,23 @@ def _cli(*args):
 
 
 def test_cli_all_selftest_exits_zero_on_the_cpu():
-    r = _cli("all", "--selftest")
+    r = _cli("all", "--selftest", "--device", "cpu")
     assert r.returncode == 0, r.stdout + r.stderr
     for check in ("lint", "hostsync", "retrace", "donation"):
         assert f"[{check}] selftest: planted bug class flagged" in r.stdout
     assert "device=cpu" in r.stdout and "_selftest.py" in r.stdout
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "
+                    "without a CUDA device")
+def test_cli_runtime_auditors_refuse_to_leave_the_card_unasked():
+    for args in (("all",), ("hostsync",), ("donation", "--selftest")):
+        r = _cli(*args)
+        assert r.returncode == 2, r.stdout + r.stderr
+        assert "no CUDA device" in r.stderr and "--device cpu" in r.stderr
+        assert "OK" not in r.stdout and "selftest:" not in r.stdout
+    r = _cli("lint")                   # the AST lint needs no device
+    assert r.returncode == 0 and "[lint] OK" in r.stdout
 
 
 def test_cli_all_is_clean_and_refuses_unported_backends(tmp_path):

@@ -889,3 +889,18 @@ def test_hostsync_sync_debug_layer_catches_the_planted_leak(cuda):
     line = fx.leaky_line("if float(torch.max(state.stats.p)) > 1e9:")
     assert {v.kind for v in found} >= {"cuda-sync", "d2h-float"}
     assert all(v.line == line for v in found)
+
+
+@pytest.mark.gpu
+def test_inplace_check_on_the_card_counts_only_the_growth(cuda):
+    """The in-place check's memory bound on the card: a small store fit
+    is clean beside other tensors the process holds (many times its
+    buffer), and the planted copying segment write is flagged as a
+    second buffer, a moved pointer and a copying write."""
+    from repro_torch.analysis import donation
+    held = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    assert donation.run(device=cuda) == []
+    found = donation.selftest(device=cuda)
+    assert {v.kind for v in found} == {"copying-write", "buffer-moved",
+                                       "second-buffer"}
+    del held

@@ -119,6 +119,22 @@ def test_tracecount_counts_first_sightings():
     assert tracecount.diff(again) == {}
 
 
+def test_tracecount_since_a_mark_is_the_diff_of_a_snapshot():
+    for i in range(50):                # keys seen before the mark
+        tracecount.record("test_since", b=i)
+    m, before = tracecount.mark(), tracecount.snapshot()
+    assert tracecount.since(m) == {}
+    for b in (100, 100, 101):
+        tracecount.record("test_since", b=b)
+    assert tracecount.since(m) == tracecount.diff(before)
+    assert sorted(dict(k[1])["b"] for k in tracecount.since(m)) == [
+        "100", "101"]
+    tracecount.reset()                 # a reset makes every key new
+    tracecount.record("test_since", b=100)
+    assert list(tracecount.since(m)) == [
+        ("test_since", (("b", "100"),))]
+
+
 def test_obs_package_imports_no_torch():
     code = ("import sys, repro_torch.obs, repro_torch.obs.sink, "
             "repro_torch.obs.__main__; "
@@ -173,6 +189,25 @@ def traced_pair(tmp_path_factory, blobs, blobs_val):
 
 def _rounds(td):
     return [e["attrs"] for e in read_events(td) if e.get("name") == "round"]
+
+
+def test_traced_fit_from_empty_counters_traces_each_bucket_once(
+        tmp_path, blobs):
+    X, _ = blobs
+    for i in range(400):               # keys of earlier fits
+        tracecount.record("nested_round", b=-i)
+    tracecount.reset()
+    _traced_fit("port", tmp_path, X, **FIT)
+    buckets = {(r["b_global"], r["capacity"]) for r in _rounds(tmp_path)}
+    traces = [e["attrs"] for e in read_events(tmp_path)
+              if e.get("name") == "jit_trace"]
+    assert summarize(read_events(tmp_path))["jit_traces"] == len(traces) \
+        == len(buckets) > 1
+    cap = {"None": None}
+    assert {(int(t["statics"]["b"]),
+             cap.get(t["statics"]["capacity"], t["statics"]["capacity"]))
+            for t in traces} == {(b, c if c is None else str(c))
+                                 for b, c in buckets}
 
 
 def test_traced_round_events_match_jax(traced_pair):
