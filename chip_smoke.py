@@ -183,6 +183,28 @@ Phases (each raises on failure, so any fault exits non-zero):
      buffer; what a growth allocates is logged against the buffer's
      bytes. The launch counts are set to 0 before (a) and read
      after (e): kernels 1-3 must be > 0.
+  11. the mesh and multihost engines on phase 4's rows and config: (a) a
+     one-process ``backend="multihost"`` fit, which joins a one-rank NCCL
+     group from its coordinator fields, then a ``backend="mesh"`` fit
+     over that group, each with ``predict``: C, labels and telemetry but
+     ``t`` bit-equal to phase 4's local fit. (b) 2 spawned ranks, a gloo
+     group whose ranks both compute on the card (NCCL refuses two ranks
+     on one card), fit the rows, 200,000 a rank: every rank must compute
+     on the card with the cuda plan and hold the same bits; a second fit,
+     whose every all-reduce is timed, must give the same bits, and the
+     fit on the ref plan a final validation MSE within 1e-3 relative; the
+     labels may differ from phase 4's only at near-ties (float64 gap
+     within 1e-3 relative under the 2-rank C); rounds and the round
+     where the two schedules part are logged. (c) The same ranks fit a
+     7-chunk store of the rows in (b)'s shuffle order with
+     ``shuffle=False``: bit-equal to (b); each rank's bytes read are
+     logged against one pass. (d) The 2-rank fit checkpointed every 25
+     rounds is killed at round 137 and resumed on the 2 ranks, bit-equal
+     to (b); the checkpoint is then resumed on the local engine, and its
+     schedule is logged. Each fit's launch counts are set to 0 just
+     before it and read just after, in each process: kernels 1-3 must be
+     > 0 in (a)'s fits, on every rank of (b) and in the local resume, and
+     assign_top2 and cluster_sum in (d)'s resumed fits.
 
 The last two lines are a JSON object of the kernels and the JSON result
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2281,6 +2303,365 @@ def obs_phase(X, Xv, untraced) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+
+#: phase 11: the ranks of the spawned fits, the chunks of (c)'s store,
+#: the deadline of the ranks' join, and the checkpoint interval of (d)
+#: (phase 8's)
+MESH_RANKS = 2
+MESH_STORE_CHUNKS = 7
+MESH_JOIN_S = 900.0
+MESH_SAVE_EVERY = 25
+
+
+def _mesh_record(km, wall: float, counts: dict, **extra) -> dict:
+    """What a rank keeps of a fit, as arrays for ``np.savez``."""
+    return dict(C=km.cluster_centers_, labels=km.labels_,
+                tel=np.array(json.dumps(_tel_minus_t(km))),
+                wall=np.float64(wall),
+                rounds_s=np.float64(km.telemetry_[-1].t),
+                val=np.float64(km.final_mse_),
+                counts=np.array([counts[n] for n in REPLACES]),
+                device=np.array(str(km.stats_.C.device)),
+                plan=np.array(km.outcome_.kernel_plan["backend"]), **extra)
+
+
+def mesh_rank(rank: int, world: int, root: str, addr: str) -> None:
+    """One spawned rank of phase 11's (b)-(d): a gloo group whose ranks
+    all compute on the one card (NCCL refuses two ranks on one card).
+    Writes ``rank<r>_<fit>.npz`` under ``root``."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.api import CheckpointConfig, FitConfig, NestedKMeans
+    from repro_torch.core import collectives
+    from repro_torch.data.store import ChunkStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    if not torch.cuda.is_available():
+        raise Failure(f"rank {rank} sees no CUDA device")
+    dist.init_process_group("gloo", init_method=addr, world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh((world,), ("data",))
+        X = np.load(os.path.join(root, "X.npy"), mmap_mode="r")
+        Xv = np.load(os.path.join(root, "Xv.npy"))
+
+        def fit(tag, data=X, on_round=None, resume=False, extra=dict,
+                **kw):
+            cfg = FitConfig(k=K, backend="mesh", **dict(MAIN_CONFIG, **kw))
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            km = NestedKMeans(cfg, mesh=mesh, device=DEV,
+                              on_round=on_round)
+            km.fit(data, X_val=Xv, resume=resume)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            np.savez(os.path.join(root, f"rank{rank}_{tag}.npz"),
+                     **_mesh_record(km, wall, ops.launch_counts(),
+                                    **extra()))
+
+        fit("b")
+        # the repeat, with every all-reduce timed: the stream is drained
+        # before each, so that the timer sees the collective alone
+        reduce_s, n_reduce = [0.0], [0]
+        all_reduce = collectives.dist.all_reduce
+
+        def timed_all_reduce(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = all_reduce(*a, **kw)
+            torch.cuda.synchronize()
+            reduce_s[0] += time.perf_counter() - t0
+            n_reduce[0] += 1
+            return out
+
+        collectives.dist.all_reduce = timed_all_reduce
+        try:
+            fit("b2", extra=lambda: dict(reduce_s=np.float64(reduce_s[0]),
+                                         n_reduce=np.int64(n_reduce[0])))
+        finally:
+            collectives.dist.all_reduce = all_reduce
+        fit("ref", kernel_backend="ref")
+        with ChunkStore(os.path.join(root, "store")) as st:
+            fit("store", data=st, shuffle=False, extra=lambda: dict(
+                bytes_read=np.int64(st.metrics.bytes_read)))
+        ck = CheckpointConfig(checkpoint_dir=os.path.join(root, "ck"),
+                              save_every=MESH_SAVE_EVERY)
+
+        def kill(rec):
+            if rec.round == KILL_ROUND:
+                raise Killed
+
+        try:
+            fit("killed", on_round=kill, checkpoint=ck)
+            raise Failure(f"the {world}-rank fit ended before round "
+                          f"{KILL_ROUND}")
+        except Killed:
+            pass
+        if rank == 0:
+            shutil.copytree(os.path.join(root, "ck"),
+                            os.path.join(root, "ck_killed"))
+        dist.barrier()
+        fit("resumed", resume=True, checkpoint=ck)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(root: str) -> None:
+    import torch.multiprocessing as tmp
+    ctx = tmp.start_processes(
+        mesh_rank, args=(MESH_RANKS, root,
+                         f"tcp://localhost:{_free_port()}"),
+        nprocs=MESH_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise Failure(f"the {MESH_RANKS} ranks did not finish in "
+                              f"{MESH_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+
+
+def _rank_fits(root: str, tag: str, plan: str = "cuda") -> list:
+    """The ranks' records of one fit; every rank must have computed on
+    the card with ``plan`` and hold the same C, labels and telemetry."""
+    ranks = [dict(np.load(os.path.join(root, f"rank{r}_{tag}.npz")))
+             for r in range(MESH_RANKS)]
+    for r in ranks:
+        need(str(r["device"]).startswith("cuda") and str(r["plan"]) == plan,
+             f"a rank of the {tag} fit computed on {r['device']} with the "
+             f"{r['plan']} plan")
+        for key in ("C", "labels", "tel"):
+            need(np.array_equal(r[key], ranks[0][key]),
+                 f"the ranks of the {tag} fit hold different {key}")
+    return ranks
+
+
+def _rank_record(rank: dict, labels_perm=None):
+    """A rank's fit as `fit_record` gives one (C, labels, telemetry but
+    ``t``); ``labels_perm`` maps its labels to the caller's rows."""
+    import types
+
+    from repro_torch.api.telemetry import Telemetry
+    labels = rank["labels"]
+    if labels_perm is not None:
+        labels = np.empty_like(labels)
+        labels[labels_perm] = rank["labels"]
+    return types.SimpleNamespace(
+        cluster_centers_=rank["C"], labels_=labels,
+        telemetry_=[Telemetry.from_dict(dict(r, t=0.0))
+                    for r in json.loads(str(rank["tel"]))])
+
+
+def _parts_at(a, b):
+    """The first round whose (b, n_recomputed) differ (None: none)."""
+    ta = [r for r in a.telemetry_ if r.batch_mse is not None]
+    tb = [r for r in b.telemetry_ if r.batch_mse is not None]
+    return next((i for i, (u, v) in enumerate(zip(ta, tb))
+                 if (u.b, u.n_recomputed) != (v.b, v.n_recomputed)),
+                None if len(ta) == len(tb) else min(len(ta), len(tb)))
+
+
+def _by_rank(ranks, key, scale=1.0, digits=3) -> list:
+    return [round(float(r[key]) * scale, digits) for r in ranks]
+
+
+def one_rank_fits(X, Xv, untraced, launches: dict) -> None:
+    """(a): a one-process ``backend="multihost"`` fit, which joins a
+    one-rank NCCL group from its coordinator fields, then a
+    ``backend="mesh"`` fit over that group, each with ``predict`` and
+    each bit-equal to phase 4's local fit."""
+    import torch.distributed as dist
+
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.launch.mesh import make_host_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    try:
+        for backend in ("multihost", "mesh"):
+            if backend == "multihost":
+                cfg = FitConfig(
+                    k=K, backend=backend, num_processes=1, process_id=0,
+                    coordinator_address=f"localhost:{_free_port()}",
+                    **MAIN_CONFIG)
+                mesh = None
+            else:
+                cfg = FitConfig(k=K, backend=backend, **MAIN_CONFIG)
+                mesh = make_host_mesh((1,), ("data",))
+
+            def fit_predict():
+                km = NestedKMeans(cfg, mesh=mesh, device=DEV)
+                km.fit(X, X_val=Xv)
+                return km, km.predict(X)
+
+            t0 = time.perf_counter()
+            (km, labels), counts = _counted(launches, fit_predict)
+            wall = time.perf_counter() - t0
+            same = _same_fit(km, untraced)
+            log(f"    (a) one-rank {backend} fit over "
+                f"{dist.get_backend()} (world {dist.get_world_size()}) + "
+                f"predict: wall {wall:.2f} s (rounds "
+                f"{km.telemetry_[-1].t:.3f} s), {km.n_rounds_} records, "
+                f"launches {counts}; C, labels and telemetry (but t) "
+                f"bit-equal to phase 4's local fit: {same}; predict equals "
+                f"the fit's labels on "
+                f"{float((labels == km.labels_).mean()):.6f} of rows")
+            need(dist.get_backend() == "nccl", f"the one-rank {backend} "
+                 f"fit ran over {dist.get_backend()}, not NCCL")
+            need(same, f"the one-rank {backend} fit differs from phase 4's "
+                 f"local fit")
+            for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+                need(counts[name] > 0, f"{name} was never launched in the "
+                     f"one-rank {backend} fit")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_phase(X, Xv, untraced) -> dict:
+    """Phase 11: the mesh and multihost engines on phase 4's rows.
+    Returns the launch counts of the phase's fits, summed over its
+    processes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import CheckpointConfig, FitConfig, NestedKMeans
+    from repro_torch.data.pipeline import nested_shard_layout
+    from repro_torch.data.store import write_store
+    t0 = time.perf_counter()
+    log(f"[11] the mesh and multihost engines on phase 4's rows ({N}, "
+        f"{D}), k={K}")
+    launches = dict.fromkeys(REPLACES, 0)
+    one_rank_fits(X, Xv, untraced, launches)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        np.save(os.path.join(root, "X.npy"), X)
+        np.save(os.path.join(root, "Xv.npy"), Xv)
+        # (c)'s store holds the rows in (b)'s shuffle order, so its fit
+        # with shuffle=False reads off the disk the row sequence of (b)
+        perm = nested_shard_layout(N, MESH_RANKS,
+                                   seed=MAIN_CONFIG["seed"]).perm
+        write_store(os.path.join(root, "store"), X[perm],
+                    chunk_rows=-(-N // MESH_STORE_CHUNKS))
+        t1 = time.perf_counter()
+        _spawn_ranks(root)
+        log(f"    (b)-(d): {MESH_RANKS} spawned ranks, a gloo group on one "
+            f"card, {N // MESH_RANKS} rows a rank: "
+            f"{time.perf_counter() - t1:.1f} s in all, the processes' "
+            f"start included")
+        fits = {tag: _rank_fits(root, tag, "ref" if tag == "ref" else "cuda")
+                for tag in ("b", "b2", "ref", "store", "resumed")}
+        for ranks in fits.values():
+            for r in ranks:
+                for name, n in zip(REPLACES, r["counts"]):
+                    launches[name] += int(n)
+        b, b2 = fits["b"], fits["b2"]
+        rec_b = _rank_record(b[0])
+        tel = [r for r in rec_b.telemetry_ if r.batch_mse is not None]
+        one = [r for r in untraced.telemetry_ if r.batch_mse is not None]
+        log(f"    (b) {MESH_RANKS}-rank fit: {len(tel)} rounds (one rank: "
+            f"{len(one)}), sum n_recomputed "
+            f"{sum(r.n_recomputed for r in tel)} (one rank: "
+            f"{sum(r.n_recomputed for r in one)}), final val MSE "
+            f"{float(b[0]['val'])!r} (one rank: "
+            f"{untraced.telemetry_[-1].val_mse!r}); wall by rank "
+            f"{_by_rank(b, 'wall')} s, rounds {_by_rank(b, 'rounds_s')} s; "
+            f"launches by rank "
+            f"{[dict(zip(REPLACES, map(int, r['counts']))) for r in b]}")
+        log(f"        the {MESH_RANKS}-rank and one-rank schedules part at "
+            f"round {_parts_at(rec_b, untraced)}")
+        for r in b:
+            for name, n in zip(REPLACES, r["counts"]):
+                need(name == "fused_round" or n > 0, f"{name} was never "
+                     f"launched on a rank of the {MESH_RANKS}-rank fit")
+        Xd = torch.from_numpy(X).to(DEV)
+        ties, nearer, gap = _near_ties(
+            Xd, torch.from_numpy(b[0]["C"]).to(DEV),
+            torch.from_numpy(b[0]["labels"]).to(DEV),
+            torch.from_numpy(untraced.labels_).to(DEV))
+        del Xd
+        log(f"        labels differ from the one-rank fit's at {ties} rows, "
+            f"each a near-tie under the {MESH_RANKS}-rank C (largest "
+            f"float64 gap {gap:.3g} relative; the {MESH_RANKS}-rank label "
+            f"the nearer at {nearer})")
+        same = _same_fit(_rank_record(b2[0]), rec_b)
+        log(f"        second {MESH_RANKS}-rank fit, each all-reduce timed "
+            f"(the stream drained before it): bit-identical to the first: "
+            f"{same}; {int(b2[0]['n_reduce'])} all-reduces a rank, "
+            f"{_by_rank(b2, 'reduce_s', 1e3, 1)} ms of the walls "
+            f"{_by_rank(b2, 'wall')} s ("
+            f"{[round(100 * float(r['reduce_s'] / r['wall']), 2) for r in b2]}"
+            f" %)")
+        need(same, f"a second {MESH_RANKS}-rank fit is not bit-identical")
+        ref = fits["ref"][0]
+        rel = abs(float(ref["val"]) - float(b[0]["val"])) / float(ref["val"])
+        log(f"        {MESH_RANKS}-rank fit on the ref plan: val MSE "
+            f"{float(ref['val'])!r}, relative gap {rel:.3g} (held to 1e-3), "
+            f"wall {float(ref['wall']):.2f} s")
+        need(rel <= 1e-3, f"the {MESH_RANKS}-rank cuda and ref fits differ "
+             f"in val MSE beyond 1e-3")
+        st = fits["store"]
+        read = [int(r["bytes_read"]) for r in st]
+        same = _same_fit(_rank_record(st[0], labels_perm=perm), rec_b)
+        log(f"    (c) {MESH_RANKS}-rank fit from a {MESH_STORE_CHUNKS}-chunk "
+            f"store of the rows in (b)'s order (shuffle=False): wall by rank "
+            f"{_by_rank(st, 'wall')} s; bytes read by rank {read} = "
+            f"{[round(x / X.nbytes, 3) for x in read]} of one pass "
+            f"({sum(read) / X.nbytes:.3f} in all); C, labels and telemetry "
+            f"(but t) bit-equal to (b): {same}")
+        need(same, f"the {MESH_RANKS}-rank store fit differs from (b)")
+        res = fits["resumed"]
+        same = _same_fit(_rank_record(res[0]), rec_b)
+        saved = KILL_ROUND // MESH_SAVE_EVERY * MESH_SAVE_EVERY
+        log(f"    (d) {MESH_RANKS}-rank fit checkpointed every "
+            f"{MESH_SAVE_EVERY} rounds, killed at round {KILL_ROUND}, resumed"
+            f" from round {saved} on {MESH_RANKS} ranks: wall "
+            f"{float(res[0]['wall']):.2f} s, launches by rank "
+            f"{[dict(zip(REPLACES, map(int, r['counts']))) for r in res]}; "
+            f"bit-equal to (b): {same}")
+        need(same, f"the resumed {MESH_RANKS}-rank fit differs from (b)")
+        for r in res:
+            for name in ("assign_top2", "cluster_sum"):
+                need(int(r["counts"][list(REPLACES).index(name)]) > 0,
+                     f"{name} was never launched in the resumed fit")
+        ck = CheckpointConfig(checkpoint_dir=os.path.join(root, "ck_killed"),
+                              save_every=MESH_SAVE_EVERY)
+        t1 = time.perf_counter()
+        km, counts = _counted(launches, lambda: NestedKMeans(
+            FitConfig(k=K, checkpoint=ck, **MAIN_CONFIG), device=DEV).fit(
+            X, X_val=Xv, resume=True))
+        wall = time.perf_counter() - t1
+        rel = abs(km.final_mse_ - float(b[0]["val"])) / float(b[0]["val"])
+        log(f"        the same checkpoint resumed on the local engine: wall "
+            f"{wall:.2f} s, {km.n_rounds_} records, final val MSE "
+            f"{km.final_mse_!r} (relative gap to (b) {rel:.3g}), launches "
+            f"{counts}; its schedule parts from (b)'s at round "
+            f"{_parts_at(km, rec_b)} and from phase 4's at round "
+            f"{_parts_at(km, untraced)}")
+        log("        its schedule from the resume (b:n_recomputed): "
+            + " ".join(f"{r.b}:{r.n_recomputed}"
+                       for r in km.telemetry_[saved:]
+                       if r.batch_mse is not None))
+        need(km.labels_.min() >= 0, "the local resume left rows unlabelled")
+        for name in ("assign_top2", "cluster_sum"):
+            need(counts[name] > 0, f"{name} was never launched in the local "
+                 f"resume")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"    launches in phase 11 (every process): {launches}; phase 11 "
+        f"took {time.perf_counter() - t0:.1f} s")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 11")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2300,6 +2681,7 @@ def main() -> int:
     resume_phase(X, Xv, dict(unbroken, **{"tb-hamerly2": untraced}))
     serve_phase(X, main.pop("outcome"))
     obs_phase(X, Xv, untraced)
+    mesh_phase(X, Xv, untraced)
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])

@@ -14,9 +14,9 @@ Exit status 0 iff every requested check is clean (or, with
 The runtime auditors run on ``--device``, the card by default: without
 one they refuse to run unless the caller asks for ``--device cpu``,
 where hostsync's sync-debug layer has nothing to watch and its
-interceptor layer alone runs. Only the "local" backend is ported: the
-sharded backends wait for ROADMAP Queue 1 item 9 and are refused by
-name.
+interceptor layer alone runs. Only the "local" backend is audited: the
+sharded backends wait for ROADMAP Queue 1 item 9 step 5 and are refused
+by name.
 """
 from __future__ import annotations
 
@@ -59,8 +59,9 @@ def main(argv=None) -> int:
     backends = [b.strip() for b in args.backends.split(",") if b.strip()]
     unported = [b for b in backends if b not in PORTED_BACKENDS]
     if unported:
-        p.error(f"backends {unported} are not ported to repro_torch yet "
-                f"(ROADMAP Queue 1 item 9); only {list(PORTED_BACKENDS)}")
+        p.error(f"backends {unported} are not audited on repro_torch yet "
+                f"(ROADMAP Queue 1 item 9 step 5); only "
+                f"{list(PORTED_BACKENDS)}")
     logging.basicConfig(level=logging.INFO, format="    %(message)s",
                         stream=sys.stdout)
     if set(checks) & RUNTIME_CHECKS:

@@ -23,6 +23,12 @@ on the same bug class:
     buffer (``second-buffer``): a copy of the buffer would need a second
     one. The other tensors of the process (the fit's state, a caller's
     own) are held before the growth and do not count.
+
+On the mesh engines each rank holds and fills its own piece of the rows
+(`_MeshRun._ensure_prefix`), so each rank runs the check on its own
+buffer: the port's form of the JAX auditor's per-device ``piece_update``
+check. Every rank calls `check_inplace` with the same arguments and its
+mesh.
 """
 from __future__ import annotations
 
@@ -105,17 +111,18 @@ def scan(paths: Optional[Iterable[Path]] = None) -> List[Violation]:
 # -- runtime check -----------------------------------------------------------
 
 def check_inplace(store=None, config=None, *, device="cuda",
-                  engine_factory=None) -> List[Violation]:
+                  engine_factory=None, mesh=None) -> List[Violation]:
     """Run a store-backed fit and check that every ``_ensure_prefix``
-    writes the one buffer in place; logs the growths, the buffer's bytes
-    and (on a card) the peak allocated over the growth.
+    writes the one buffer in place (on a mesh, this rank's buffer); logs
+    the growths, the buffer's bytes and (on a card) the peak allocated
+    over the growth.
 
     ``store``: a `ChunkStore` (or its path); by default a small one is
     written to a temporary directory from a seed. ``config``: an
     unresolved `FitConfig` (default: a small tb fit). ``device``: the
     card unless the caller asks for the CPU. ``engine_factory``
     overrides engine construction (the selftest injects a copying
-    engine).
+    engine). ``mesh``: the `DeviceMesh` of a ``backend="mesh"`` config.
     """
     import numpy as np
 
@@ -138,7 +145,7 @@ def check_inplace(store=None, config=None, *, device="cuda",
                                    max_rounds=40)
             config = config.resolve(st.n)
             engine = (engine_factory(config) if engine_factory is not None
-                      else make_engine(config))
+                      else make_engine(config, mesh=mesh))
             run = engine.begin(st, config, device=device)
             return _watch_fit(run, config)
         finally:

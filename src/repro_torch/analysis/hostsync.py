@@ -230,8 +230,8 @@ def audit_backend(backend: str = "local", *, X=None, X_val=None,
     engine construction (the selftest injects a leaky engine).
     ``trace_dir`` attaches a `repro_torch.obs.FitObserver` to the
     AUDITED fit, showing that tracing adds no synchronisation of its
-    own. Only the "local" backend is ported; the others wait for ROADMAP
-    Queue 1 item 9.
+    own. Only the "local" backend is audited; the sharded backends wait
+    for ROADMAP Queue 1 item 9 step 5.
     """
     import numpy as np
 
@@ -241,7 +241,7 @@ def audit_backend(backend: str = "local", *, X=None, X_val=None,
     if backend != "local":
         raise NotImplementedError(
             f"hostsync: backend={backend!r} is not ported to repro_torch "
-            f"yet (ROADMAP Queue 1 item 9)")
+            f"yet (ROADMAP Queue 1 item 9 step 5)")
     if X is None:
         rng = np.random.default_rng(0)
         X = rng.normal(size=(2048, 8)).astype(np.float32)

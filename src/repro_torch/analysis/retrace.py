@@ -139,8 +139,8 @@ def audit_backend(backend: str = "local", *, X=None, config=None,
     seed. ``device``: the card unless the caller asks for the CPU.
     ``stats``, if given, is filled with the fit's ``calls`` (round
     calls), ``buckets`` (distinct (b, capacity) buckets) and ``keys``
-    (first-seen keys). Only the "local" backend is ported; the others
-    wait for ROADMAP Queue 1 item 9."""
+    (first-seen keys). Only the "local" backend is audited; the sharded
+    backends wait for ROADMAP Queue 1 item 9 step 5."""
     import numpy as np
 
     from repro_torch.api.config import FitConfig
@@ -151,7 +151,7 @@ def audit_backend(backend: str = "local", *, X=None, config=None,
     if backend != "local":
         raise NotImplementedError(
             f"retrace: backend={backend!r} is not ported to repro_torch "
-            f"yet (ROADMAP Queue 1 item 9)")
+            f"yet (ROADMAP Queue 1 item 9 step 5)")
     if X is None:
         X = np.random.default_rng(0).normal(size=(4096, 8)).astype(
             np.float32)

@@ -1,20 +1,22 @@
 """The `EngineRun` contract.
 
-Port of `repro/api/engines/base.py`, single process only: an engine owns
-data placement and the round functions; `EngineRun` is one fit in
-flight. The host loop (`repro_torch.api.loop.run_loop`) is written
-against this contract alone, and every quantity it branches on is either
-a field of the resolved `FitConfig` or a scalar out of `RoundInfo`.
+Port of `repro/api/engines/base.py`: an engine owns data placement and
+the round functions; `EngineRun` is one fit in flight. The host loop
+(`repro_torch.api.loop.run_loop`) is written against this contract
+alone, and every quantity it branches on is either a field of the
+resolved `FitConfig` or a scalar out of `RoundInfo`.
 
 Checkpoint capture/restore and the process hooks are here in their
 single-process form (`repro/api/engines/base.py:155-220`): one process
-is the coordinator, a barrier is a no-op and a flag is its own
-replica; the multi-process overrides are ROADMAP Queue 1 item 9. The
-obs and audit seams, `ObsSink` and `LoopAudit` (defined here and
-re-exported by `api.loop`, whose `run_loop` binds them through
-`bind_obs` and `bind_audit`), let an engine's body report spans to the
-fit's sink and bracket its mid-fit uploads for the fit's audit; their
-no-op instances are a run's defaults.
+is the coordinator, a barrier is a no-op and a flag is its own replica.
+The mesh engines, one rank per process, override them with collectives
+(`api/engines/mesh.py`). The validation MSE is taken here for every
+engine: the centroids are the same bits on every rank, so it needs no
+collective. The obs and audit seams, `ObsSink` and `LoopAudit`
+(defined here and re-exported by `api.loop`, whose `run_loop` binds
+them through `bind_obs` and `bind_audit`), let an engine's body report
+spans to the fit's sink and bracket its mid-fit uploads for the fit's
+audit; their no-op instances are a run's defaults.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import FitConfig
-from repro_torch.core.state import ClusterStats, KMeansState, RoundInfo
+from repro_torch.core.state import (ClusterStats, KMeansState, RoundInfo,
+                                    full_mse)
 from repro_torch.kernels.plan import KernelPlan
 
 
@@ -148,9 +151,14 @@ class EngineRun:
         raise NotImplementedError(
             f"{type(self).__name__} does not run mb/mbf")
 
+    #: the validation rows on ``device`` (None: no validation set)
+    _Xv: Optional[torch.Tensor] = None
+
     def eval_mse(self, state: KMeansState) -> Optional[float]:
         """Validation MSE of the current centroids (None: no val set)."""
-        return None
+        if self._Xv is None:
+            return None
+        return float(full_mse(self._Xv, state.stats.C))
 
     def host_points(self, state: KMeansState) -> np.ndarray:
         """The (n_storage,) assignment vector on the host."""

@@ -21,7 +21,7 @@ from repro_torch.api.config import FitConfig
 from repro_torch.api.engines.base import EngineRun
 from repro_torch.core import rounds
 from repro_torch.core.state import (ElkanBounds, KMeansState, PointState,
-                                    full_mse, init_state)
+                                    init_state)
 from repro_torch.data.store import (ChunkStore, dataset_fingerprint,
                                     store_permutation)
 from repro_torch.kernels.plan import resolve_plan
@@ -142,11 +142,6 @@ class _LocalRun(EngineRun):
         self._mb_pos += b
         return rounds.mb_round(self._Xd, idx, state, fixed=fixed,
                                plan=self.kernel_plan)
-
-    def eval_mse(self, state):
-        if self._Xv is None:
-            return None
-        return float(full_mse(self._Xv, state.stats.C))
 
     # -- checkpointing ------------------------------------------------------
     # storage row i holds shuffle position i, so storage order IS the

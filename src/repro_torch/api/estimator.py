@@ -10,8 +10,11 @@ Port of `repro/api/estimator.py`. `fit` runs every algorithm of
 array or (tb and gb) from an on-disk chunk store, and resumes from the
 checkpoints of either package. The estimator runs on ``device``, "cuda"
 unless the caller asks for another: with no card it raises, it never
-falls back to the CPU. `partial_fit` folds one batch into the running
-statistics with one nested round, as in the JAX package; `adopt`,
+falls back to the CPU. ``backend="mesh"`` (with a ``mesh``) and
+``backend="multihost"`` fit over the ranks of a process group: every
+rank builds the same estimator and calls it with the same arguments.
+`partial_fit` folds one batch into the running statistics with one
+nested round on any of these backends, as in the JAX package; `adopt`,
 `export_codebook` and `stats_` serve `repro_torch.serve`.
 """
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.api.config import FitConfig
 from repro_torch.api.engines import Engine, make_engine
@@ -69,12 +73,12 @@ class NestedKMeans:
     codebook to the host under the same lock for `repro_torch.serve`.
     """
 
-    def __init__(self, config: FitConfig, *, device="cuda",
+    def __init__(self, config: FitConfig, *, mesh=None, device="cuda",
                  engine: Optional[Engine] = None,
                  on_round: Optional[RoundCallback] = None):
         self.config = config
         self.device = resolve_device(device)
-        self.engine = engine or make_engine(config)
+        self.engine = engine or make_engine(config, mesh=mesh)
         self.on_round = on_round
         self.telemetry_: List[Telemetry] = []
         self._outcome: Optional[FitOutcome] = None
@@ -133,10 +137,14 @@ class NestedKMeans:
                                     device=self.device)
             obs = None
             if cfg.trace_dir is not None:
-                # built lazily so untraced fits never import repro_torch.obs
+                # built lazily so untraced fits never import
+                # repro_torch.obs; each rank of a mesh fit writes its own
+                # files
                 from repro_torch.obs import FitObserver
                 obs = FitObserver(
-                    cfg.trace_dir, process_id=0, k=cfg.k,
+                    cfg.trace_dir,
+                    process_id=dist.get_rank() if dist.is_initialized()
+                    else 0, k=cfg.k,
                     d=int(run.state.stats.C.shape[-1]), bounds=cfg.bounds,
                     meta={"backend": cfg.backend,
                           "algorithm": cfg.algorithm,
@@ -181,6 +189,12 @@ class NestedKMeans:
         The incoming points enter unseen (``a == -1``): the round assigns
         them, adds them to S/v and moves the centroids to the updated
         means.
+
+        On the mesh backends the batch is placed as a fit would place it
+        (shuffle, interleave and structural pads, which the round masks
+        out) and one full-prefix sharded round runs with the running
+        statistics carried in (`EngineRun.place_stats`); every rank
+        passes the same batch.
         """
         with self._lock:
             X = np.asarray(X)
@@ -191,20 +205,31 @@ class NestedKMeans:
                                  f"k={cfg.k} rows")
             t_prev = self.telemetry_[-1].t if self.telemetry_ else 0.0
             t0 = time.perf_counter()
-            Xd = torch.from_numpy(np.ascontiguousarray(
-                X, dtype=np.float32)).to(self.device)
-            state = init_state(Xd, cfg.k, bounds=cfg.bounds)
-            if self._stats is not None:
-                # carry the running statistics; the bounds restart per
-                # batch (new points have no history to bound against)
-                state = dataclasses.replace(state, stats=self._stats)
-            plan = resolve_plan(cfg.kernel_backend, b=int(X.shape[0]),
-                                k=cfg.k, d=int(X.shape[1]),
-                                device=self.device, bounds=cfg.bounds)
-            new_state, info = rounds.nested_round(
-                Xd, state, b=int(X.shape[0]), rho=cfg.rho,
-                bounds=cfg.bounds, capacity=None, use_shalf=cfg.use_shalf,
-                plan=plan)
+            if cfg.backend == "local":
+                Xd = torch.from_numpy(np.ascontiguousarray(
+                    X, dtype=np.float32)).to(self.device)
+                state = init_state(Xd, cfg.k, bounds=cfg.bounds)
+                if self._stats is not None:
+                    # carry the running statistics; the bounds restart
+                    # per batch (new points have no history to bound
+                    # against)
+                    state = dataclasses.replace(state, stats=self._stats)
+                plan = resolve_plan(cfg.kernel_backend, b=int(X.shape[0]),
+                                    k=cfg.k, d=int(X.shape[1]),
+                                    device=self.device, bounds=cfg.bounds)
+                new_state, info = rounds.nested_round(
+                    Xd, state, b=int(X.shape[0]), rho=cfg.rho,
+                    bounds=cfg.bounds, capacity=None,
+                    use_shalf=cfg.use_shalf, plan=plan)
+            else:
+                run = self.engine.begin(
+                    X, cfg, device=self.device,
+                    init_C=(self._stats.C.cpu().numpy()
+                            if self._stats is not None else None))
+                state = run.state
+                if self._stats is not None:
+                    state = run.place_stats(state, self._stats)
+                new_state, info = run.nested_step(state, run.b_max, None)
             hinfo = fetch_round_info(info)
             self._stats = new_state.stats
             if self._outcome is not None:

@@ -6,8 +6,11 @@ decision branches only on `HostRoundInfo`, the round's scalars landed on
 the host by `fetch_round_info` in ONE transfer per round (one per
 overflow attempt), or on the resolved config. Every algorithm and bound
 family runs, with in-loop checkpoints and resume in the JAX package's
-on-disk format. The backends other than "local" are refused (ROADMAP
-Queue 1 item 9).
+on-disk format, on the local, mesh and multihost backends; "xl" is
+refused (ROADMAP Queue 1 item 9 step 2). On the mesh backends every
+rank runs this loop over the same schedule: the scalars are reduced
+inside the round, and the wall-clock flag and the resume decision come
+from the coordinator.
 
 Two seams make the loop observable and checkable, as in the JAX
 package (both defined in `api.engines.base`, whose `EngineRun` reports
@@ -44,10 +47,10 @@ from repro_torch.kernels.plan import next_pow2
 def check_ported(config: FitConfig) -> None:
     """Raise `NotImplementedError` for a resolved config this slice of
     the port cannot run yet."""
-    if config.backend != "local":
+    if config.backend == "xl":
         raise NotImplementedError(
-            f"backend={config.backend!r} is not ported to repro_torch yet "
-            f"(ROADMAP Queue 1 item 9)")
+            "backend='xl' is not ported to repro_torch yet (ROADMAP "
+            "Queue 1 item 9 step 2)")
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Collectives over the named dims of a `DeviceMesh`: the port's
-`jax.lax.psum`, `jax.lax.all_gather` and `jax.lax.axis_index`.
+`jax.lax.psum`, `jax.lax.all_gather` and `jax.lax.axis_index`, and the
+all-gather that replicates a row-sharded array (`gather_rows`).
 
 Inside JAX's ``shard_map`` a round names mesh axes; here a round takes
 the `DeviceMesh` and the names, and each collective runs over the
@@ -7,6 +8,11 @@ process group of each named dim (`DeviceMesh.get_group`). Every rank
 runs the same collectives in the same order. ``mesh=None`` is the
 single-device form: each collective is the identity, as over a
 one-device mesh.
+
+A gloo group carries CUDA tensors itself (its all-reduce and all-gather
+stage them through the host), so the same calls serve ranks on the CPU,
+ranks that share one card under gloo, and ranks on their own cards under
+NCCL.
 """
 from __future__ import annotations
 
@@ -76,3 +82,17 @@ def all_gather(t: torch.Tensor, mesh: Optional[object],
     parts = [torch.empty_like(t) for _ in range(axis_size(mesh, axis))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
+
+
+def gather_rows(t: torch.Tensor, mesh: Optional[object],
+                axes: Sequence[str]) -> torch.Tensor:
+    """The rows of ``t`` of every rank of the named dims, concatenated
+    in rank order (row-major over ``axes``, the order in which
+    ``P(axes)`` slices a global array): a row-sharded array made whole
+    on every rank."""
+    if mesh is None:
+        return t
+    for ax in reversed(tuple(axes)):
+        t = all_gather(t, mesh, ax)
+        t = t.reshape((-1,) + t.shape[2:])
+    return t

@@ -22,10 +22,10 @@ JAX's:
 ``mesh=None`` is the single-device form: no collective runs, as a psum
 over a one-device mesh is the identity.
 
-Not ported here: `shard_map_compat` (a rank runs its body directly, so
-it has no counterpart), and `shard_state` and the deprecated
-`fit_distributed` shim, which go with the sharded engines (ROADMAP
-Queue 1 item 9).
+`shard_state` takes this rank's rows of a full state, and
+`fit_distributed` is the JAX package's deprecated entry point, a shim
+over `repro_torch.api` and the mesh engine. `shard_map_compat` has no
+counterpart: a rank runs its body directly.
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import collectives, controller, rounds
-from repro_torch.core.state import ClusterStats, centroid_update
+from repro_torch.core.state import (ClusterStats, KMeansState, PointState,
+                                    centroid_update)
 from repro_torch.kernels import ops
 from repro_torch.kernels.plan import KernelPlan
 
@@ -80,6 +81,56 @@ def make_sharded_round(mesh, data_axes: Tuple[str, ...], *, b_local: int,
         capacity=capacity, use_shalf=use_shalf, plan=plan,
         n_valid=per_shard_n_valid(mesh, tuple(data_axes), n_real),
         mesh=mesh, data_axes=tuple(data_axes))
+
+
+def shard_state(state: KMeansState, mesh,
+                data_axes: Tuple[str, ...]) -> KMeansState:
+    """This rank's share of a full state, in the engine's layout: the
+    rank's contiguous slice of the per-point leaves (row-major over
+    ``data_axes``, as `P(data_axes)` slices them), the stats and the
+    round replicated. The rows must divide evenly over the shards. As in
+    JAX, the elkan bounds are not carried."""
+    data_axes = tuple(data_axes)
+    n_shards = 1
+    for ax in data_axes:
+        n_shards *= collectives.axis_size(mesh, ax)
+    n = state.points.a.shape[0]
+    if n % n_shards:
+        raise ValueError(f"{n} rows do not divide over {n_shards} shards")
+    per = n // n_shards
+    lo = collectives.linear_index(mesh, data_axes) * per
+    rows = slice(lo, lo + per)
+    points = PointState(a=state.points.a[rows].clone(),
+                        d=state.points.d[rows].clone(),
+                        lb=state.points.lb[rows].clone())
+    return KMeansState(stats=state.stats, points=points, elkan=None,
+                       round=state.round)
+
+
+def fit_distributed(X, k: int, mesh, *,
+                    data_axes: Tuple[str, ...] = ("data",),
+                    rho: float = float("inf"), b0: int = 5000,
+                    bounds: str = "hamerly2", max_rounds: int = 1000,
+                    seed: int = 0, use_shalf: bool = True, on_round=None,
+                    device="cuda"):
+    """DEPRECATED multi-rank entry point: a shim over `repro_torch.api`.
+
+    Port of `repro/core/distributed.py::fit_distributed`: the historical
+    signature and dict telemetry over `api.fit` with ``backend="mesh"``.
+    Every rank calls it with the same arguments. The pre-api sharded
+    loop used a smaller capacity floor and declared convergence on the
+    first quiet round, and so does this shim."""
+    from repro_torch import api
+    from repro_torch.core.driver import FitResult
+
+    config = api.FitConfig(
+        k=k, algorithm="tb", rho=rho, b0=b0, bounds=bounds,
+        max_rounds=max_rounds, seed=seed, use_shalf=use_shalf,
+        backend="mesh", data_axes=tuple(data_axes), capacity_floor=256,
+        converge_patience=1)
+    cb = (lambda rec: on_round(rec.to_dict())) if on_round else None
+    out = api.fit(X, config, mesh=mesh, on_round=cb, device=device)
+    return FitResult.from_outcome(out, algorithm=f"tb-dist[{bounds}]")
 
 
 # --------------------------------------------------------------------------

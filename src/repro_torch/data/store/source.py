@@ -1,7 +1,7 @@
-"""The store's row order (`store_permutation`) and dataset identity
-(`dataset_fingerprint`).
+"""The store's row order (`store_permutation`), dataset identity
+(`dataset_fingerprint`) and per-shard view (`StoredShardSource`).
 
-Port of the single-process half of `repro/data/store/source.py`. The
+Port of `repro/data/store/source.py`. The
 schedule property that makes out-of-core nested k-means cheap: round
 t+1 reuses round t's prefix and only APPENDS, so if consecutive shuffle
 positions live in consecutive chunks, the disk frontier advances
@@ -19,19 +19,17 @@ label) should be written pre-shuffled.
 
 The bit-parity contract: a store-backed fit replays exactly the row
 sequence ``X[store_permutation(...)]``, so ``fit(store, shuffle=True)``
-equals ``fit(X[perm], shuffle=False)`` bit for bit.
-
-`StoredShardSource`, the JAX package's per-shard view of a store, needs
-the mesh engines' `data/pipeline.py::nested_shard_layout` and waits for
-them (ROADMAP Queue 1 item 9).
+equals ``fit(X[perm], shuffle=False)`` bit for bit, on every backend.
 """
 from __future__ import annotations
 
 import zlib
-from typing import Dict
+from pathlib import Path
+from typing import Dict, Union
 
 import numpy as np
 
+from repro_torch.data.pipeline import ShardLayout, nested_shard_layout
 from repro_torch.data.store.reader import ChunkStore
 
 
@@ -70,3 +68,90 @@ def dataset_fingerprint(data) -> Dict[str, object]:
     sample = np.ascontiguousarray(X[::step][:64])
     return {"kind": "array", "n": n, "d": d, "dtype": str(X.dtype),
             "crc": int(zlib.crc32(sample.tobytes()))}
+
+
+class StoredShardSource:
+    """`KMeansShardedSource` semantics, backed by a `ChunkStore`.
+
+    Same surface (`n_valid` / `shard` / `shard_valid` / `global_prefix`)
+    so a test can diff the two row for row; plus the streaming primitive
+    the mesh engines use: `block(shards, lo, hi)` fetches per-shard
+    storage rows [lo, hi) for several shards in ONE pass over the
+    covering chunks. On a round-robin layout those shards' rows
+    interleave inside the same chunks, so fetching them together reads
+    each chunk once instead of once per shard.
+    """
+
+    def __init__(self, store: Union[str, Path, ChunkStore], n_shards: int,
+                 *, seed: int = 0, shuffle: bool = True,
+                 cache_chunks: int = 8, prefetch_depth: int = 0):
+        self.store = (store if isinstance(store, ChunkStore)
+                      else ChunkStore(store, cache_chunks=cache_chunks,
+                                      prefetch_depth=prefetch_depth))
+        self._owns_store = not isinstance(store, ChunkStore)
+        perm = store_permutation(self.store.n, self.store.chunk_rows,
+                                 seed, shuffle=shuffle)
+        self.layout: ShardLayout = nested_shard_layout(
+            self.store.n, n_shards, seed=seed, perm=perm)
+        self.n_shards = n_shards
+        self.perm = self.layout.perm
+
+    # -- KMeansShardedSource-parity surface ---------------------------------
+
+    def n_valid(self, s: int) -> int:
+        return int(self.layout.n_valid[s])
+
+    def shard(self, s: int) -> np.ndarray:
+        """Full storage slice of shard ``s`` (pads = copies of row 0)."""
+        return self.block(np.asarray([s]), 0,
+                          self.layout.rows_per_shard)[0]
+
+    def shard_valid(self, s: int) -> np.ndarray:
+        return self.shard(s)[: self.n_valid(s)]
+
+    def global_prefix(self, b: int) -> np.ndarray:
+        if b > self.store.n:
+            raise ValueError(
+                f"prefix size {b} exceeds the {self.store.n} real rows")
+        return self.store.take(self.perm[:b])
+
+    # -- streaming fetch (the engines' placement primitive) -----------------
+
+    def block(self, shards: np.ndarray, lo: int, hi: int) -> np.ndarray:
+        """(len(shards), hi-lo, d): storage rows [lo, hi) of each shard.
+
+        Shard ``s`` storage row ``i`` holds shuffle position
+        ``i * n_shards + s``; structural pads (positions >= n) map to
+        store row 0, mirroring the in-memory engines' pad semantics.
+        """
+        shards = np.asarray(shards)
+        pos = (np.arange(lo, hi)[:, None] * self.n_shards
+               + shards[None, :]).ravel()
+        orig = self.perm[pos]
+        orig = np.where(orig < self.store.n, orig, 0)
+        rows = self.store.take(orig)
+        return np.ascontiguousarray(
+            rows.reshape(hi - lo, len(shards), self.store.d)
+            .transpose(1, 0, 2))
+
+    def prefetch_positions(self, plo: int, phi: int) -> int:
+        """Hint the store to warm the chunks covering shuffle positions
+        [plo, phi), the next prefix extension, in the background."""
+        if phi <= plo:
+            return 0
+        orig = self.perm[plo:min(phi, len(self.perm))]
+        orig = orig[orig < self.store.n]
+        if not orig.size:
+            return 0
+        cis = np.unique(orig // self.store.chunk_rows)
+        return self.store.prefetch(cis.tolist())
+
+    # -- lifecycle ----------------------------------------------------------
+
+    @property
+    def metrics(self):
+        return self.store.metrics
+
+    def close(self) -> None:
+        if self._owns_store:
+            self.store.close()

@@ -21,14 +21,12 @@ says why not: the two packages' matrix products and sums add in
 different orders.
 """
 import math
-import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp
 
 import torch_dist_worker as worker
 from repro.core import distributed as jdist
@@ -242,23 +240,8 @@ def test_make_host_mesh_needs_a_process_group():
 
 def _spawn(tmp_path, case, shape, axes, **inputs):
     """Run ``case`` on prod(shape) spawned ranks; their outputs by rank."""
-    np.savez(tmp_path / "inputs.npz", **inputs)
-    world = math.prod(shape)
-    ctx = tmp.start_processes(
-        worker.run, args=(world, str(tmp_path), case, shape, axes),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + JOIN_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                pytest.fail(f"{case}: ranks did not finish in "
-                            f"{JOIN_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    return worker.spawn(tmp_path, case, shape, axes,
+                        timeout_s=JOIN_TIMEOUT_S, **inputs)
 
 
 def test_dp_round_two_ranks_equal_one(tmp_path, blobs_c0):

@@ -5,7 +5,7 @@ The same data through `repro.api.NestedKMeans` (kernel_backend="ref") and
 schedule (b, n_recomputed, n_changed, grow) and convergence must be
 equal, centroids allclose, and `predict` equal. Plus the port's own
 rules: device="cuda" is the default and never falls back to the CPU, and
-what is not ported yet (the sharded backends) is refused by name.
+what is not ported yet (the xl backend) is refused by name.
 Checkpoints and chunk stores are held to JAX in
 tests/test_torch_{checkpoint,resume,store}.py; traced fits in
 tests/test_torch_obs.py.
@@ -100,13 +100,14 @@ def test_config_matches_jax_shape():
 
 
 def test_unported_backend_and_resume_are_refused(tmp_path, blobs):
-    """The sharded backends are refused by name; resume and chunk
-    stores are ported, and refuse what the JAX package refuses: a resume
-    with no checkpoint config, a store fit of a non-nested algorithm."""
+    """The xl backend is refused by name (mesh and multihost are ported,
+    tests/test_torch_mesh.py); resume and chunk stores are ported, and
+    refuse what the JAX package refuses: a resume with no checkpoint
+    config, a store fit of a non-nested algorithm."""
     from repro_torch.data.store import write_store
     X, _ = blobs
     with pytest.raises(NotImplementedError, match="item 9"):
-        NestedKMeans(FitConfig(k=4, backend="mesh"), device="cpu")
+        NestedKMeans(FitConfig(k=4, backend="xl"), device="cpu")
     with pytest.raises(ValueError, match="requires config.checkpoint"):
         NestedKMeans(FitConfig(k=4), device="cpu").fit(X, resume=True)
     write_store(tmp_path / "st", X[:500], chunk_rows=128)

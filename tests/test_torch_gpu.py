@@ -904,3 +904,65 @@ def test_inplace_check_on_the_card_counts_only_the_growth(cuda):
     assert {v.kind for v in found} == {"copying-write", "buffer-moved",
                                        "second-buffer"}
     del held
+
+
+# -- the mesh engines on the card ---------------------------------------------
+
+def _blobs(n=4000):
+    from repro_torch.data.synthetic import gaussian_blobs
+    X, _ = gaussian_blobs(n, k=8, dim=16, spread=5.0, seed=0)
+    Xv, _ = gaussian_blobs(512, k=8, dim=16, spread=5.0, seed=1)
+    return X[:n - 1], Xv
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_fit_equals_local_on_card(cuda):
+    """A mesh fit over a one-rank NCCL group is bit-equal to the local fit
+    on the card (C, labels, telemetry but t) and launches the kernels."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.launch.mesh import make_host_mesh
+    X, Xv = _blobs()
+    cfg = FitConfig(k=8, b0=1000)
+    local = NestedKMeans(cfg, device="cuda").fit(X, X_val=Xv)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        before = ops.launch_counts()
+        km = NestedKMeans(FitConfig(k=8, b0=1000, backend="mesh"),
+                          mesh=make_host_mesh((1,), ("data",)),
+                          device="cuda").fit(X, X_val=Xv)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(km.cluster_centers_,
+                                  local.cluster_centers_)
+    np.testing.assert_array_equal(km.labels_, local.labels_)
+    assert [r.to_dict() | {"t": 0} for r in km.telemetry_] == \
+        [r.to_dict() | {"t": 0} for r in local.telemetry_]
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        assert after[name] > before[name], name
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_launch_the_kernels(cuda, tmp_path):
+    """Two spawned ranks of a gloo group both compute on the card: the
+    kernels launch on every rank, and the ranks hold the same bits."""
+    import torch_dist_worker as worker
+    X, Xv = _blobs()
+    ranks = worker.spawn(tmp_path, "mesh", (2,), ("data",), parts=["card"],
+                         dir=str(tmp_path), X=X, Xv=Xv, timeout_s=300)
+    for r in ranks:
+        assert str(r["card_device"]).startswith("cuda")
+        assert (r["launches"] > 0).all(), r["launches"]
+        for key in ("C_card", "labels_card", "tel_card"):
+            np.testing.assert_array_equal(r[key], ranks[0][key])
+    assert ranks[0]["labels_card"].min() >= 0
+    assert ranks[0]["sched_card"][-1, 0] == len(X)
