@@ -205,6 +205,45 @@ Phases (each raises on failure, so any fault exits non-zero):
      before it and read just after, in each process: kernels 1-3 must be
      > 0 in (a)'s fits, on every rank of (b) and in the local resume, and
      assign_top2 and cluster_sum in (d)'s resumed fits.
+  12. the XL engine (``backend="xl"``: centroids sharded over the model
+     dim of a (data, model) `DeviceMesh`), after phase 6's X and the
+     caches are freed: (a) a one-rank NCCL (1, 1) XL fit of phase 4's
+     rows and config, with ``predict``: C, labels and telemetry but ``t``
+     bit-equal to phase 4's local fit. (b) kmeans_xl's width (d=1024,
+     k=4096, tb, hamerly2, rho=inf, the cuda plan) on 2^20 Gaussian blob
+     rows made on the card with phase 6's recipe (and 2^14 validation
+     rows), b0=2^16, at most 40 rounds (the cuts are logged): the XL fit
+     on the one-rank NCCL mesh bit-equal to the local fit; then kernels
+     1-3 at that width, on 65,536 of the rows with the fit's centroids,
+     at k=2048 (a model rank's slice) and k=4096: kernels 1 and 3's d1
+     and d2 within FULL_RTOL of the scale |x|^2 + max |c|^2 of the
+     once-rounded float64 top-2, their labels equal but at ties within
+     100x f32's rtol 1e-5 of the distance (the plain version's f32
+     product is logged, as in phase 6); kernel 2, on kernel 1's labels
+     with +1/0/-1 weights, and kernel 3's sums within the L1 mass bound
+     of plain sums and bit-equal to the order oracle; each twice
+     bit-identical, and timed beside its plain version and bound (kernel
+     2 also beside ``index_add_``) with the card's name and power limit.
+     (c) 2
+     spawned ranks, a gloo (data=1, model=2) group on the one card (NCCL
+     refuses two ranks on one card), k_local=2048 each, fit (b)'s rows:
+     every rank on the card with the cuda plan holding the same bits; a
+     second fit, each collective timed (the stream drained before and
+     after it), bit-identical; the fit on the ref plan within 1e-3 of its
+     val MSE; labels differ from (b)'s only at near-ties (float64 gap
+     within 1e-3 relative under the 2-rank C), the val MSE within 1e-4 of
+     (b)'s; kernels 1 and 2 launched on every rank. (d) The same 2 ranks
+     on phase 4's rows (k=50): the tb-elkan and tb-exponion fits, at
+     most 200 rounds, shadowed (each round's step also with
+     bounds="none" from the same state; labels may differ from it only
+     at near-ties; the pairs are logged); a 7-chunk store fit bit-equal
+     to the in-memory XL fit; the
+     fit checkpointed every 25 rounds, killed at round 137 and resumed on
+     the ranks, bit-equal to the unbroken fit; the checkpoint resumed on
+     the local engine (its val MSE logged against the XL fit's); then 4
+     ranks, a (1, 4) group, fit k=8 with exponion bounds, whose rings are
+     degenerate (k_local=2), shadowed the same way. Each process logs its
+     peak device memory; kernels 1-3 must be launched in the phase.
 
 The last two lines are a JSON object of the kernels and the JSON result
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1007,18 +1046,18 @@ def timing_phase(X) -> dict:
 
 # ---------------------------------------------------------------- phase 6
 
-def xl_data(seed: int = 0):
-    """Gaussian blobs on the card, the recipe of ``gaussian_blobs``
-    (centres N(0, 5^2), unit noise): 4096 centres, then the labels, then
-    the noise, to which each row's centre is added in place, so the peak
-    stays near the 16 GiB of X. C0 is the first k rows (the paper's
-    init)."""
+def xl_data(seed: int = 0, n: int = N_XL):
+    """``n`` rows of Gaussian blobs on the card, the recipe of
+    ``gaussian_blobs`` (centres N(0, 5^2), unit noise): 4096 centres,
+    then the labels, then the noise, to which each row's centre is added
+    in place, so the peak stays near the bytes of X (16 GiB at N_XL). C0
+    is the first k rows (the paper's init)."""
     g = torch.Generator(device=DEV)
     g.manual_seed(seed)
     centres = torch.randn(K_XL, D_XL, generator=g, device=DEV) * 5.0
-    labels = torch.randint(0, K_XL, (N_XL,), generator=g, device=DEV)
-    X = torch.randn(N_XL, D_XL, generator=g, device=DEV)
-    for lo in range(0, N_XL, XL_PLAIN_ROWS):
+    labels = torch.randint(0, K_XL, (n,), generator=g, device=DEV)
+    X = torch.randn(n, D_XL, generator=g, device=DEV)
+    for lo in range(0, n, XL_PLAIN_ROWS):
         X[lo:lo + XL_PLAIN_ROWS] += centres[labels[lo:lo + XL_PLAIN_ROWS]]
     return X, X[:K_XL].clone()
 
@@ -2314,16 +2353,60 @@ MESH_JOIN_S = 900.0
 MESH_SAVE_EVERY = 25
 
 
-def _mesh_record(km, wall: float, counts: dict, **extra) -> dict:
-    """What a rank keeps of a fit, as arrays for ``np.savez``."""
-    return dict(C=km.cluster_centers_, labels=km.labels_,
-                tel=np.array(json.dumps(_tel_minus_t(km))),
+#: the collectives the sharded rounds run, by their torch.distributed names
+COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter_tensor",
+                  "all_to_all_single")
+
+
+def _xl_config(k, **kw):
+    """Phase 4's config on ``backend="xl"`` at ``k``, ``kw`` over it."""
+    from repro_torch.api import FitConfig
+    return FitConfig(k=k, **dict(dict(MAIN_CONFIG, backend="xl"), **kw))
+
+
+class _TimedCollectives:
+    """Inside the block, each collective of `COLLECTIVES` is timed
+    with the stream drained before it and after it, so that the timer
+    sees the collective alone: ``spent[name] = [seconds, calls]``."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self._dist = dist
+        self._orig = {name: getattr(dist, name) for name in COLLECTIVES}
+        self.spent = {name: [0.0, 0] for name in COLLECTIVES}
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.spent[name][0] += time.perf_counter() - t0
+                self.spent[name][1] += 1
+                return out
+            return call
+
+        for name, fn in self._orig.items():
+            setattr(dist, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self._dist, name, fn)
+
+
+def _mesh_record(out, wall: float, counts: dict, **extra) -> dict:
+    """What a rank keeps of a fit (a `FitOutcome`: the estimator's
+    ``outcome_`` or `run_loop`'s), as arrays for ``np.savez``."""
+    tel = [{k: v for k, v in r.to_dict().items() if k != "t"}
+           for r in out.telemetry]
+    return dict(C=out.C, labels=out.labels, tel=np.array(json.dumps(tel)),
                 wall=np.float64(wall),
-                rounds_s=np.float64(km.telemetry_[-1].t),
-                val=np.float64(km.final_mse_),
+                rounds_s=np.float64(out.telemetry[-1].t),
+                val=np.float64(out.final_mse),
                 counts=np.array([counts[n] for n in REPLACES]),
-                device=np.array(str(km.stats_.C.device)),
-                plan=np.array(km.outcome_.kernel_plan["backend"]), **extra)
+                device=np.array(str(out.state.stats.C.device)),
+                plan=np.array(out.kernel_plan["backend"]), **extra)
 
 
 def mesh_rank(rank: int, world: int, root: str, addr: str) -> None:
@@ -2335,7 +2418,6 @@ def mesh_rank(rank: int, world: int, root: str, addr: str) -> None:
     import torch.distributed as dist
 
     from repro_torch.api import CheckpointConfig, FitConfig, NestedKMeans
-    from repro_torch.core import collectives
     from repro_torch.data.store import ChunkStore
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
@@ -2361,30 +2443,15 @@ def mesh_rank(rank: int, world: int, root: str, addr: str) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             np.savez(os.path.join(root, f"rank{rank}_{tag}.npz"),
-                     **_mesh_record(km, wall, ops.launch_counts(),
+                     **_mesh_record(km.outcome_, wall, ops.launch_counts(),
                                     **extra()))
 
         fit("b")
-        # the repeat, with every all-reduce timed: the stream is drained
-        # before each, so that the timer sees the collective alone
-        reduce_s, n_reduce = [0.0], [0]
-        all_reduce = collectives.dist.all_reduce
-
-        def timed_all_reduce(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = all_reduce(*a, **kw)
-            torch.cuda.synchronize()
-            reduce_s[0] += time.perf_counter() - t0
-            n_reduce[0] += 1
-            return out
-
-        collectives.dist.all_reduce = timed_all_reduce
-        try:
-            fit("b2", extra=lambda: dict(reduce_s=np.float64(reduce_s[0]),
-                                         n_reduce=np.int64(n_reduce[0])))
-        finally:
-            collectives.dist.all_reduce = all_reduce
+        # the repeat, with every all-reduce timed
+        with _TimedCollectives() as timed:
+            fit("b2", extra=lambda: dict(
+                reduce_s=np.float64(timed.spent["all_reduce"][0]),
+                n_reduce=np.int64(timed.spent["all_reduce"][1])))
         fit("ref", kernel_backend="ref")
         with ChunkStore(os.path.join(root, "store")) as st:
             fit("store", data=st, shuffle=False, extra=lambda: dict(
@@ -2411,18 +2478,22 @@ def mesh_rank(rank: int, world: int, root: str, addr: str) -> None:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(root: str) -> None:
+def _spawn_ranks(root: str, fn=None, world: int = MESH_RANKS,
+                 join_s: float = MESH_JOIN_S) -> None:
+    """Runs ``fn`` (default `mesh_rank`) on ``world`` spawned ranks and
+    waits for them; a rank that is still running at the deadline is
+    killed."""
     import torch.multiprocessing as tmp
     ctx = tmp.start_processes(
-        mesh_rank, args=(MESH_RANKS, root,
-                         f"tcp://localhost:{_free_port()}"),
-        nprocs=MESH_RANKS, join=False, start_method="spawn")
-    deadline = time.monotonic() + MESH_JOIN_S
+        fn or mesh_rank, args=(world, root,
+                               f"tcp://localhost:{_free_port()}"),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + join_s
     try:
         while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
             if time.monotonic() >= deadline:
-                raise Failure(f"the {MESH_RANKS} ranks did not finish in "
-                              f"{MESH_JOIN_S} s")
+                raise Failure(f"the {world} ranks did not finish in "
+                              f"{join_s} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -2430,11 +2501,12 @@ def _spawn_ranks(root: str) -> None:
                 p.join(5)
 
 
-def _rank_fits(root: str, tag: str, plan: str = "cuda") -> list:
+def _rank_fits(root: str, tag: str, plan: str = "cuda",
+               world: int = MESH_RANKS) -> list:
     """The ranks' records of one fit; every rank must have computed on
     the card with ``plan`` and hold the same C, labels and telemetry."""
     ranks = [dict(np.load(os.path.join(root, f"rank{r}_{tag}.npz")))
-             for r in range(MESH_RANKS)]
+             for r in range(world)]
     for r in ranks:
         need(str(r["device"]).startswith("cuda") and str(r["plan"]) == plan,
              f"a rank of the {tag} fit computed on {r['device']} with the "
@@ -2662,6 +2734,560 @@ def mesh_phase(X, Xv, untraced) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+#: phase 12 at kmeans_xl width, (b) and (c): the rows and validation rows
+#: made on the card, the first batch and the round cap (the cuts), and
+#: the rows the kernels are checked on; (c) and (d)'s model ranks, the
+#: degenerate ring's ranks and k, and the deadline of the ranks' join
+XL_FIT_N, XL_FIT_NVAL = 2 ** 20, 2 ** 14
+XL_FIT_B0, XL_FIT_ROUNDS = 2 ** 16, 40
+XL_KERNEL_ROWS = 65_536
+XL_RANKS, XL_RING_RANKS, XL_RING_K = 2, 4, 8
+#: (d)'s shadowed families stop at this round (a cut: each shadowed round
+#: runs two steps)
+XL_SHADOW_ROUNDS = 200
+XL_JOIN_S = 600.0
+
+def xl_shadow(mesh, rank: int, root: str, tag: str, X, Xv, k: int,
+              bounds: str, **kw) -> None:
+    """A shadowed XL fit on this rank (phase 7's `shadow_bounds` on the
+    ranks): each round's step is also taken with ``bounds="none"`` from
+    the same state, and a label may differ from that step's only at a
+    near-tie (float64 distances to the two centroids within 1e-3
+    relative, under the whole C); ``kw`` goes over the config. Writes
+    ``rank<r>_<tag>.npz``."""
+    from repro_torch.api.engines.xl import XLEngine
+    from repro_torch.api.loop import run_loop
+    from repro_torch.core.distributed_xl import make_xl_nested_round
+    from repro_torch.kernels import ops
+    cfg = _xl_config(k, bounds=bounds, **kw).resolve(len(X))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = XLEngine(mesh).begin(X, cfg, X_val=Xv, device=DEV)
+    step = run.nested_step
+    seen = {"steps": 0, "rows": 0, "worst": 0, "top": 0.0}
+
+    def both(state, b, capacity):
+        out = step(state, b, capacity)
+        alt = make_xl_nested_round(
+            mesh, cfg.data_axes, model_axis=cfg.model_axis, b_local=b,
+            rho=cfg.rho, bounds="none", capacity=capacity,
+            use_shalf=cfg.use_shalf, n_real=run._n_real,
+            plan=run.kernel_plan)(run._Xd, state)
+        rows, _, gap = _near_ties(run._Xd[:b], run.fetch_stats(state).C,
+                                  out[0].points.a[:b], alt[0].points.a[:b])
+        seen["steps"] += 1
+        seen["rows"] += rows
+        seen["worst"] = max(seen["worst"], rows)
+        seen["top"] = max(seen["top"], gap)
+        return out
+
+    run.nested_step = both
+    out = run_loop(run, cfg)
+    del run.nested_step       # the cycle run -> both -> run holds X
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pairs = sum(r.n_recomputed for r in out.telemetry
+                if r.batch_mse is not None)
+    np.savez(os.path.join(root, f"rank{rank}_{tag}.npz"),
+             **_mesh_record(out, wall, ops.launch_counts(),
+                               pairs=np.int64(pairs),
+                               shadow=np.array([seen["steps"], seen["rows"],
+                                                seen["worst"]]),
+                               top=np.float64(seen["top"]),
+                               peak=np.float64(
+                                   torch.cuda.max_memory_allocated())))
+
+
+def xl_rank(rank: int, world: int, root: str, addr: str) -> None:
+    """One spawned rank of phase 12: a gloo ``(data=1, model=world)``
+    group whose ranks all compute on the one card (NCCL refuses two ranks
+    on one card). On `XL_RANKS` ranks, (c) at kmeans_xl width and then
+    (d) on phase 4's rows; on `XL_RING_RANKS`, (d)'s degenerate exponion
+    ring. Writes ``rank<r>_<fit>.npz`` under ``root``."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.api import CheckpointConfig, NestedKMeans
+    from repro_torch.data.store import ChunkStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    if not torch.cuda.is_available():
+        raise Failure(f"rank {rank} sees no CUDA device")
+    dist.init_process_group("gloo", init_method=addr, world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh((1, world), ("data", "model"))
+
+        def load(name, mmap_mode="r"):
+            return np.load(os.path.join(root, f"{name}.npy"),
+                           mmap_mode=mmap_mode)
+
+        def fit(tag, X, Xv, k, on_round=None, resume=False, extra=dict,
+                **kw):
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            km = NestedKMeans(_xl_config(k, **kw), mesh=mesh, device=DEV,
+                              on_round=on_round)
+            km.fit(X, X_val=Xv, resume=resume)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            np.savez(os.path.join(root, f"rank{rank}_{tag}.npz"),
+                     **_mesh_record(km.outcome_, wall, ops.launch_counts(),
+                                    peak=np.float64(
+                                        torch.cuda.max_memory_allocated()),
+                                    **extra()))
+
+        if world == XL_RING_RANKS:
+            xl_shadow(mesh, rank, root, "ring", load("X"), load("Xv", None),
+                      XL_RING_K, "exponion")
+            return
+        Xb, Xvb = load("Xb"), load("Xvb", None)
+        kw = dict(b0=XL_FIT_B0, max_rounds=XL_FIT_ROUNDS)
+        fit("c", Xb, Xvb, K_XL, **kw)
+        with _TimedCollectives() as timed:
+            fit("c2", Xb, Xvb, K_XL, extra=lambda: dict(
+                **{f"coll_{name}_s": np.float64(v[0])
+                   for name, v in timed.spent.items()},
+                **{f"coll_{name}_n": np.int64(v[1])
+                   for name, v in timed.spent.items()}), **kw)
+        fit("c_ref", Xb, Xvb, K_XL, kernel_backend="ref", **kw)
+        del Xb, Xvb
+        torch.cuda.empty_cache()
+
+        X, Xv = load("X"), load("Xv", None)
+        fit("d", X, Xv, K)
+        for bounds in ("elkan", "exponion"):
+            xl_shadow(mesh, rank, root, f"d_{bounds}", X, Xv, K, bounds,
+                      max_rounds=XL_SHADOW_ROUNDS)
+        with ChunkStore(os.path.join(root, "store")) as st:
+            fit("d_store", st, Xv, K, shuffle=False, extra=lambda: dict(
+                bytes_read=np.int64(st.metrics.bytes_read)))
+        ck = CheckpointConfig(checkpoint_dir=os.path.join(root, "ck"),
+                              save_every=MESH_SAVE_EVERY)
+
+        def kill(rec):
+            if rec.round == KILL_ROUND:
+                raise Killed
+
+        try:
+            fit("d_killed", X, Xv, K, on_round=kill, checkpoint=ck)
+            raise Failure(f"the {world}-rank XL fit ended before round "
+                          f"{KILL_ROUND}")
+        except Killed:
+            pass
+        if rank == 0:
+            shutil.copytree(os.path.join(root, "ck"),
+                            os.path.join(root, "ck_killed"))
+        dist.barrier()
+        fit("d_resumed", X, Xv, K, resume=True, checkpoint=ck)
+    finally:
+        dist.destroy_process_group()
+
+
+def _max_err(got, want):
+    """The largest |got - want| over pairs of tensors, and the largest
+    over max(|want|, 1)."""
+    e = rel = 0.0
+    for g, w in zip(got, want):
+        err = torch.where(g == w, 0.0, (g - w).abs())
+        e = max(e, float(err.max()))
+        rel = max(rel, float((err / w.abs().clamp_min(1.0)).max()))
+    return e, rel
+
+
+def check_xl_kernels(x, C, smi: str) -> None:
+    """Kernels 1-3 at kmeans_xl width (d = 1024) on ``x``'s rows, at
+    k = 2048 (a model rank's slice) and k = 4096. Kernels 1 and 3 are
+    held as phase 6 holds kernel 4: d1 and d2 within FULL_RTOL of the
+    scale |x|^2 + max |c|^2 of the top-2 of the ref expression with x.c,
+    |x|^2 and |c|^2 taken in float64 and rounded once
+    (`check_full_oracle`; the plain version's f32 product is ~0.1 off d1
+    at this width, and its gap is logged), and labels equal but at ties
+    within 100x f32's rtol 1e-5 of the distance (the lower index wins a
+    tie). The ref expression resolves d1 ~ 2e3 only to a few f32 ulps of
+    the scale (~5e4), about 1e-5 of d1, so the largest error relative to
+    d1 is logged, not held. Kernel 2 sums the rows by kernel 1's labels
+    with +1/0/-1 weights (`_delta_sv_xl`'s adds and removes), held as
+    phase 3 holds it: within rtol 1e-5 of each sum's L1 mass of the
+    plain sums, and bit for bit to the order oracle. Kernel 3's
+    passed-through rows keep their bits, its sums match plain sums over
+    its own labels (rtol 1e-4 of their L1 mass) and the order oracle bit
+    for bit. Each kernel gives the same bits twice and is timed (CUDA
+    events, mean of 10) beside its plain version and its bound (kernel
+    2 also beside `index_add_`)."""
+    from repro_torch.kernels import (cluster_sum, fused_round,
+                                     kmeans_assign, ref)
+    n, d = x.shape
+    for k in (K_XL // XL_RANKS, K_XL):
+        c = C[:k].contiguous()
+        want = assign_top2_exact(x, c)
+        pd = ref.pairwise_dist2(x, c)
+        got = kmeans_assign.assign_top2_cuda(x, c)
+        torch.cuda.synchronize()
+        ties = _labels_ok(got[0], want[0], pd, TOL["f32"], relative=True)
+        e, rel = _max_err(got[1:], want[1:])
+        gap, plain_gap = check_full_oracle(
+            *got, x, c, "assign_top2", plain=ref.assign_top2_ref(x, c)[1])
+        need(same_bits(kmeans_assign.assign_top2_cuda(x, c), got),
+             "assign_top2 is not deterministic")
+        tc_ops = 3 * 2.0 * n * (-(-k // 128) * 128) * d
+        b1, how1 = bound(n * d * 4 + k * d * 4 + n * 12, 0.0,
+                         tf32_flops=tc_ops)
+        ms1 = time_ms(lambda: kmeans_assign.assign_top2_cuda(x, c))
+        plain1 = time_ms(lambda: ref.assign_top2_ref(x, c))
+        log(f"    assign_top2 n={n} d={d} k={k}: max abs err {e:.3g} from "
+            f"the once-rounded float64 top-2 ({rel:.3g} of the distance), "
+            f"{gap:.3g} of the scale (held to {FULL_RTOL:g}; the plain f32 "
+            f"product {plain_gap:.3g}), tied labels {ties}, second run "
+            f"bit-identical; {ms1:.3f} ms, plain {plain1:.3f} ms, bound "
+            f"{b1:.3f} ms ({how1}), {b1 / ms1 * 100:.1f} % of it ({smi})")
+
+        a, w = got[0], _weights(n, k)
+        S, v = cluster_sum.cluster_sum_cuda(x, a, k, weights=w)
+        torch.cuda.synchronize()
+        S_r, v_r = ref.cluster_sum_ref(x, a, k, weights=w)
+        mass, vmass = ref.cluster_sum_ref(x.abs(), a, k, weights=w.abs())
+        e2 = max(_mass_close(S, S_r, mass, "S"),
+                 _mass_close(v, v_r, vmass, "v"))
+        need(same_bits(cluster_sum.cluster_sum_cuda(x, a, k, weights=w),
+                       (S, v)), "cluster_sum is not deterministic")
+        need(same_bits((S, v), ref.ordered_sums(x, k, a, w)),
+             "cluster_sum differs from the order oracle")
+        nz = int((w != 0).sum())
+        b2, how2 = bound(nz * d * 4 + n * 8 + (k * d + k) * 4,
+                         2.0 * nz * d)
+        ms2 = time_ms(lambda: cluster_sum.cluster_sum_cuda(x, a, k,
+                                                           weights=w))
+        plain2 = time_ms(lambda: ref.cluster_sum_ref(x, a, k, weights=w))
+        a64, xw = a.long(), x * w[:, None]
+        S0 = torch.zeros(k, d, device=DEV)
+        lib2 = time_ms(lambda: S0.index_add_(0, a64, xw))
+        log(f"    cluster_sum n={n} d={d} k={k} (kernel 1's labels, +1/0/-1"
+            f" weights): max abs err {e2:.3g} (held to 1e-5 of the L1 "
+            f"mass), second run and the order oracle bit-identical; "
+            f"{ms2:.3f} ms, plain {plain2:.3f} ms, index_add_ {lib2:.3f} "
+            f"ms, bound {b2:.3f} ms ({how2}), {b2 / ms2 * 100:.1f} % of it "
+            f"({smi})")
+        del S, v, S_r, v_r, mass, vmass, a64, xw, S0
+
+        args = [x, c] + _nested_inputs(n, 1, k)[2:]
+        a_prev, settled, d_keep, lb_keep, valid = args[2:]
+        got = fused_round.fused_nested_round_cuda(*args)
+        torch.cuda.synchronize()
+        rows = valid & ~settled
+        keep = valid & settled
+        need(bool((got[0][~valid] == -1).all())
+             and torch.equal(got[0][keep], a_prev[keep])
+             and torch.equal(got[1][keep], d_keep[keep])
+             and torch.equal(got[2][keep], lb_keep[keep]),
+             "fused_nested_round: invalid or settled rows not as given")
+        ties = _labels_ok(got[0][rows], want[0][rows], pd[rows], TOL["f32"],
+                          relative=True)
+        e, rel = _max_err((got[1][rows] ** 2, got[2][rows] ** 2),
+                          (want[1][rows], want[2][rows]))
+        gap, _ = check_full_oracle(got[0][rows], got[1][rows], got[2][rows],
+                                   x[rows], c, "fused_nested_round",
+                                   squared=False)
+        sums = fused_round.delta_sums(x, a_prev, got[0], got[1], k)
+        new, old = got[0].clamp(0, k - 1), a_prev.clamp(0, k - 1)
+        mass = (ref.cluster_sum_ref(x.abs(), new, k)[0]
+                + ref.cluster_sum_ref(x.abs(), old, k)[0],
+                ref.cluster_sum_ref(x[:, :0], new, k)[1]
+                + ref.cluster_sum_ref(x[:, :0], old, k)[1], sums[2])
+        e_sums = max(_mass_close(g, w, m, what, rtol=1e-4) for g, w, m, what
+                     in zip(got[3:], sums, mass, ("dS", "dv", "sse")))
+        need(same_bits(fused_round.fused_nested_round_cuda(*args), got),
+             "fused_nested_round is not deterministic")
+        need(same_bits(got[3:], ref.ordered_sums(
+            x, k, a_prev=a_prev, a_new=got[0], d_new=got[1])),
+            "fused_nested_round's sums differ from the order oracle")
+        moved = int((((a_prev < 0) & (got[0] >= 0))
+                     | ((a_prev >= 0) & (got[0] != a_prev))).sum())
+        b3, how3 = bound(n * d * 4 + k * d * 4 + n * (14 + 12)
+                         + (k * d + 2 * k) * 4, 2.0 * moved * d,
+                         tf32_flops=tc_ops)
+        ms3 = time_ms(lambda: fused_round.fused_nested_round_cuda(*args))
+        plain3 = time_ms(lambda: fused_round.fused_nested_round_ref(*args))
+        log(f"    fused_nested_round n={n} d={d} k={k} "
+            f"({int(rows.sum())} rows recomputed): max abs err {e:.3g} "
+            f"(squared distances from the once-rounded float64 top-2: "
+            f"{rel:.3g} of the distance; the sums {e_sums:.3g}, held to "
+            f"1e-4 of their mass), "
+            f"{gap:.3g} of the scale from the float64 oracle (held to "
+            f"{FULL_RTOL:g}), tied labels {ties}, second run and the order "
+            f"oracle "
+            f"bit-identical; {ms3:.3f} ms, plain {plain3:.3f} ms, bound "
+            f"{b3:.3f} ms ({how3}), {b3 / ms3 * 100:.1f} % of it ({smi})")
+        del pd, want, got, sums, mass
+
+
+def xl_one_rank(X, Xv, untraced, launches: dict, smi: str):
+    """(a) and (b) over a one-rank NCCL ``(data=1, model=1)`` group.
+    Returns (b)'s rows and validation rows on the host and its fit."""
+    import torch.distributed as dist
+
+    from repro_torch.api import NestedKMeans
+    from repro_torch.launch.mesh import make_host_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        need(dist.get_backend() == "nccl", "the one-rank group is not NCCL")
+
+        def fit_predict():
+            km = NestedKMeans(_xl_config(K), mesh=mesh, device=DEV)
+            km.fit(X, X_val=Xv)
+            return km, km.predict(X)
+
+        t0 = time.perf_counter()
+        (km, labels), counts = _counted(launches, fit_predict)
+        wall = time.perf_counter() - t0
+        same = _same_fit(km, untraced)
+        log(f"    (a) one-rank NCCL (1, 1) XL fit of phase 4's rows + "
+            f"predict: wall {wall:.2f} s (rounds {km.telemetry_[-1].t:.3f}"
+            f" s), {km.n_rounds_} records, launches {counts}; C, labels and"
+            f" telemetry (but t) bit-equal to phase 4's local fit: {same}; "
+            f"predict equals the fit's labels on "
+            f"{float((labels == km.labels_).mean()):.6f} of rows")
+        need(same, "the one-rank XL fit differs from phase 4's local fit")
+        for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+            need(counts[name] > 0, f"{name} was never launched in the "
+                 f"one-rank XL fit")
+
+        Xg = xl_data(seed=1, n=XL_FIT_N + XL_FIT_NVAL)[0]
+        Xb, Xvb = Xg[:XL_FIT_N].cpu().numpy(), Xg[XL_FIT_N:].cpu().numpy()
+        xk = Xg[:XL_KERNEL_ROWS].clone()
+        del Xg
+        torch.cuda.empty_cache()
+        log(f"    (b) kmeans_xl width: d={D_XL}, k={K_XL}, tb, hamerly2, "
+            f"rho=inf, the cuda plan, on {XL_FIT_N} blob rows made on the "
+            f"card with phase 6's recipe (+{XL_FIT_NVAL} validation rows). "
+            f"Cuts: n is one chip's share cut further ({N_XL} in phase 6) so"
+            f" that each of (c)'s two processes holds a whole replica of X "
+            f"beside the plain Hamerly step's (b, d) temporaries; b0="
+            f"{XL_FIT_B0} and at most {XL_FIT_ROUNDS} rounds keep the phase "
+            f"short")
+        fits = {}
+        for backend in ("xl", "local"):
+            cfg = _xl_config(K_XL, backend=backend, b0=XL_FIT_B0,
+                             max_rounds=XL_FIT_ROUNDS)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            km, counts = _counted(launches, lambda: NestedKMeans(
+                cfg, mesh=mesh if backend == "xl" else None,
+                device=DEV).fit(Xb, X_val=Xvb))
+            wall = time.perf_counter() - t0
+            tel = [r for r in km.telemetry_ if r.batch_mse is not None]
+            log(f"        {backend} fit: {len(tel)} rounds, final b "
+                f"{km.telemetry_[-1].b}, sum n_recomputed "
+                f"{sum(r.n_recomputed for r in tel)}, converged "
+                f"{km.converged_}, final val MSE {km.final_mse_!r}, wall "
+                f"{wall:.2f} s (rounds {km.telemetry_[-1].t:.3f} s), peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                f"launches {counts}")
+            fits[backend] = km
+        same = _same_fit(fits["xl"], fits["local"])
+        log(f"        the one-rank NCCL XL fit bit-equal to the local fit "
+            f"(C, labels, telemetry but t): {same}")
+        need(same, "the one-rank XL fit at kmeans_xl width differs from "
+             "the local fit")
+        C = torch.from_numpy(fits["xl"].cluster_centers_).to(DEV)
+        need(C.shape == (K_XL, D_XL) and bool(torch.isfinite(C).all()),
+             "(b)'s centroids are not finite (k, d)")
+        check_xl_kernels(xk, C, smi)
+        return Xb, Xvb, fit_record(fits["xl"])
+    finally:
+        dist.destroy_process_group()
+
+
+def xl_engine_phase(X, Xv, untraced, smi: str) -> dict:
+    """Phase 12: the XL engine. Returns the launch counts of the phase's
+    fits, summed over its processes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import CheckpointConfig, FitConfig, NestedKMeans
+    from repro_torch.data.pipeline import nested_shard_layout
+    from repro_torch.data.store import write_store
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[12] the XL engine (centroids sharded over the model dim); "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held on the "
+        f"card after phase 6's X and the caches were freed")
+    launches = dict.fromkeys(REPLACES, 0)
+    Xb, Xvb, rec_b = xl_one_rank(X, Xv, untraced, launches, smi)
+    root = tempfile.mkdtemp(prefix="chip_smoke_xl_")
+    try:
+        for name, arr in (("Xb", Xb), ("Xvb", Xvb), ("X", X), ("Xv", Xv)):
+            np.save(os.path.join(root, f"{name}.npy"), arr)
+        # (d)'s store holds phase 4's rows in the (1, m) layout's order
+        perm = nested_shard_layout(N, 1, seed=MAIN_CONFIG["seed"]).perm
+        write_store(os.path.join(root, "store"), X[perm],
+                    chunk_rows=-(-N // MESH_STORE_CHUNKS))
+        t1 = time.perf_counter()
+        _spawn_ranks(root, xl_rank, XL_RANKS, XL_JOIN_S)
+        log(f"    (c)-(d): {XL_RANKS} spawned ranks, a gloo (data=1, model="
+            f"{XL_RANKS}) group on one card: {time.perf_counter() - t1:.1f} "
+            f"s in all, the processes' start included")
+        fits = {tag: _rank_fits(root, tag, "ref" if tag == "c_ref"
+                                else "cuda", XL_RANKS)
+                for tag in ("c", "c2", "c_ref", "d", "d_elkan",
+                            "d_exponion", "d_store", "d_resumed")}
+        for ranks in fits.values():
+            for r in ranks:
+                for name, n in zip(REPLACES, r["counts"]):
+                    launches[name] += int(n)
+
+        c = fits["c"]
+        rec_c = _rank_record(c[0])
+        tel = [r for r in rec_c.telemetry_ if r.batch_mse is not None]
+        one = [r for r in rec_b.telemetry_ if r.batch_mse is not None]
+        log(f"    (c) {XL_RANKS} model ranks at kmeans_xl width (k_local="
+            f"{K_XL // XL_RANKS}): {len(tel)} rounds (one rank: {len(one)}),"
+            f" final b {rec_c.telemetry_[-1].b} (one rank: "
+            f"{rec_b.telemetry_[-1].b}), sum n_recomputed "
+            f"{sum(r.n_recomputed for r in tel)} (one rank: "
+            f"{sum(r.n_recomputed for r in one)}), final val MSE "
+            f"{float(c[0]['val'])!r} (one rank: "
+            f"{rec_b.telemetry_[-1].val_mse!r}); wall by rank "
+            f"{_by_rank(c, 'wall')} s, rounds {_by_rank(c, 'rounds_s')} s, "
+            f"peak by rank {_by_rank(c, 'peak', 2 ** -30, 2)} GiB; launches "
+            f"by rank "
+            f"{[dict(zip(REPLACES, map(int, r['counts']))) for r in c]}")
+        log(f"        the {XL_RANKS}-rank and one-rank schedules part at "
+            f"round {_parts_at(rec_c, rec_b)}")
+        for r in c:
+            for name in ("assign_top2", "cluster_sum"):
+                need(int(r["counts"][list(REPLACES).index(name)]) > 0,
+                     f"{name} was never launched on a rank of (c)")
+        a_c = torch.from_numpy(c[0]["labels"])
+        a_b = torch.from_numpy(rec_b.labels_)
+        both = (a_c >= 0) & (a_b >= 0)
+        one_only = int(((a_c >= 0) != (a_b >= 0)).sum())
+        # on the host: the rows that differ are few
+        ties, nearer, gap = _near_ties(
+            torch.from_numpy(Xb), torch.from_numpy(c[0]["C"]),
+            torch.where(both, a_c, 0), torch.where(both, a_b, 0))
+        log(f"        labels differ from (b)'s at {ties} of the "
+            f"{int(both.sum())} rows both label, each a near-tie under "
+            f"the {XL_RANKS}-rank C "
+            f"(largest float64 gap {gap:.3g} relative; the {XL_RANKS}-rank "
+            f"label the nearer at {nearer}); rows one labels and the other "
+            f"not: {one_only}")
+        need(one_only == 0, "(b) and (c) label different rows")
+        rel_b = abs(float(c[0]["val"]) - rec_b.telemetry_[-1].val_mse) \
+            / rec_b.telemetry_[-1].val_mse
+        ref = fits["c_ref"][0]
+        rel_ref = abs(float(ref["val"]) - float(c[0]["val"])) \
+            / float(ref["val"])
+        log(f"        val MSE relative gap to (b) {rel_b:.3g} (held to "
+            f"1e-4); on the ref plan {float(ref['val'])!r}, relative gap "
+            f"{rel_ref:.3g} (held to 1e-3), wall {float(ref['wall']):.2f} s")
+        need(rel_b <= 1e-4, "(c)'s val MSE differs from (b)'s beyond 1e-4")
+        need(rel_ref <= 1e-3, "(c)'s cuda and ref fits differ in val MSE "
+             "beyond 1e-3")
+        c2 = fits["c2"]
+        same = _same_fit(_rank_record(c2[0]), rec_c)
+        log(f"        second {XL_RANKS}-rank fit, each collective timed (the "
+            f"stream drained before and after it): bit-identical to the "
+            f"first: {same}; wall by rank {_by_rank(c2, 'wall')} s; "
+            + "; ".join(
+                f"{name} {_by_rank(c2, f'coll_{name}_s', 1e3, 1)} ms in "
+                f"{int(c2[0][f'coll_{name}_n'])} calls a rank"
+                for name in COLLECTIVES))
+        need(same, f"a second {XL_RANKS}-rank XL fit is not bit-identical")
+
+        d = fits["d"]
+        rec_d = _rank_record(d[0])
+        tel = [r for r in rec_d.telemetry_ if r.batch_mse is not None]
+        log(f"    (d) {XL_RANKS} model ranks on phase 4's rows (k={K}, "
+            f"k_local={K // XL_RANKS}): {len(tel)} rounds, sum n_recomputed "
+            f"{sum(r.n_recomputed for r in tel)}, final val MSE "
+            f"{float(d[0]['val'])!r} (phase 4: "
+            f"{untraced.telemetry_[-1].val_mse!r}), parts from phase 4's "
+            f"schedule at round {_parts_at(rec_d, untraced)}; wall by rank "
+            f"{_by_rank(d, 'wall')} s, peak by rank "
+            f"{_by_rank(d, 'peak', 2 ** -30, 2)} GiB")
+        for bounds in ("elkan", "exponion"):
+            sh = fits[f"d_{bounds}"]
+            steps, rows, worst = (int(v) for v in sh[0]["shadow"])
+            log(f"        tb-{bounds}, shadowed (each round's step also with"
+                f" bounds='none' from the same state), at most "
+                f"{XL_SHADOW_ROUNDS} rounds: {steps} steps, "
+                f"{int(sh[0]['pairs'])} pairs computed, final val MSE "
+                f"{float(sh[0]['val'])!r}, wall by rank "
+                f"{_by_rank(sh, 'wall')} s; labels differ from the 'none' "
+                f"step at {rows} rows in all (at most {worst} in a step), "
+                f"each a near-tie (largest float64 gap "
+                f"{float(sh[0]['top']):.3g} relative)")
+            need(sh[0]["labels"].min() >= 0,
+                 f"the tb-{bounds} XL fit left rows unlabelled")
+        st = fits["d_store"]
+        same = _same_fit(_rank_record(st[0], labels_perm=perm), rec_d)
+        read = [int(r["bytes_read"]) for r in st]
+        log(f"        from a {MESH_STORE_CHUNKS}-chunk store of the rows in "
+            f"the layout's order (shuffle=False): bytes read by rank {read} "
+            f"= {[round(x / X.nbytes, 3) for x in read]} of one pass; C, "
+            f"labels and telemetry (but t) bit-equal to the in-memory fit: "
+            f"{same}")
+        need(same, "the XL store fit differs from the in-memory XL fit")
+        res = fits["d_resumed"]
+        same = _same_fit(_rank_record(res[0]), rec_d)
+        saved = KILL_ROUND // MESH_SAVE_EVERY * MESH_SAVE_EVERY
+        log(f"        checkpointed every {MESH_SAVE_EVERY} rounds, killed at "
+            f"round {KILL_ROUND}, resumed from round {saved} on the "
+            f"{XL_RANKS} ranks: launches by rank "
+            f"{[dict(zip(REPLACES, map(int, r['counts']))) for r in res]};"
+            f" bit-equal to the unbroken fit: {same}")
+        need(same, "the resumed XL fit differs from the unbroken fit")
+        ck = CheckpointConfig(checkpoint_dir=os.path.join(root, "ck_killed"),
+                              save_every=MESH_SAVE_EVERY)
+        km, counts = _counted(launches, lambda: NestedKMeans(
+            FitConfig(k=K, checkpoint=ck, **MAIN_CONFIG), device=DEV).fit(
+            X, X_val=Xv, resume=True))
+        rel = abs(km.final_mse_ - float(d[0]["val"])) / float(d[0]["val"])
+        log(f"        the same XL checkpoint resumed on the local engine: "
+            f"{km.n_rounds_} records, converged {km.converged_}, final val "
+            f"MSE {km.final_mse_!r} (relative gap to the XL fit's {rel:.3g}),"
+            f" launches {counts}")
+        need(km.labels_.min() >= 0, "the local resume left rows unlabelled")
+
+        t1 = time.perf_counter()
+        _spawn_ranks(root, xl_rank, XL_RING_RANKS, XL_JOIN_S)
+        ring = _rank_fits(root, "ring", world=XL_RING_RANKS)
+        for r in ring:
+            for name, n in zip(REPLACES, r["counts"]):
+                launches[name] += int(n)
+        steps, rows, worst = (int(v) for v in ring[0]["shadow"])
+        log(f"        the degenerate exponion ring: k={XL_RING_K} over "
+            f"{XL_RING_RANKS} model ranks (k_local="
+            f"{XL_RING_K // XL_RING_RANKS}), shadowed: "
+            f"{time.perf_counter() - t1:.1f} s with the processes' start, "
+            f"{steps} steps, {int(ring[0]['pairs'])} pairs computed, final "
+            f"val MSE {float(ring[0]['val'])!r}; labels differ from the "
+            f"'none' step at {rows} rows (at most {worst} in a step), each "
+            f"a near-tie")
+        need(ring[0]["labels"].min() >= 0,
+             "the degenerate ring left rows unlabelled")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"    launches in phase 12 (every process): {launches}; peak in "
+        f"this process {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; phase 12 took {time.perf_counter() - t0:.1f} s")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 12")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2682,6 +3308,7 @@ def main() -> int:
     serve_phase(X, main.pop("outcome"))
     obs_phase(X, Xv, untraced)
     mesh_phase(X, Xv, untraced)
+    xl_engine_phase(X, Xv, untraced, dev["smi"])
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])

@@ -7,10 +7,13 @@
 
 `NestedKMeans` runs on ``device="cuda"`` unless told otherwise, and so
 does `fit`, a functional form over it that returns the `FitOutcome`.
-A mesh fit passes its `DeviceMesh`:
+A mesh fit passes its `DeviceMesh`, and an xl fit a ``(data, model)``
+one, whose model dim shards the centroids:
 
     km = NestedKMeans(dataclasses.replace(cfg, backend="mesh"),
                       mesh=my_mesh).fit(X)
+    km = NestedKMeans(dataclasses.replace(cfg, backend="xl"),
+                      mesh=make_host_mesh((2, 2), ("data", "model"))).fit(X)
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 from repro_torch.api.config import (ALGORITHMS, BACKENDS, BOUNDS,
                                     CheckpointConfig, FitConfig)
 from repro_torch.api.engines import (Engine, EngineRun, LocalEngine,
-                                     MeshEngine, MultiHostEngine,
+                                     MeshEngine, MultiHostEngine, XLEngine,
                                      make_engine)
 from repro_torch.api.estimator import NestedKMeans, NotFittedError
 from repro_torch.api.loop import (FitOutcome, HostRoundInfo, cap_bucket,
@@ -34,7 +37,7 @@ def fit(X, config: FitConfig, *, X_val=None, mesh=None,
         on_round: Optional[RoundCallback] = None,
         device="cuda") -> FitOutcome:
     """One-call fit: build the engine for ``config`` (on ``mesh`` for
-    ``backend="mesh"``) and run it.
+    ``backend="mesh"`` and ``"xl"``) and run it.
 
     ``X``: an array, a chunk-store path or an open `ChunkStore`, passed
     through to `NestedKMeans.fit`."""
@@ -47,7 +50,7 @@ __all__ = [
     "FitConfig", "CheckpointConfig", "NestedKMeans", "NotFittedError",
     "fit",
     "Engine", "EngineRun", "LocalEngine", "MeshEngine", "MultiHostEngine",
-    "make_engine",
+    "XLEngine", "make_engine",
     "run_loop", "FitOutcome", "HostRoundInfo", "fetch_round_info",
     "Telemetry", "RoundCallback", "final_val_mse", "cap_bucket",
     "next_pow2", "ALGORITHMS", "BOUNDS", "BACKENDS",

@@ -4,12 +4,13 @@
   local      single process, one device
   mesh       one rank per process over a `DeviceMesh`; points
              row-sharded, stats replicated
+  xl         the mesh engine with the stats also sharded over the
+             model dim of a (data, model) `DeviceMesh`
   multihost  the mesh engine over a process group it joins from the
              config's coordinator fields
 
 All are driven by the ONE host loop in `repro_torch.api.loop`;
-`make_engine` maps `FitConfig.backend` to the right one. The xl engine
-(centroids sharded over the model dim) is ROADMAP Queue 1 item 9 step 2.
+`make_engine` maps `FitConfig.backend` to the right one.
 """
 from __future__ import annotations
 
@@ -18,24 +19,22 @@ from repro_torch.api.engines.base import Engine, EngineRun
 from repro_torch.api.engines.local import LocalEngine
 from repro_torch.api.engines.mesh import MeshEngine
 from repro_torch.api.engines.multihost import MultiHostEngine
+from repro_torch.api.engines.xl import XLEngine
 
 __all__ = ["Engine", "EngineRun", "LocalEngine", "MeshEngine",
-           "MultiHostEngine", "make_engine"]
+           "MultiHostEngine", "XLEngine", "make_engine"]
 
 
 def make_engine(config: FitConfig, *, mesh=None) -> Engine:
-    """Engine for ``config.backend`` ("mesh" needs a mesh; "multihost"
-    builds one over every rank of its process group when omitted)."""
-    if config.backend == "xl":
-        raise NotImplementedError(
-            "backend='xl' is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 9 step 2)")
-    if config.backend == "mesh":
+    """Engine for ``config.backend`` ("mesh" and "xl" need a mesh, xl's
+    with the config's model dim; "multihost" builds one over every rank
+    of its process group when omitted)."""
+    if config.backend in ("mesh", "xl"):
         if mesh is None:
             raise ValueError(
-                "backend='mesh' needs a torch.distributed DeviceMesh "
-                "(repro_torch.launch.mesh.make_host_mesh)")
-        return MeshEngine(mesh)
+                f"backend={config.backend!r} needs a torch.distributed "
+                f"DeviceMesh (repro_torch.launch.mesh.make_host_mesh)")
+        return XLEngine(mesh) if config.backend == "xl" else MeshEngine(mesh)
     if config.backend == "multihost":
         return MultiHostEngine(mesh)
     return LocalEngine()

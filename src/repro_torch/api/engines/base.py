@@ -12,7 +12,8 @@ is the coordinator, a barrier is a no-op and a flag is its own replica.
 The mesh engines, one rank per process, override them with collectives
 (`api/engines/mesh.py`). The validation MSE is taken here for every
 engine: the centroids are the same bits on every rank, so it needs no
-collective. The obs and audit seams, `ObsSink` and `LoopAudit`
+collective (an engine that shards the stats makes them whole in
+`fetch_stats`). The obs and audit seams, `ObsSink` and `LoopAudit`
 (defined here and re-exported by `api.loop`, whose `run_loop` binds
 them through `bind_obs` and `bind_audit`), let an engine's body report
 spans to the fit's sink and bracket its mid-fit uploads for the fit's
@@ -158,14 +159,16 @@ class EngineRun:
         """Validation MSE of the current centroids (None: no val set)."""
         if self._Xv is None:
             return None
-        return float(full_mse(self._Xv, state.stats.C))
+        return float(full_mse(self._Xv, self.fetch_stats(state).C))
 
     def host_points(self, state: KMeansState) -> np.ndarray:
         """The (n_storage,) assignment vector on the host."""
         return state.points.a.cpu().numpy()
 
     def fetch_stats(self, state: KMeansState) -> ClusterStats:
-        """Cluster stats usable by the estimator after the fit."""
+        """The whole cluster stats (every centroid), usable by the
+        estimator after the fit; an engine that shards them gathers
+        them."""
         return state.stats
 
     # -- observability and audit (see api.loop; default: no-ops) -----------

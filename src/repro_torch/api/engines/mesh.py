@@ -16,6 +16,13 @@ that drives several devices; the port's mesh has one process per rank
   * host views: a row-sharded leaf is whole only after an all-gather
     over the data dims (`_fetch`, `collectives.gather_rows`); `_canon`
     then un-interleaves it into canonical (shuffle-position) order.
+  * the stats seams: a rank holds the k-slice `_k_rows` of the stats
+    (here all of k) and `_whole_k` makes a k-sharded leaf whole (here
+    the identity). The XL engine (`api/engines/xl.py`) shards the stats
+    over a model dim through these two alone: every view of the stats
+    that leaves the run (`fetch_stats`, so `eval_mse`, the outcome's
+    centroids and the estimator's codebook; `capture`) is whole, and
+    `place_stats` and `restore` take this rank's slice of whole stats.
   * process hooks: rank 0 is the coordinator and the only writer of
     checkpoints; `barrier`, `sync_flag` and `resolve_resume` are
     collectives, and the coordinator reads a checkpoint and broadcasts
@@ -127,10 +134,16 @@ class _MeshRun(EngineRun):
                                         k=config.k, d=dim,
                                         device=self.device,
                                         bounds=config.bounds)
-        state = init_state(self._Xd, config.k, bounds=config.bounds)
+        state = init_state(self._Xd, config.k)
         C = torch.from_numpy(np.ascontiguousarray(C0)).to(self.device)
-        self.state = dataclasses.replace(
-            state, stats=dataclasses.replace(state.stats, C=C))
+        state = self.place_stats(
+            state, dataclasses.replace(state.stats, C=C))
+        cols = self._k_rows()
+        self.state = dataclasses.replace(state, elkan=(
+            ElkanBounds(l=torch.zeros((rps, cols.stop - cols.start),
+                                      dtype=torch.float32,
+                                      device=self.device))
+            if config.bounds == "elkan" else None))
 
     # -- out-of-core placement ----------------------------------------------
 
@@ -191,22 +204,41 @@ class _MeshRun(EngineRun):
     def host_points(self, state):
         return self._fetch(state.points.a).cpu().numpy()
 
+    def _k_rows(self) -> slice:
+        """The rows of the whole (k, ...) stats this rank holds: all of
+        them, replicated."""
+        return slice(0, self._config.k)
+
+    def _whole_k(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """A leaf whose dim ``dim`` holds this rank's `_k_rows`, made
+        whole along it (replicated: it is whole already)."""
+        return t
+
+    def fetch_stats(self, state) -> ClusterStats:
+        """The whole stats, the same on every rank."""
+        return ClusterStats(*(self._whole_k(getattr(state.stats, f.name))
+                              for f in dataclasses.fields(ClusterStats)))
+
     def place_stats(self, state, stats: ClusterStats) -> KMeansState:
-        """``state`` with the running ``stats`` (replicated) on this
-        rank's device: the sharded `partial_fit`'s carry-in."""
+        """``state`` with this rank's `_k_rows` of the whole running
+        ``stats`` on its device: the initial stats, a restore's, and the
+        sharded `partial_fit`'s carry-in."""
+        rows = self._k_rows()
         placed = ClusterStats(*(torch.as_tensor(getattr(stats, f.name))
-                                .to(self.device)
+                                [rows].to(self.device)
                                 for f in dataclasses.fields(stats)))
         return dataclasses.replace(state, stats=placed)
 
     # -- checkpointing (canonical = global-shuffle row order) ---------------
 
     def capture(self, state):
-        tree = {"stats": state.stats, "a": self._canon(state.points.a),
+        tree = {"stats": self.fetch_stats(state),
+                "a": self._canon(state.points.a),
                 "d": self._canon(state.points.d),
                 "lb": self._canon(state.points.lb), "round": state.round}
         if state.elkan is not None:
-            tree["elkan_l"] = self._canon(state.elkan.l)
+            tree["elkan_l"] = self._canon(self._whole_k(state.elkan.l,
+                                                        dim=1))
         meta = {"engine": self._engine_name, "n_shards": self.n_shards,
                 "n_points": self.n_points, "has_mb": False,
                 "has_elkan": state.elkan is not None}
@@ -269,7 +301,8 @@ class _MeshRun(EngineRun):
         stats = self.place_stats(self.state, host["stats"]).stats
         points = PointState(a=place(host["a"], -1), d=place(host["d"], 0.0),
                             lb=place(host["lb"], 0.0))
-        elkan = (ElkanBounds(l=place(host["elkan_l"], 0.0))
+        elkan = (ElkanBounds(l=place(host["elkan_l"], 0.0)
+                             [:, self._k_rows()].contiguous())
                  if want_elkan else None)
         return KMeansState(stats=stats, points=points, elkan=elkan,
                            round=host["round"].to(self.device))

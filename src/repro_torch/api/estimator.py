@@ -10,7 +10,8 @@ Port of `repro/api/estimator.py`. `fit` runs every algorithm of
 array or (tb and gb) from an on-disk chunk store, and resumes from the
 checkpoints of either package. The estimator runs on ``device``, "cuda"
 unless the caller asks for another: with no card it raises, it never
-falls back to the CPU. ``backend="mesh"`` (with a ``mesh``) and
+falls back to the CPU. ``backend="mesh"`` and ``backend="xl"`` (with a
+``mesh``; xl's shards the centroids over its model dim) and
 ``backend="multihost"`` fit over the ranks of a process group: every
 rank builds the same estimator and calls it with the same arguments.
 `partial_fit` folds one batch into the running statistics with one
@@ -31,8 +32,7 @@ import torch.distributed as dist
 
 from repro_torch.api.config import FitConfig
 from repro_torch.api.engines import Engine, make_engine
-from repro_torch.api.loop import (FitOutcome, check_ported,
-                                  fetch_round_info, run_loop)
+from repro_torch.api.loop import FitOutcome, fetch_round_info, run_loop
 from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core import rounds
@@ -122,7 +122,6 @@ class NestedKMeans:
                 X = ChunkStore(X)
             n = X.n if isinstance(X, ChunkStore) else len(X)
             cfg = self.config.resolve(n)
-            check_ported(cfg)
             if isinstance(X, ChunkStore) and cfg.algorithm not in (
                     "tb", "gb"):
                 raise ValueError(
@@ -178,7 +177,7 @@ class NestedKMeans:
                 if obs is not None:
                     obs.close()
             self._outcome = out
-            self._stats = run.fetch_stats(out.state)
+            self._stats = out.state.stats
             self._outcome_stale = False
             self.telemetry_ = list(out.telemetry)
             return self
@@ -193,13 +192,12 @@ class NestedKMeans:
         On the mesh backends the batch is placed as a fit would place it
         (shuffle, interleave and structural pads, which the round masks
         out) and one full-prefix sharded round runs with the running
-        statistics carried in (`EngineRun.place_stats`); every rank
-        passes the same batch.
+        statistics carried in (`EngineRun.place_stats`, which takes the
+        rank's k-slice on xl); every rank passes the same batch.
         """
         with self._lock:
             X = np.asarray(X)
             cfg = self.config.resolve(int(X.shape[0]))
-            check_ported(cfg)
             if self._stats is None and X.shape[0] < cfg.k:
                 raise ValueError(f"first partial_fit batch must have >= "
                                  f"k={cfg.k} rows")
@@ -230,6 +228,9 @@ class NestedKMeans:
                 if self._stats is not None:
                     state = run.place_stats(state, self._stats)
                 new_state, info = run.nested_step(state, run.b_max, None)
+                # whole: the XL engine's round leaves a k-slice a rank
+                new_state = dataclasses.replace(
+                    new_state, stats=run.fetch_stats(new_state))
             hinfo = fetch_round_info(info)
             self._stats = new_state.stats
             if self._outcome is not None:

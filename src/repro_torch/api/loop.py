@@ -6,11 +6,10 @@ decision branches only on `HostRoundInfo`, the round's scalars landed on
 the host by `fetch_round_info` in ONE transfer per round (one per
 overflow attempt), or on the resolved config. Every algorithm and bound
 family runs, with in-loop checkpoints and resume in the JAX package's
-on-disk format, on the local, mesh and multihost backends; "xl" is
-refused (ROADMAP Queue 1 item 9 step 2). On the mesh backends every
-rank runs this loop over the same schedule: the scalars are reduced
-inside the round, and the wall-clock flag and the resume decision come
-from the coordinator.
+on-disk format, on the local, mesh, xl and multihost backends. On the
+sharded backends every rank runs this loop over the same schedule: the
+scalars are reduced inside the round, and the wall-clock flag and the
+resume decision come from the coordinator.
 
 Two seams make the loop observable and checkable, as in the JAX
 package (both defined in `api.engines.base`, whose `EngineRun` reports
@@ -42,15 +41,6 @@ from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core.state import KMeansState, RoundInfo
 from repro_torch.kernels.plan import next_pow2
-
-
-def check_ported(config: FitConfig) -> None:
-    """Raise `NotImplementedError` for a resolved config this slice of
-    the port cannot run yet."""
-    if config.backend == "xl":
-        raise NotImplementedError(
-            "backend='xl' is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 9 step 2)")
 
 
 # --------------------------------------------------------------------------
@@ -166,7 +156,6 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     retries, usually a `repro_torch.obs.FitObserver`. ``None`` uses the
     no-op sink. The loop does not close the sink; its creator does.
     """
-    check_ported(config)
     audit = audit if audit is not None else _NULL_AUDIT
     obs = obs if obs is not None else _NULL_OBS
     algorithm = config.algorithm
@@ -377,7 +366,10 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     valid = run.orig_index >= 0
     labels[run.orig_index[valid]] = a[valid]
 
+    # the outcome's state holds the whole stats (the XL engine's rounds
+    # hold a k-slice a rank) and this rank's points
     stats = run.fetch_stats(state)
+    state = dataclasses.replace(state, stats=stats)
     plan = run.kernel_plan
     return FitOutcome(C=stats.C.cpu().numpy(), state=state, labels=labels,
                       telemetry=telemetry, converged=converged,

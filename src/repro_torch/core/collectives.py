@@ -1,5 +1,6 @@
 """Collectives over the named dims of a `DeviceMesh`: the port's
-`jax.lax.psum`, `jax.lax.all_gather` and `jax.lax.axis_index`, and the
+`jax.lax.psum`, `psum_scatter`, `pmax`, `pmin`, `all_gather`, `ppermute`
+(one step of the ring, `ppermute_ring`) and `axis_index`, and the
 all-gather that replicates a row-sharded array (`gather_rows`).
 
 Inside JAX's ``shard_map`` a round names mesh axes; here a round takes
@@ -7,12 +8,17 @@ the `DeviceMesh` and the names, and each collective runs over the
 process group of each named dim (`DeviceMesh.get_group`). Every rank
 runs the same collectives in the same order. ``mesh=None`` is the
 single-device form: each collective is the identity, as over a
-one-device mesh.
+one-device mesh. Over a dim of one rank each is the identity too, as in
+JAX, and calls no backend (a one-rank NCCL or gloo call returns the
+same bits at a host cost).
 
-A gloo group carries CUDA tensors itself (its all-reduce and all-gather
-stage them through the host), so the same calls serve ranks on the CPU,
-ranks that share one card under gloo, and ranks on their own cards under
-NCCL.
+A gloo group carries CUDA tensors itself in every collective used here
+(all-reduce with SUM, MAX and MIN, all-gather, reduce-scatter and
+all-to-all; torch 2.11 on an H100), staging them through the host, so
+the same calls serve ranks on the CPU, ranks that share one card under
+gloo, and ranks on their own cards under NCCL. Its send and receive do
+not ("Bad address" from its TCP pair), and none is used. A collective
+that fails raises.
 """
 from __future__ import annotations
 
@@ -53,7 +59,8 @@ def psum(tensors: Sequence[torch.Tensor], mesh: Optional[object],
     and shape.
     """
     tensors = tuple(tensors)
-    if mesh is None or not axes:
+    axes = [ax for ax in axes if axis_size(mesh, ax) > 1]
+    if not axes:
         return tensors
     out = list(tensors)
     floats = [i for i, t in enumerate(tensors) if t.is_floating_point()]
@@ -76,7 +83,7 @@ def all_gather(t: torch.Tensor, mesh: Optional[object],
                axis: str) -> torch.Tensor:
     """(m, *t.shape): ``t`` of every rank along the named dim, in
     coordinate order."""
-    if mesh is None:
+    if axis_size(mesh, axis) == 1:
         return t[None]
     group = mesh.get_group(axis)
     parts = [torch.empty_like(t) for _ in range(axis_size(mesh, axis))]
@@ -96,3 +103,68 @@ def gather_rows(t: torch.Tensor, mesh: Optional[object],
         t = all_gather(t, mesh, ax)
         t = t.reshape((-1,) + t.shape[2:])
     return t
+
+
+def psum_scatter(t: torch.Tensor, mesh: Optional[object],
+                 axis: str) -> torch.Tensor:
+    """``t`` summed over the ranks of the named dim and scattered along
+    dim 0: rank i gets rows [i * n / m, (i + 1) * n / m) of the sum
+    (JAX's ``psum_scatter(t, axis, scatter_dimension=0, tiled=True)``).
+    The rows must divide evenly over the dim."""
+    m = axis_size(mesh, axis)
+    if m == 1:
+        return t
+    if t.shape[0] % m:
+        raise ValueError(f"{t.shape[0]} rows do not scatter over {m} ranks")
+    out = t.new_empty((t.shape[0] // m,) + tuple(t.shape[1:]))
+    dist.reduce_scatter_tensor(out, t.contiguous(),
+                               group=mesh.get_group(axis))
+    return out
+
+
+def _preduce(t: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
+    if axis_size(mesh, axis) == 1:
+        return t
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=mesh.get_group(axis))
+    return out
+
+
+def pmax(t: torch.Tensor, mesh: Optional[object], axis: str) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the ranks of the named dim
+    (exact, so every rank gets the same bits)."""
+    return _preduce(t, mesh, axis, dist.ReduceOp.MAX)
+
+
+def pmin(t: torch.Tensor, mesh: Optional[object], axis: str) -> torch.Tensor:
+    """The elementwise minimum of ``t`` over the ranks of the named
+    dim."""
+    return _preduce(t, mesh, axis, dist.ReduceOp.MIN)
+
+
+def ppermute_ring(t: torch.Tensor, mesh: Optional[object],
+                  axis: str) -> torch.Tensor:
+    """One step of the ring ``i -> i + 1 mod m`` along the named dim: the
+    ``t`` of the rank before this one (JAX's ``ppermute`` with
+    ``perm=[(i, (i + 1) % m) for i in range(m)]``). The identity at one
+    rank.
+
+    An all-to-all whose only nonempty split goes to the next rank: a
+    collective, ordered as the group's others are, and each rank holds
+    two blocks, never m. (Not ``batch_isend_irecv``: gloo's sends cannot
+    take CUDA tensors, and on the CPU a ring of them beside gloo's
+    reduce-scatters hung two ranks within 21 steps.)
+    """
+    m = axis_size(mesh, axis)
+    if m == 1:
+        return t
+    i = axis_index(mesh, axis)
+    send = t.contiguous()
+    recv = torch.empty_like(send)
+    n = send.shape[0]
+    dist.all_to_all_single(
+        recv, send, output_split_sizes=[n * (r == (i - 1) % m)
+                                        for r in range(m)],
+        input_split_sizes=[n * (r == (i + 1) % m) for r in range(m)],
+        group=mesh.get_group(axis))
+    return recv

@@ -152,6 +152,21 @@ def _fold_top2(d1a, d2a, ia, d1b, d2b, ib):
     return new1, new2, newi
 
 
+def _tree_fold(fold, *rows):
+    """Fold (m, b) stacks pairwise in a log-depth tree, an odd tail row
+    carried over, down to one (b,) row each: ``fold`` takes the rows of
+    two halves and returns the folded rows."""
+    while rows[0].shape[0] > 1:
+        half = rows[0].shape[0] // 2
+        out = fold(*(r[:half] for r in rows),
+                   *(r[half:2 * half] for r in rows))
+        if rows[0].shape[0] % 2:
+            out = tuple(torch.cat([o, r[2 * half:]])
+                        for o, r in zip(out, rows))
+        rows = out
+    return tuple(r[0] for r in rows)
+
+
 def assign_top2_sharded(x: torch.Tensor, C_local: torch.Tensor, *, mesh,
                         model_axis: str, k_offset: int,
                         plan: Optional[KernelPlan] = None):
@@ -165,20 +180,11 @@ def assign_top2_sharded(x: torch.Tensor, C_local: torch.Tensor, *, mesh,
     index, as an argmin over the unsharded centroids does.
     """
     a_loc, d1_loc, d2_loc = ops.assign_top2(x, C_local, plan=plan)
-    d1s = collectives.all_gather(d1_loc, mesh, model_axis)     # (m, b)
-    d2s = collectives.all_gather(d2_loc, mesh, model_axis)
-    ias = collectives.all_gather(a_loc + k_offset, mesh, model_axis)
-    while d1s.shape[0] > 1:
-        half = d1s.shape[0] // 2
-        d1, d2, ia = _fold_top2(
-            d1s[:half], d2s[:half], ias[:half],
-            d1s[half:2 * half], d2s[half:2 * half], ias[half:2 * half])
-        if d1s.shape[0] % 2:           # odd: carry the tail row over
-            d1 = torch.cat([d1, d1s[2 * half:]])
-            d2 = torch.cat([d2, d2s[2 * half:]])
-            ia = torch.cat([ia, ias[2 * half:]])
-        d1s, d2s, ias = d1, d2, ia
-    return ias[0].to(torch.int32), d1s[0], d2s[0]
+    d1, d2, a = _tree_fold(
+        _fold_top2, collectives.all_gather(d1_loc, mesh, model_axis),
+        collectives.all_gather(d2_loc, mesh, model_axis),
+        collectives.all_gather(a_loc + k_offset, mesh, model_axis))
+    return a.to(torch.int32), d1, d2
 
 
 def _centroid_step(S, v, sse, C):

@@ -186,9 +186,17 @@ def mbf_round(X, idx, state, *, plan=None):
 # nested rounds
 # --------------------------------------------------------------------------
 
-def _assign_exhaustive(x, state, valid, *, plan):
-    """bounds='none': full top-2 for every active point."""
-    a_new, d1sq, d2sq = ops.assign_top2(x, state.stats.C, plan=plan)
+def _assign_exhaustive(x, state, valid, *, plan, assign_top2_fn=None):
+    """bounds='none': full top-2 for every active point.
+
+    ``assign_top2_fn`` lets the centroid-sharded engine inject its
+    collective top-2 (`core.distributed_xl`); the schedule stays the
+    same.
+    """
+    if assign_top2_fn is None:
+        a_new, d1sq, d2sq = ops.assign_top2(x, state.stats.C, plan=plan)
+    else:
+        a_new, d1sq, d2sq = assign_top2_fn(x)
     n_rec = (_scalar(x.shape[0], x) if valid is None
              else valid.sum(dtype=torch.int32))
     return (a_new, _euclid(d1sq), _euclid(d2sq), n_rec,
@@ -196,21 +204,29 @@ def _assign_exhaustive(x, state, valid, *, plan):
 
 
 def _hamerly_settled(x, state, a_prev, valid, *, use_shalf: bool,
+                     p_max: Optional[torch.Tensor] = None,
+                     d_assigned: Optional[torch.Tensor] = None,
                      s_half: Optional[torch.Tensor] = None):
     """The Hamerly bound DECISIONS for one round's active slice.
 
     Whatever executes the assignment, the settled mask (and so the bound
-    and compaction schedule) comes from this one function. ``s_half``
-    overrides the half inter-centroid distances (exponion reads them off
-    its geometry).
+    and compaction schedule) comes from this one function. ``p_max``,
+    ``d_assigned`` and ``s_half`` override the largest centroid move,
+    the distances to the assigned centroids and the half inter-centroid
+    distances: exponion reads s/2 off its geometry, and the
+    centroid-sharded engine (`core.distributed_xl`) takes all three with
+    collectives over the model dim.
 
     Returns (settled, lb_dec, d_a, n_need).
     """
     C = state.stats.C
     b = x.shape[0]
     seen = a_prev >= 0
-    lb_dec = state.points.lb[:b] - torch.max(state.stats.p)
-    d_a = _dist_to_assigned(x, C, a_prev)
+    if p_max is None:
+        p_max = torch.max(state.stats.p)
+    lb_dec = state.points.lb[:b] - p_max
+    d_a = (_dist_to_assigned(x, C, a_prev) if d_assigned is None
+           else d_assigned)
     thresh = lb_dec
     if use_shalf:
         if s_half is None:
@@ -249,7 +265,8 @@ def _fused_dense_round(x, state, a_prev, valid, *, bounds: str,
 
 
 def _assign_hamerly2(x, state, a_prev, valid, *, capacity: Optional[int],
-                     use_shalf: bool, plan=None):
+                     use_shalf: bool, plan=None, p_max=None,
+                     d_assigned=None, s_half=None, assign_top2_fn=None):
     """Exact-refresh upper bound + decayed 2nd-nearest lower bound.
 
       1. lb' = lb - max_j p(j)                       (bound decay, eq. 4)
@@ -260,15 +277,25 @@ def _assign_hamerly2(x, state, a_prev, valid, *, capacity: Optional[int],
     If more than ``capacity`` points need recompute the round reports
     overflow=True and the loop retries the same input state with a
     larger bucket. ``capacity=None`` recomputes everything.
+
+    The ``p_max``, ``d_assigned``, ``s_half`` and ``assign_top2_fn``
+    overrides are for the centroid-sharded engine
+    (`core.distributed_xl`), which takes these four with collectives
+    over the model dim; the bound and compaction schedule lives only
+    here, so the engines cannot drift apart.
     """
     C = state.stats.C
     b = x.shape[0]
+    if assign_top2_fn is None:
+        def assign_top2_fn(xs):
+            return ops.assign_top2(xs, C, plan=plan)
     settled, lb_dec, d_a, n_need = _hamerly_settled(
-        x, state, a_prev, valid, use_shalf=use_shalf)
+        x, state, a_prev, valid, use_shalf=use_shalf, p_max=p_max,
+        d_assigned=d_assigned, s_half=s_half)
     needs = ~settled
 
     if capacity is None or capacity >= b:
-        a_full, d1sq, d2sq = ops.assign_top2(x, C, plan=plan)
+        a_full, d1sq, d2sq = assign_top2_fn(x)
         a_new = torch.where(settled, a_prev, a_full)
         d_new = torch.where(settled, d_a, _euclid(d1sq))
         lb_new = torch.where(settled, lb_dec, _euclid(d2sq))
@@ -279,7 +306,7 @@ def _assign_hamerly2(x, state, a_prev, valid, *, capacity: Optional[int],
     # their order)
     order = torch.argsort((~needs).to(torch.int32), stable=True)
     idx_cap = order[:capacity]
-    a_cap, d1sq, d2sq = ops.assign_top2(x[idx_cap], C, plan=plan)
+    a_cap, d1sq, d2sq = assign_top2_fn(x[idx_cap])
 
     # settled points carry the decayed bound + exact distance; the
     # recomputed buffer is scattered back (exact for every entry,

@@ -30,7 +30,10 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 def make_host_mesh(shape: Sequence[int] = (2, 2),
                    axes: Sequence[str] = ("data", "model")) -> DeviceMesh:
     """A mesh of ``shape`` over every rank of the process group, ranks in
-    row-major order, with dims named ``axes``."""
+    row-major order, with dims named ``axes``: a flat ``("data",)`` mesh
+    for the mesh engine, a ``("data", "model")`` one for the XL engine
+    (a one-rank NCCL group builds the (1, 1) mesh of a one-card XL fit).
+    A process group may hold several meshes of its ranks at once."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in "

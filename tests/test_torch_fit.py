@@ -100,13 +100,14 @@ def test_config_matches_jax_shape():
 
 
 def test_unported_backend_and_resume_are_refused(tmp_path, blobs):
-    """The xl backend is refused by name (mesh and multihost are ported,
-    tests/test_torch_mesh.py); resume and chunk stores are ported, and
-    refuse what the JAX package refuses: a resume with no checkpoint
-    config, a store fit of a non-nested algorithm."""
+    """No backend is refused any more: xl, like mesh, needs a
+    `DeviceMesh` (tests/test_torch_mesh.py, tests/test_torch_xl.py);
+    resume and chunk stores are ported, and refuse what the JAX package
+    refuses: a resume with no checkpoint config, a store fit of a
+    non-nested algorithm."""
     from repro_torch.data.store import write_store
     X, _ = blobs
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="backend='xl' needs"):
         NestedKMeans(FitConfig(k=4, backend="xl"), device="cpu")
     with pytest.raises(ValueError, match="requires config.checkpoint"):
         NestedKMeans(FitConfig(k=4), device="cpu").fit(X, resume=True)

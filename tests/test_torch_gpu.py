@@ -25,6 +25,8 @@ from torch_round_oracle import assert_full_top2, round_top2_exact
 SHAPES = [(64, 7, 5), (256, 32, 50), (300, 784, 50), (512, 128, 128),
           (1000, 200, 257), (130, 9, 1), (4099, 784, 50)]
 TOL = {"f32": 1e-5, "bf16": 2e-2}
+#: kmeans_xl's width: d = 1024 at k = 4096 and at a model rank's 2048
+XL_SHAPES = [(8192, 1024, 2048), (8192, 1024, 4096)]
 
 
 @pytest.fixture
@@ -80,7 +82,8 @@ def test_assign_top2_kernel_exact_ties(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,k", SHAPES + [(777, 33, 50), (60, 1024, 300),
-                                            (4099, 784, 64), (4099, 784, 65)])
+                                            (4099, 784, 64), (4099, 784, 65)]
+                         + XL_SHAPES)
 def test_assign_top2_kernel_meets_the_float64_oracle(cuda, n, d, k):
     """The f32 kernel (tensor cores, EPI_FULL; BN = 64 where k <= 64)
     against the ref expression with x.c, |x|^2 and |c|^2 rounded once
@@ -113,7 +116,8 @@ def test_assign_top2_kernel_ties_across_k_tiles(cuda, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d,k", SHAPES + [(64, 129, 7), (1000, 200, 400)])
+@pytest.mark.parametrize("n,d,k", SHAPES + [(64, 129, 7), (1000, 200, 400)]
+                         + XL_SHAPES)
 def test_fused_nested_round_kernel_meets_the_float64_oracle(cuda, n, d, k):
     """The nested round's top-2 (tensor cores, EPI_NESTED): invalid rows
     -1 / 0 / 0, settled rows passed through bit for bit, the rest the
@@ -141,7 +145,8 @@ def test_fused_nested_round_kernel_meets_the_float64_oracle(cuda, n, d, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d,k", SHAPES + [(3000, 0, 7)])
+@pytest.mark.parametrize("n,d,k", SHAPES + [(3000, 0, 7),
+                                            (8192, 1024, 4096)])
 def test_cluster_sum_kernel_matches_plain(cuda, n, d, k):
     rng = np.random.default_rng(n + d + k)
     x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
@@ -332,8 +337,8 @@ def _assert_bits(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d,k,case", SCATTER_CASES + [(3000, 0, 7,
-                                                         "random")])
+@pytest.mark.parametrize("n,d,k,case", SCATTER_CASES + [
+    (3000, 0, 7, "random"), (8192, 1024, 4096, "random")])
 def test_cluster_sum_kernel_equals_the_order_oracle(cuda, n, d, k, case):
     x, _, a, w = _scatter_inputs(n, d, k, case, cuda)[:4]
     got = ops.cluster_sum(x, a, k, weights=w)
@@ -966,3 +971,123 @@ def test_two_gloo_ranks_on_one_card_launch_the_kernels(cuda, tmp_path):
             np.testing.assert_array_equal(r[key], ranks[0][key])
     assert ranks[0]["labels_card"].min() >= 0
     assert ranks[0]["sched_card"][-1, 0] == len(X)
+
+
+# -- the XL engine on the card ------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", XL_SHAPES)
+def test_top2_kernels_at_kmeans_xl_width_match_the_plain_labels(cuda, n, d,
+                                                                k):
+    """Kernels 1 and 3 at kmeans_xl's width take the plain versions'
+    labels but at ties (the float64 oracle holds their distances: the
+    plain f32 product is no oracle at this width)."""
+    x, c = _inputs(n, d, k, n + k, cuda)
+    d2m = ref.pairwise_dist2(x, c)
+    want = ref.assign_top2_ref(x, c)[0]
+    _assert_labels(ops.assign_top2(x, c)[0], want, d2m, TOL["f32"])
+    ones = torch.ones(n, dtype=torch.bool, device=cuda)
+    minus = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    zeros = torch.zeros(n, device=cuda)
+    got = ops.fused_nested_round(x, c, minus, ~ones, zeros, zeros, ones)
+    _assert_labels(got[0], want, d2m, TOL["f32"])
+    torch.cuda.synchronize()
+
+
+def _one_rank_nccl():
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    return make_host_mesh((1, 1), ("data", "model"))
+
+
+@pytest.mark.gpu
+def test_new_collectives_on_a_one_rank_nccl_group(cuda):
+    """The reduce-scatter, MAX and MIN all-reduces and the ring permute
+    over a one-rank NCCL (data, model) mesh give their inputs back, as
+    over a one-device JAX mesh, on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+    t = torch.randn(64, 9, device=cuda)
+    mesh = _one_rank_nccl()
+    try:
+        got = [collectives.psum_scatter(t, mesh, "model"),
+               collectives.pmax(t, mesh, "model"),
+               collectives.pmin(t[0], mesh, "data"),
+               collectives.ppermute_ring(t, mesh, "model")]
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got, (t, t, t[0], t)):
+        assert g.device == t.device and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bounds,capacity", [
+    ("none", None), ("hamerly2", None), ("hamerly2", 512),
+    ("elkan", None), ("exponion", None)])
+def test_xl_round_at_one_model_rank_equals_nested_round_on_card(
+        cuda, bounds, capacity):
+    """`xl_nested_round` over a one-rank NCCL (1, 1) mesh, on the "cuda"
+    plan, from a state two rounds into a fit: every leaf of the state and
+    every field of the info bit-equal to `rounds.nested_round`'s (the
+    dense hamerly2 round through the fused kernel, the compacted one
+    through kernels 1 and 2)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.core import rounds, state
+    from repro_torch.core.distributed_xl import xl_nested_round
+    from repro_torch.kernels.plan import KernelPlan
+    X = torch.from_numpy(_blobs()[0]).to(cuda)
+    plan = KernelPlan("cuda", (4096, 8, 16))
+    st = state.init_state(X, 8, bounds=bounds)
+    for b in (1000, 1000):
+        st, _ = rounds.nested_round(X, st, b=b, rho=float("inf"),
+                                    bounds=bounds, plan=plan)
+    kw = dict(b=2000, rho=float("inf"), bounds=bounds, capacity=capacity,
+              plan=plan)
+    want = rounds.nested_round(X, st, **kw)
+    mesh = _one_rank_nccl()
+    try:
+        got = xl_nested_round(X, st, mesh=mesh, data_axes=("data",),
+                              model_axis="model", **kw)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for g, w in ((got[0].stats, want[0].stats), (got[0].points,
+                                                 want[0].points),
+                 (got[1], want[1])):
+        for f in dataclasses.fields(w):
+            assert torch.equal(getattr(g, f.name), getattr(w, f.name)), \
+                f.name
+    if bounds == "elkan":
+        assert torch.equal(got[0].elkan.l, want[0].elkan.l)
+
+
+@pytest.mark.gpu
+def test_two_gloo_model_ranks_on_one_card(cuda, tmp_path):
+    """Two spawned ranks of a gloo (1, 2) group on the card: the new
+    collectives carry CUDA tensors, and an XL fit launches kernels 1 and
+    2 on every rank, the ranks holding the same bits."""
+    import torch_dist_worker as worker
+    X, Xv = _blobs()
+    ranks = worker.spawn(tmp_path, "xl_engine", (1, 2), worker.XL_AXES,
+                         parts=["card:1x2"], dir=str(tmp_path), X=X, Xv=Xv,
+                         timeout_s=300)
+    for r in ranks:
+        assert r["1x2_card_ok"].all(), r["1x2_card_ok"]
+        assert str(r["1x2_card_device"]).startswith("cuda")
+        assert (r["1x2_card_launches"] > 0).all(), r["1x2_card_launches"]
+        for key in ("C_1x2_card", "labels_1x2_card", "tel_1x2_card"):
+            np.testing.assert_array_equal(r[key], ranks[0][key])
+    assert ranks[0]["labels_1x2_card"].min() >= 0

@@ -26,7 +26,8 @@ engine, and against the port's own local fits, on the CPU.
   port 2-rank checkpoint on JAX's 4 devices with JAX's 4-device one.
 * A mesh `partial_fit` stream matches the local stream's counts; the
   in-place check passes on each rank's buffer of a store-backed 2-rank
-  fit; ``backend="xl"`` is still refused, naming item 9 step 2.
+  fit; ``backend="xl"`` raises the JAX package's two `ValueError`s (the
+  engine itself is tests/test_torch_xl.py's).
 """
 import os
 import socket
@@ -205,7 +206,25 @@ def test_shard_state_takes_this_ranks_rows():
 
 
 def test_xl_is_refused_and_mesh_needs_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 9 step 2"):
+    """xl raises the JAX package's two `ValueError`s: a mesh without the
+    model dim (a one-rank gloo group's (1,) data mesh), and k = 4 over 3
+    model ranks (a stand-in for a (1, 3) mesh, which one rank cannot
+    build). Without a mesh, xl, like mesh, asks for one."""
+    from repro_torch.api.engines.xl import _XLRun
+    X = np.zeros((8, 2), np.float32)
+    dist.init_process_group("gloo", init_method=(
+        f"tcp://localhost:{_free_port()}"), world_size=1, rank=0)
+    try:
+        with pytest.raises(ValueError, match="needs mesh axis 'model'"):
+            NestedKMeans(FitConfig(k=4, backend="xl"),
+                         mesh=make_host_mesh((1,), ("data",)),
+                         device="cpu").fit(X)
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(ValueError, match="must divide evenly"):
+        _XLRun(X, FitConfig(k=4, backend="xl").resolve(8),
+               _Ranks((1, 3), ("data", "model"), (0, 0)), None, None, "cpu")
+    with pytest.raises(ValueError, match="DeviceMesh"):
         NestedKMeans(FitConfig(k=4, backend="xl"), device="cpu")
     with pytest.raises(ValueError, match="DeviceMesh"):
         NestedKMeans(FitConfig(k=4, backend="mesh"), device="cpu")

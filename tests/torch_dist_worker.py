@@ -18,6 +18,7 @@ import datetime
 import json
 import math
 import shutil
+import types
 from pathlib import Path
 
 import numpy as np
@@ -232,7 +233,262 @@ def _mesh(mesh, inp):
     return out
 
 
-CASES = {"dp": _dp, "xl": _xl, "sharded": _sharded, "mesh": _mesh}
+# -- the XL engine (tests/test_torch_xl.py; tests/jax_xl_oracle.py) ----------
+
+#: the unit rounds: rows a data rank takes from the mid-fit states, and
+#: (name, bounds, capacity) of each; "hamerly2_cap" is the compacted path
+XL_B = 1500
+XL_ROUNDS = (("none", "none", None), ("hamerly2", "hamerly2", None),
+             ("hamerly2_cap", "hamerly2", 1024), ("elkan", "elkan", None),
+             ("exponion", "exponion", None))
+#: the mid-fit states' bound families (the capacity variant shares one)
+XL_FAMILIES = ("none", "hamerly2", "elkan", "exponion")
+#: the fits held to JAX's XL fits of FIT on a (2, 2) mesh
+XL_BOUNDS = ("hamerly2", "elkan")
+XL_AXES = ("data", "model")
+STATE_LEAVES = ("C", "S", "v", "sse", "p", "a", "d", "lb", "l", "round")
+
+
+def xl_int_inputs():
+    """Integer-valued rows, centroids (duplicates across the k-slices of
+    2 and 4 model ranks) and labels (-1: unseen): every product and sum
+    of them is exact, so any summation order gives the same bits."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(-6, 7, (64, 5)).astype(np.float32)
+    C = rng.integers(-6, 7, (8, 5)).astype(np.float32)
+    C[6] = C[1]
+    a = rng.integers(-1, 8, 64).astype(np.int32)
+    return x, C, a
+
+
+def xl_tag(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def _state_of(inp, fam, device="cpu"):
+    """The mid-fit state of family ``fam`` from ``inp`` (its numpy
+    leaves under ``mid_<fam>_<leaf>``)."""
+    from repro_torch.convert import state_from_numpy
+    g = {f: inp.get(f"mid_{fam}_{f}") for f in STATE_LEAVES}
+    return state_from_numpy(types.SimpleNamespace(
+        stats=types.SimpleNamespace(C=g["C"], S=g["S"], v=g["v"],
+                                    sse=g["sse"], p=g["p"]),
+        points=types.SimpleNamespace(a=g["a"], d=g["d"], lb=g["lb"]),
+        elkan=(None if g["l"] is None
+               else types.SimpleNamespace(l=g["l"])),
+        round=g["round"]), device=device)
+
+
+def _whole_state(st, mesh):
+    """A rank's XL state made whole: stats over the model dim, points over
+    the data dim, the elkan bounds over both."""
+    def whole_k(t, dim=0):
+        return collectives.all_gather(t, mesh, "model").movedim(
+            0, dim).flatten(dim, dim + 1)
+    out = {f: _np(whole_k(getattr(st.stats, f)))
+           for f in ("C", "S", "v", "sse", "p")}
+    for f in ("a", "d", "lb"):
+        out[f] = _np(collectives.gather_rows(getattr(st.points, f), mesh,
+                                             ("data",)))
+    if st.elkan is not None:
+        out["l"] = _np(collectives.gather_rows(whole_k(st.elkan.l, 1), mesh,
+                                               ("data",)))
+    return out
+
+
+def _xl_units(mesh, tag, inp, out):
+    """The sharded helpers on integer inputs, one XL round of each of
+    `XL_ROUNDS` from its family's mid-fit state, the S/v and sse deltas of
+    that round, the row chunks, and a cross-shard exact tie."""
+    from repro_torch.core import distributed_xl as dxl
+    from repro_torch.core.state import ElkanBounds
+    m = collectives.axis_size(mesh, "model")
+    off_of = collectives.axis_index(mesh, "model")
+    x, C, a = (torch.from_numpy(t) for t in xl_int_inputs())
+    kl = C.shape[0] // m
+    Cl = C[off_of * kl:(off_of + 1) * kl]
+
+    def whole_k(t, dim=0):
+        return _np(collectives.all_gather(t, mesh, "model").movedim(
+            0, dim).flatten(dim, dim + 1))
+
+    out[f"{tag}_dist"] = _np(dxl._dist_to_assigned_sharded(
+        x, Cl, a, off_of * kl, mesh, "model"))
+    out[f"{tag}_half"] = _np(dxl._half_intercentroid_sharded(Cl, mesh,
+                                                             "model"))
+    B, s = dxl._exponion_geom_xl(Cl, mesh, "model", off_of * kl)
+    out[f"{tag}_B"], out[f"{tag}_s"] = whole_k(B, 1), _np(s)
+    out[f"{tag}_chunk"] = _np(dxl._chunk_rows(
+        [torch.arange(XL_B + 1)], mesh=mesh, model_axis="model")[0])
+
+    X = torch.from_numpy(inp["Xmid"])
+    Xl = _rows(X, mesh, ("data",))
+    k = C.shape[0]
+    for name, bounds, cap in XL_ROUNDS:
+        full = _state_of(inp, bounds)
+        st = dxl.shard_state_xl(full, mesh, ("data",), "model")
+        if full.elkan is not None:
+            rows = _rows(full.elkan.l, mesh, ("data",))
+            st = dataclasses.replace(st, elkan=ElkanBounds(
+                l=rows[:, off_of * kl:(off_of + 1) * kl].clone()))
+        step = dxl.make_xl_nested_round(mesh, ("data",), b_local=XL_B,
+                                        rho=math.inf, bounds=bounds,
+                                        capacity=cap)
+        new, info = step(Xl, st)
+        for f, v in _whole_state(new, mesh).items():
+            out[f"{tag}_{name}_{f}"] = v
+        for f in ("batch_mse", "n_changed", "n_recomputed", "n_active",
+                  "overflow", "grow", "r_median", "p_max"):
+            out[f"{tag}_{name}_info_{f}"] = _np(getattr(info, f))
+        a_prev, a_new = st.points.a[:XL_B], new.points.a[:XL_B]
+        dS, dv = dxl._delta_sv_xl(Xl[:XL_B], a_prev, a_new, k, mesh=mesh,
+                                  model_axis="model", plan=None)
+        sse = dxl._refresh_sse_xl(new.points.d[:XL_B], a_new, k, mesh=mesh,
+                                  model_axis="model", plan=None)
+        dS, dv, sse = collectives.psum((dS, dv, sse), mesh, ("data",))
+        out[f"{tag}_{name}_dS"] = whole_k(dS)
+        out[f"{tag}_{name}_dv"] = whole_k(dv)
+        out[f"{tag}_{name}_dsse"] = whole_k(sse)
+
+    # the exact tie: rows on centroids 1 and 6 (copies of each other, in
+    # different k-slices) and on centroid 2, from a fresh state
+    Ct = torch.from_numpy(inp["Xmid"][:8].copy())
+    Ct[6] = Ct[1]
+    xt = Ct[[1, 6, 2, 0]].clone()
+    for bounds in XL_FAMILIES:
+        st = dxl.shard_state_xl(fresh_state(xt, Ct), mesh, (), "model")
+        if bounds == "elkan":
+            st = dataclasses.replace(st, elkan=ElkanBounds(
+                l=torch.zeros((4, kl))))
+        new, _ = dxl.xl_nested_round(xt, st, b=4, rho=math.inf,
+                                     bounds=bounds, mesh=mesh,
+                                     data_axes=("data",), model_axis="model")
+        out[f"{tag}_tie_{bounds}"] = _np(new.points.a)
+
+
+def _xl_engine(mesh, inp):
+    """The parts of ``inp["parts"]``, each ``<what>:<mesh shape>`` (e.g.
+    ``fits:2x2``) on a ``(data, model)`` mesh of that shape over every
+    rank; ``inp["dir"]`` holds the chunk store (``store``), the
+    checkpoints and the JAX package's killed XL checkpoint
+    (``jax_xl_ck``)."""
+    from repro_torch.analysis import donation
+    from repro_torch.api import CheckpointConfig, FitConfig, NestedKMeans
+    X, Xv = inp["X"], inp["Xv"]
+    wd = Path(str(inp["dir"]))
+    coordinator = dist.get_rank() == 0
+    meshes = {xl_tag(mesh.shape): mesh}
+    out = {}
+
+    def fit(tag, mesh, data=X, on_round=None, resume=False, ck=None,
+            **kw):
+        cfg = FitConfig(**dict(dict(FIT, backend="xl"), checkpoint=(
+            None if ck is None else CheckpointConfig(
+                checkpoint_dir=str(ck), save_every=SAVE_EVERY)), **kw))
+        km = NestedKMeans(cfg, mesh=mesh, device="cpu", on_round=on_round)
+        km.fit(data, X_val=Xv, resume=resume)
+        out.update(record(km, tag))
+        return km
+
+    def copy_dir(src, dst):
+        if coordinator:
+            shutil.copytree(src, dst)
+        dist.barrier()
+
+    for part in [str(p) for p in inp["parts"]]:
+        what, tag = part.split(":")
+        shape = tuple(int(n) for n in tag.split("x"))
+        if tag not in meshes:
+            meshes[tag] = make_host_mesh(shape, XL_AXES)
+        mesh = meshes[tag]
+        if what == "units":
+            _xl_units(mesh, tag, inp, out)
+        elif what == "fits":
+            for bounds in XL_BOUNDS:
+                fit(f"{tag}_{bounds}", mesh, bounds=bounds)
+            run = NestedKMeans(FitConfig(**dict(FIT, backend="xl")),
+                               mesh=mesh, device="cpu").engine.begin(
+                X, FitConfig(**dict(FIT, backend="xl")).resolve(len(X)),
+                device="cpu")
+            out[f"{tag}_rows"] = np.int64(run._Xd.shape[0])
+        elif what == "mesh_equal":
+            fit(f"{tag}_xl", mesh)
+            km = NestedKMeans(FitConfig(backend="mesh", **FIT), mesh=mesh,
+                              device="cpu").fit(X, X_val=Xv)
+            out.update(record(km, f"{tag}_mesh"))
+        elif what == "families":
+            for bounds in ("none", "exponion"):
+                fit(f"{tag}_{bounds}", mesh, bounds=bounds)
+        elif what == "families":
+            for bounds in ("none", "exponion"):
+                fit(f"{tag}_{bounds}", mesh, bounds=bounds)
+        elif what == "growth":
+            fit(f"{tag}_rho", mesh, rho=0.5, max_rounds=12)
+        elif what == "resume":
+            ck = wd / f"port_xl_ck_live{tag}"
+            try:
+                fit(f"{tag}_killed", mesh, on_round=kill_at, ck=ck)
+                raise RuntimeError(f"the fit ended before {KILL_ROUND}")
+            except Killed:
+                pass
+            copy_dir(ck, wd / f"port_xl_ck{tag}")
+            fit(f"{tag}_resumed", mesh, resume=True, ck=ck)
+        elif what == "resume_jax":
+            copy_dir(wd / "jax_xl_ck", wd / f"jax_xl_ck_port{tag}")
+            fit(f"{tag}_resumed_jax", mesh, resume=True,
+                ck=wd / f"jax_xl_ck_port{tag}")
+        elif what == "resume_local":
+            copy_dir(wd / "local_ck", wd / f"local_ck_xl{tag}")
+            fit(f"{tag}_resumed_local", mesh, resume=True,
+                ck=wd / f"local_ck_xl{tag}")
+        elif what == "partial":
+            cfg = FitConfig(**dict(FIT, backend="xl"))
+            km = NestedKMeans(cfg, mesh=mesh, device="cpu")
+            km.fit(X[:PARTIAL_FIT])
+            for lo, hi in PARTIAL_BATCHES:
+                km.partial_fit(X[lo:hi])
+            out[f"{tag}_partial_C"] = km.cluster_centers_
+            out[f"{tag}_partial_counts"] = km.counts_
+            out[f"{tag}_partial_b"] = np.int64(km.telemetry_[-1].b)
+        elif what == "card":
+            # every rank on the one card: gloo carries the CUDA tensors
+            from repro_torch.kernels import ops
+            m, i = 2, collectives.axis_index(mesh, "model")
+            t = torch.arange(8.0, device="cuda") + 10 * i
+            other = torch.arange(8.0, device="cuda") + 10 * (1 - i)
+            out[f"{tag}_card_ok"] = np.array([
+                torch.equal(collectives.psum_scatter(t, mesh, "model"),
+                            (t + other)[4 * i:4 * i + 4]),
+                torch.equal(collectives.pmax(t, mesh, "model"),
+                            torch.maximum(t, other)),
+                torch.equal(collectives.pmin(t, mesh, "model"),
+                            torch.minimum(t, other)),
+                torch.equal(collectives.ppermute_ring(t, mesh, "model"),
+                            other),
+                collectives.ppermute_ring(t, mesh, "model").is_cuda])
+            assert collectives.axis_size(mesh, "model") == m
+            ops.reset_launch_counts()
+            km = NestedKMeans(FitConfig(**dict(FIT, backend="xl")),
+                              mesh=mesh, device="cuda").fit(X, X_val=Xv)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            out.update(record(km, f"{tag}_card"))
+            out[f"{tag}_card_launches"] = np.array(
+                [counts[n] for n in ("assign_top2", "cluster_sum")])
+            out[f"{tag}_card_device"] = np.array(str(km.stats_.C.device))
+        elif what == "inplace":
+            found = donation.check_inplace(
+                wd / "store", FitConfig(**dict(FIT, backend="xl")),
+                device="cpu", mesh=mesh)
+            out[f"{tag}_inplace"] = np.array([str(v) for v in found],
+                                             dtype=str)
+        else:
+            raise ValueError(f"unknown part {part!r}")
+    return out
+
+
+CASES = {"dp": _dp, "xl": _xl, "sharded": _sharded, "mesh": _mesh,
+         "xl_engine": _xl_engine}
 
 
 def spawn(out_dir, case: str, shape, axes, *, timeout_s: float = 120.0,
