@@ -244,9 +244,44 @@ Phases (each raises on failure, so any fault exits non-zero):
      ranks, a (1, 4) group, fit k=8 with exponion bounds, whose rings are
      degenerate (k_local=2), shadowed the same way. Each process logs its
      peak device memory; kernels 1-3 must be launched in the phase.
+  13. the serve entry point (`repro_torch.launch.serve`) at
+     tinyllama-1.1b's full width (22 layers, d_model 2048, 32 heads over
+     4 kv heads, d_ff 5632, vocab 32000; 1.1 B bf16 parameters made from
+     seed 0 on the card): (a) batch 4, prompt 32, 16 generated tokens
+     (the CLI's defaults and prompt recipe) through `generate`, twice
+     (the same tokens); the decode step's logits at position 32 against
+     the prefill of the 33-token prompt (tests/test_models.py's
+     property): with the weights upcast to f32 (f32 activations and
+     cache) within rtol=atol=1e-3; in bf16, the served model, whose
+     rounding alone passes 6e-2 on a few logits at 22 layers, the greedy
+     tokens must be equal at every row whose top two prefill logits are
+     more than 0.12 apart, and at least half the rows must be such;
+     prefill ms, ms a decode step, tokens/s and peak memory are logged.
+     (b) `build_codebook` with k=1024 over the 32000 x 2048 embedding
+     table (local): kernels 1-3 each launched, a second fit bit-equal,
+     the table's float64 MSE within 1e-3 of the same fit on the ref
+     plan; kernels 1-3 held at the fit's shapes (the b0 = 2048 rows of
+     its first batch and all 32000 rows, d = 2048, k = 1024) on the
+     table and the fitted codebook, as phase 12 holds them, and timed
+     beside their plain versions and bounds; its `ClusterService`
+     (dedup by token id) fed a decode's tokens through `generate`: rows
+     folded in = unique ids delivered = the rise of sum(counts), the
+     snapshot verifies, the tokens equal (a)'s, and the cells of the
+     served tokens equal the plain assignment but at near-ties. (c) one
+     NCCL rank with backend "mesh" and "xl": the adopted codebook
+     bit-equal to (b)'s; 2 spawned gloo ranks on the card (E through an
+     ``.npy``), "mesh" (rows split) and "xl" (k_local 512): both ranks
+     hold one adopted codebook within 1e-4 relative (Frobenius) of (b)'s,
+     its service folds 512 ids delivered twice in once, and a
+     `ClusterService` over the 2-rank sharded estimator raises its
+     ValueError. (d) ``python -m repro_torch.launch.serve --arch
+     tinyllama-1.1b --no-reduced --codebook 1024`` as a subprocess: rc 0,
+     its lines parsed, its codebook's rounds (b)'s and row 0's tokens
+     (a)'s. Kernels 1-3 must be launched in the phase.
 
-The last two lines are a JSON object of the kernels and the JSON result
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+The last two lines are a JSON object of the kernels (each with its
+main path's ``launches`` and phase 13's ``launches_phase13``) and the JSON
+result ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
 no result.
 """
@@ -2902,30 +2937,31 @@ def _max_err(got, want):
     return e, rel
 
 
-def check_xl_kernels(x, C, smi: str) -> None:
-    """Kernels 1-3 at kmeans_xl width (d = 1024) on ``x``'s rows, at
-    k = 2048 (a model rank's slice) and k = 4096. Kernels 1 and 3 are
-    held as phase 6 holds kernel 4: d1 and d2 within FULL_RTOL of the
+def check_wide_kernels(x, C, ks, smi: str) -> None:
+    """Kernels 1-3 on ``x``'s rows at each k of ``ks`` (the first k rows
+    of ``C``), at a wide d: kmeans_xl's (phase 12) or tinyllama's
+    embedding table (phase 13). Kernels 1 and 3 are held as phase 6
+    holds kernel 4: d1 and d2 within FULL_RTOL of the
     scale |x|^2 + max |c|^2 of the top-2 of the ref expression with x.c,
     |x|^2 and |c|^2 taken in float64 and rounded once
     (`check_full_oracle`; the plain version's f32 product is ~0.1 off d1
-    at this width, and its gap is logged), and labels equal but at ties
-    within 100x f32's rtol 1e-5 of the distance (the lower index wins a
-    tie). The ref expression resolves d1 ~ 2e3 only to a few f32 ulps of
-    the scale (~5e4), about 1e-5 of d1, so the largest error relative to
-    d1 is logged, not held. Kernel 2 sums the rows by kernel 1's labels
-    with +1/0/-1 weights (`_delta_sv_xl`'s adds and removes), held as
-    phase 3 holds it: within rtol 1e-5 of each sum's L1 mass of the
-    plain sums, and bit for bit to the order oracle. Kernel 3's
-    passed-through rows keep their bits, its sums match plain sums over
-    its own labels (rtol 1e-4 of their L1 mass) and the order oracle bit
-    for bit. Each kernel gives the same bits twice and is timed (CUDA
-    events, mean of 10) beside its plain version and its bound (kernel
-    2 also beside `index_add_`)."""
+    at kmeans_xl width, and its gap is logged), and labels equal but at
+    ties within 100x f32's rtol 1e-5 of the distance (the lower index
+    wins a tie). The ref expression resolves d1 only to a few f32 ulps of
+    the scale (at kmeans_xl width d1 ~ 2e3 against ~5e4), so the largest
+    error relative to d1 is logged, not held. Kernel 2 sums the rows by
+    kernel 1's labels with +1/0/-1 weights (`_delta_sv_xl`'s adds and
+    removes), held as phase 3 holds it: within rtol 1e-5 of each sum's
+    L1 mass of the plain sums, and bit for bit to the order oracle.
+    Kernel 3's passed-through rows keep their bits, its sums match plain
+    sums over its own labels (rtol 1e-4 of their L1 mass) and the order
+    oracle bit for bit. Each kernel gives the same bits twice and is
+    timed (CUDA events, mean of 10) beside its plain version and its
+    bound (kernel 2 also beside `index_add_`)."""
     from repro_torch.kernels import (cluster_sum, fused_round,
                                      kmeans_assign, ref)
     n, d = x.shape
-    for k in (K_XL // XL_RANKS, K_XL):
+    for k in ks:
         c = C[:k].contiguous()
         want = assign_top2_exact(x, c)
         pd = ref.pairwise_dist2(x, c)
@@ -3103,7 +3139,7 @@ def xl_one_rank(X, Xv, untraced, launches: dict, smi: str):
         C = torch.from_numpy(fits["xl"].cluster_centers_).to(DEV)
         need(C.shape == (K_XL, D_XL) and bool(torch.isfinite(C).all()),
              "(b)'s centroids are not finite (k, d)")
-        check_xl_kernels(xk, C, smi)
+        check_wide_kernels(xk, C, (K_XL // XL_RANKS, K_XL), smi)
         return Xb, Xvb, fit_record(fits["xl"])
     finally:
         dist.destroy_process_group()
@@ -3288,6 +3324,491 @@ def xl_engine_phase(X, Xv, untraced, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+
+#: phase 13: the serve CLI's defaults at tinyllama-1.1b's full width, the
+#: codebook's k, the decode-against-prefill tolerance of
+#: tests/test_models.py (bf16 activations), the rows each rank's service
+#: is fed twice in (c), and the deadlines of (c)'s ranks and (d)'s CLI
+LM_ARCH = "tinyllama-1.1b"
+LM_REDUCED = False
+LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 4, 32, 16, 0
+CODEBOOK_K = 1024
+LM_TOL = 6e-2
+#: the same property in f32 (the weights upcast, f32 activations and cache)
+LM_TOL_F32 = 1e-3
+CB_SERVED = 512
+CB_JOIN_S = 600.0
+CLI_TIMEOUT_S = 600.0
+CB_BACKENDS = ("mesh", "xl")
+
+
+def _lm_config():
+    from repro_torch import configs
+    return (configs.get_reduced(LM_ARCH) if LM_REDUCED
+            else configs.get_config(LM_ARCH))
+
+
+def _decode_vs_prefill(cfg, params, tokens, nxt):
+    """Decode's logits at position ``len(prompt)`` (after the prompt's
+    prefill) and the prefill's logits of the prompt one token longer, as
+    float64 (B, vocab) each."""
+    from repro_torch.train import step as tstep
+    prefill = tstep.make_prefill_step(cfg, cache_len=LM_PROMPT + LM_GEN)
+    logits_p, cache = prefill(params, {"tokens": tokens})
+    logits_d, _ = tstep.make_decode_step(cfg)(params, nxt, cache)
+    logits_f, _ = prefill(params, {"tokens": torch.cat(
+        [tokens, nxt.long()], dim=1)})
+    need(bool(torch.isfinite(logits_p).all()
+              and torch.isfinite(logits_d).all()),
+         "the model's logits are not finite")
+    return logits_d[:, 0].double(), logits_f[:, -1].double()
+
+
+def _beyond(got, want, tol) -> int:
+    return int(((got - want).abs() > tol + tol * want.abs()).sum())
+
+
+def lm_model(smi: str) -> dict:
+    """(a): the model at full width on the card from seed 0, the CLI's
+    prompt (its recipe and defaults), prefill and greedy decode through
+    `launch.serve.generate`, and decode's logits held to the prefill of
+    the prompt one token longer: in f32 (the same weights upcast, f32
+    activations and cache) within `LM_TOL_F32`; in bf16, the served model,
+    the greedy tokens wherever the prefill's top two logits are more
+    than 2 `LM_TOL` apart, which must be so for at least half the rows."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = _lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(LM_SEED, cfg, DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    need(n_params == cfg.param_count() + cfg.d_model,
+         f"the model has {n_params} parameters, its config "
+         f"{cfg.param_count()} (+ the final norm's {cfg.d_model})")
+    rng = np.random.default_rng(LM_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (LM_BATCH, LM_PROMPT))).to(DEV)
+    warm = generate(cfg, params, tokens, LM_GEN)
+    res = generate(cfg, params, tokens, LM_GEN)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    need(np.array_equal(res["gen"], warm["gen"]),
+         "two greedy decodes of one prompt gave different tokens")
+    t_dec = res["t_decode"] / (LM_GEN - 1)
+    log(f"    (a) {cfg.arch_id} at {'reduced' if LM_REDUCED else 'full'} "
+        f"width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_params:,} bf16 parameters, made from seed "
+        f"{LM_SEED} on the card in {t_init:.2f} s); batch {LM_BATCH}, "
+        f"prompt {LM_PROMPT}, {LM_GEN} tokens: prefill "
+        f"{res['t_prefill'] * 1e3:.3f} ms, {t_dec * 1e3:.3f} ms a decode "
+        f"step ({LM_BATCH / t_dec:.0f} tok/s; warm-up run: prefill "
+        f"{warm['t_prefill'] * 1e3:.3f} ms, "
+        f"{warm['t_decode'] / (LM_GEN - 1) * 1e3:.3f} ms a step), peak "
+        f"{peak:.2f} GiB ({smi})")
+    nxt = torch.from_numpy(res["gen"][:, :1]).to(DEV)
+    got, want = _decode_vs_prefill(cfg, params, tokens, nxt)
+    need(got.shape == (LM_BATCH, cfg.vocab), f"decode logits {got.shape}")
+
+    def f32(tree):
+        return ({k: f32(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.float())
+
+    # f32 weights run the model in f32 (its compute dtype is the params')
+    got32, want32 = _decode_vs_prefill(cfg, f32(params), tokens, nxt)
+    # the bf16 model's greedy tokens where its top two logits are apart
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * LM_TOL
+    same_tok = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+    log(f"        decode at position {LM_PROMPT} against the prefill of "
+        f"{LM_PROMPT + 1} tokens: f32 max |diff| "
+        f"{float((got32 - want32).abs().max()):.4g} ("
+        f"{_beyond(got32, want32, LM_TOL_F32)} of {got.numel()} logits "
+        f"beyond rtol=atol={LM_TOL_F32}); bf16 max |diff| "
+        f"{float((got - want).abs().max()):.4g}, mean "
+        f"{float((got - want).abs().mean()):.4g} "
+        f"({_beyond(got, want, LM_TOL)} beyond {LM_TOL}); bf16 against "
+        f"f32: prefill max {float((want - want32).abs().max()):.4g} "
+        f"({_beyond(want, want32, LM_TOL)} beyond), decode max "
+        f"{float((got - got32).abs().max()):.4g} "
+        f"({_beyond(got, got32, LM_TOL)} beyond); logits' std "
+        f"{float(want.std()):.3g}; bf16 greedy tokens equal at "
+        f"{int(clear.sum())} of {LM_BATCH} rows whose top-2 gap exceeds "
+        f"{2 * LM_TOL}: {same_tok}")
+    need(_beyond(got32, want32, LM_TOL_F32) == 0,
+         f"decode's logits differ from the prefill's beyond {LM_TOL_F32} "
+         f"(f32)")
+    need(int(clear.sum()) >= LM_BATCH // 2,
+         f"only {int(clear.sum())} of {LM_BATCH} rows have a top-2 gap "
+         f"over {2 * LM_TOL}: too few to compare the bf16 greedy tokens")
+    need(same_tok, "bf16 decode's greedy token differs from the prefill's "
+         "where their top two logits are apart")
+    return {"cfg": cfg, "params": params, "tokens": tokens,
+            "gen": res["gen"]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _codebook_mse(E, C) -> float:
+    """Mean squared distance of E's rows to their nearest centroid,
+    float64, on the card."""
+    Ed = torch.from_numpy(E).to(DEV)
+    Cd = torch.from_numpy(np.ascontiguousarray(C)).to(DEV)
+    a = exact_labels(Ed, Cd)
+    return float(((Ed.double() - Cd[a.long()].double()) ** 2).sum(1)
+                 .mean())
+
+
+def _served(svc, gen: np.ndarray, E, n0: float, km, what: str) -> dict:
+    """The exactly-once checks of a service fed ``gen``'s decode tokens."""
+    m = svc.export_metrics()
+    ids = gen[:, 1:].ravel()
+    unique = len(np.unique(ids))
+    rise = float(np.sum(km.counts_, dtype=np.float64)) - n0
+    need(m["refresh"]["rows"] == unique == rise
+         and m["queue"]["deduped"] == ids.size - unique,
+         f"{what}: {m['refresh']['rows']} rows folded in, {unique} unique "
+         f"ids delivered of {ids.size}, sum(counts) rose by {rise}, "
+         f"{m['queue']['deduped']} deduped")
+    snap = svc.snapshot
+    need(snap.verify(), f"{what}: the snapshot does not verify")
+    return {"unique": unique, "delivered": int(ids.size),
+            "refreshes": m["refresh"]["count"], "version": snap.version}
+
+
+def codebook_local(model: dict, launches: dict) -> dict:
+    """(b): the codebook over the embedding table through
+    `build_codebook`, repeated, on the ref plan, then its service fed the
+    served tokens of a greedy decode through `generate`."""
+    import dataclasses
+
+    from repro_torch.api import NestedKMeans
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import build_codebook, generate
+    from repro_torch.serve import ClusterService, IngestQueue
+    cfg, params = model["cfg"], model["params"]
+    E = params["embed"].float().cpu().numpy()
+
+    def fit():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        km = build_codebook(E, CODEBOOK_K, LM_SEED, device=DEV)
+        torch.cuda.synchronize()
+        return km, time.perf_counter() - t0
+
+    (km, wall), counts = _counted(launches, fit)
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(counts[name] > 0, f"{name} was never launched in the codebook "
+             f"fit")
+    (km2, wall2), _ = _counted(launches, fit)
+    same = _same_fit(km2, km)
+    t0 = time.perf_counter()
+    kr = NestedKMeans(dataclasses.replace(km.config, kernel_backend="ref"),
+                      device=DEV).fit(E)
+    wall_ref = time.perf_counter() - t0
+    need(kr.outcome_.kernel_plan["backend"] == "ref",
+         "the ref fit did not run the plain versions")
+    mse, mse_ref = (_codebook_mse(E, k.cluster_centers_) for k in (km, kr))
+    rel = abs(mse - mse_ref) / mse_ref
+    C_fit, rounds = km.cluster_centers_, km.n_rounds_
+    log(f"    (b) build_codebook(k={CODEBOOK_K}) over the {E.shape} "
+        f"embedding table (b0 {km.config.b0}, at most "
+        f"{km.config.max_rounds} rounds): {km.n_rounds_} rounds, converged "
+        f"{km.converged_}, wall {wall:.3f} s (repeat {wall2:.3f} s; rounds "
+        f"{km.telemetry_[-1].t:.3f} s), launches {counts}; the repeat "
+        f"bit-equal: {same}; the ref plan's fit: {kr.n_rounds_} rounds, "
+        f"wall {wall_ref:.3f} s, parts at round {_parts_at(km, kr)}; MSE "
+        f"of the table (float64) {mse!r} against the ref fit's {mse_ref!r}"
+        f" (relative {rel:.3g})")
+    need(same, "two codebook fits differ")
+    need(rel <= 1e-3, f"the codebook's MSE is {rel:.3g} from the ref "
+         f"fit's")
+    del kr
+
+    def serve():
+        svc = ClusterService(
+            km, micro_batch=256, flush_after_s=0.05,
+            queue=IngestQueue(max_rows=4096, dedup=True)).start()
+        n0 = float(np.sum(km.counts_, dtype=np.float64))
+        try:
+            res = generate(cfg, params, model["tokens"], LM_GEN,
+                           service=svc, E=E)
+            cells = svc.predict(E[res["gen"][0]])
+        except BaseException:
+            svc.stop(drain=False)
+            raise
+        svc.stop()
+        return svc, res, cells, n0
+
+    (svc, res, cells, n0), counts = _counted(launches, serve)
+    need(np.array_equal(res["gen"], model["gen"]),
+         "decoding with the service gave other tokens than (a)")
+    got = _served(svc, res["gen"], E, n0, km, "(b)'s service")
+    # the final snapshot's cells against its plain assignment
+    snap = svc.snapshot
+    Q = torch.from_numpy(E[res["gen"].ravel()]).to(DEV)
+    Cs = torch.from_numpy(np.array(snap.centroids)).to(DEV)
+    tags = torch.from_numpy(svc.predict(E[res["gen"].ravel()])).to(DEV)
+    plain = ref.assign_top2_ref(Q, Cs)[0]
+    ties = _near_ties(Q, Cs, tags, plain)
+    log(f"        its ClusterService (micro_batch 256, dedup by token id) "
+        f"fed {got['delivered']} decode tokens through generate: "
+        f"{got['unique']} unique ids folded in once by "
+        f"{got['refreshes']} refreshes (snapshot v{got['version']}, "
+        f"verifies); launches {counts}; prefill "
+        f"{res['t_prefill'] * 1e3:.3f} ms, "
+        f"{res['t_decode'] / (LM_GEN - 1) * 1e3:.3f} ms a decode step "
+        f"with ingestion; cells (row 0) {cells.tolist()}; the final "
+        f"snapshot's cells of all {Q.shape[0]} served tokens equal the "
+        f"plain assignment but at {ties[0]} near-ties")
+    return {"E": E, "C": C_fit, "rounds": rounds, "b0": km.config.b0}
+
+
+def codebook_kernels(local: dict, smi: str) -> None:
+    """(b) continued: kernels 1-3 at the codebook fit's shapes (d = 2048,
+    k = 1024; the first batch's b0 rows and the whole table's), on the
+    table's rows and the fitted codebook, held and timed as phase 12
+    holds them at kmeans_xl width (`check_wide_kernels`). These launches
+    only compare, so they count in no phase."""
+    E = torch.from_numpy(local["E"]).to(DEV)
+    C = torch.from_numpy(np.ascontiguousarray(local["C"])).to(DEV)
+    log(f"    (b) kernels 1-3 at the codebook fit's shapes, on the table's "
+        f"rows and the fitted codebook:")
+    for rows in (local["b0"], E.shape[0]):
+        check_wide_kernels(E[:rows].contiguous(), C, (CODEBOOK_K,), smi)
+    del E, C
+    torch.cuda.empty_cache()
+
+
+def codebook_rank(rank: int, world: int, root: str, addr: str) -> None:
+    """One spawned rank of (c): a gloo group on the one card, the
+    codebook built over it on each backend of `CB_BACKENDS`, its local
+    service, and the refused service over a sharded estimator. Writes
+    ``rank<r>_codebook.npz`` under ``root``."""
+    import torch.distributed as dist
+
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import build_codebook
+    from repro_torch.serve import ClusterService, IngestQueue
+    if not torch.cuda.is_available():
+        raise Failure(f"rank {rank} sees no CUDA device")
+    dist.init_process_group("gloo", init_method=addr, world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    out = {}
+    try:
+        E = np.load(os.path.join(root, "E.npy"))
+        for b in CB_BACKENDS:
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            km = build_codebook(E, CODEBOOK_K, LM_SEED, backend=b,
+                                device=DEV)
+            torch.cuda.synchronize()
+            out[f"wall_{b}"] = np.float64(time.perf_counter() - t0)
+            out[f"C_{b}"] = km.cluster_centers_
+            out[f"rounds_{b}"] = np.int64(km.n_rounds_)
+            out[f"engine_{b}"] = np.array(km.config.backend)
+            out[f"device_{b}"] = np.array(str(km.stats_.C.device))
+            n0 = float(np.sum(km.counts_, dtype=np.float64))
+            svc = ClusterService(
+                km, micro_batch=256, flush_after_s=0.05,
+                queue=IngestQueue(max_rows=4096, dedup=True)).start()
+            ids = np.arange(CB_SERVED)
+            try:
+                for _ in range(2):
+                    svc.ingest(E[ids], ids=ids.tolist())
+                deadline = time.monotonic() + 120.0
+                while svc.queue.depth and time.monotonic() < deadline:
+                    time.sleep(0.005)
+                out[f"labels_{b}"] = svc.predict(E[:4096])
+            finally:
+                svc.stop()
+            torch.cuda.synchronize()
+            out[f"counts_{b}"] = np.array(
+                [ops.launch_counts()[n] for n in REPLACES])
+            out[f"folded_{b}"] = np.float64(
+                np.sum(km.counts_, dtype=np.float64) - n0)
+            out[f"rows_{b}"] = np.int64(
+                svc.export_metrics()["refresh"]["rows"])
+            out[f"verified_{b}"] = np.bool_(svc.snapshot.verify())
+            sharded = NestedKMeans(FitConfig(k=CODEBOOK_K, backend=b),
+                                   mesh=make_host_mesh((world,), ("data",))
+                                   if b == "mesh" else
+                                   make_host_mesh((1, world),
+                                                  ("data", "model")),
+                                   device=DEV)
+            try:
+                ClusterService(sharded)
+                out[f"refused_{b}"] = np.array("")
+            except ValueError as e:
+                out[f"refused_{b}"] = np.array(str(e))
+        np.savez(os.path.join(root, f"rank{rank}_codebook.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def codebook_sharded(local: dict, launches: dict) -> None:
+    """(c): the codebook on one NCCL rank (mesh and xl), bit-equal to
+    (b)'s; then 2 gloo ranks sharing the card, whose adopted codebooks
+    must be within 1e-4 relative (Frobenius) of (b)'s and serve."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.serve import build_codebook
+    E, C = local["E"], local["C"]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for b in CB_BACKENDS:
+            t0 = time.perf_counter()
+            km, counts = _counted(launches, lambda: build_codebook(
+                E, CODEBOOK_K, LM_SEED, backend=b, device=DEV))
+            same = np.array_equal(km.cluster_centers_, C)
+            log(f"    (c) one {dist.get_backend()} rank, backend={b!r}: "
+                f"{km.n_rounds_} rounds in {time.perf_counter() - t0:.3f} s"
+                f", launches {counts}, adopted onto a "
+                f"{km.config.backend!r} estimator; codebook bit-equal to "
+                f"(b)'s: {same}")
+            need(same, f"the one-rank {b} codebook differs from (b)'s")
+    finally:
+        dist.destroy_process_group()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cb_")
+    try:
+        np.save(os.path.join(root, "E.npy"), E)
+        t0 = time.perf_counter()
+        _spawn_ranks(root, codebook_rank, world=MESH_RANKS,
+                     join_s=CB_JOIN_S)
+        wall = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(root, f"rank{r}_codebook.npz")))
+                 for r in range(MESH_RANKS)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    Cl = torch.from_numpy(C)
+    for b in CB_BACKENDS:
+        for r in ranks:
+            need(str(r[f"engine_{b}"]) == "local"
+                 and str(r[f"device_{b}"]).startswith(DEV),
+                 f"a rank's {b} codebook was adopted onto "
+                 f"{r[f'engine_{b}']} on {r[f'device_{b}']}")
+            need(np.array_equal(r[f"C_{b}"], ranks[0][f"C_{b}"]),
+                 f"the ranks hold different {b} codebooks")
+            need(float(r[f"folded_{b}"]) == int(r[f"rows_{b}"]) == CB_SERVED
+                 and bool(r[f"verified_{b}"]),
+                 f"a rank's {b} service folded {r[f'folded_{b}']} rows in "
+                 f"({r[f'rows_{b}']} by its metrics) of {CB_SERVED} unique")
+            need("Adopt the sharded fit" in str(r[f"refused_{b}"]),
+                 f"the {MESH_RANKS}-rank service over a {b} estimator was "
+                 f"not refused: {str(r[f'refused_{b}'])!r}")
+            for name, n in zip(REPLACES, r[f"counts_{b}"]):
+                launches[name] += int(n)
+        gap = _rel_gap(torch.from_numpy(ranks[0][f"C_{b}"]), Cl)
+        split = (f"k_local {CODEBOOK_K // MESH_RANKS}" if b == "xl"
+                 else "rows split")
+        agree = float((ranks[0][f"labels_{b}"]
+                       == ranks[1][f"labels_{b}"]).mean())
+        log(f"    (c) {MESH_RANKS} gloo ranks on the card, backend={b!r} "
+            f"({split}): "
+            f"{int(ranks[0][f'rounds_{b}'])} rounds, wall "
+            f"{_by_rank(ranks, f'wall_{b}')} s, launches by rank "
+            f"{[r[f'counts_{b}'].tolist() for r in ranks]}; the adopted "
+            f"codebook {gap:.3g} relative (Frobenius) from (b)'s; each "
+            f"rank's service folded {CB_SERVED} unique rows in once of "
+            f"{2 * CB_SERVED} delivered, labels of 4096 rows equal across "
+            f"ranks on {agree:.6f}; a {MESH_RANKS}-rank ClusterService over "
+            f"the sharded estimator refused")
+        need(gap <= 1e-4, f"the {MESH_RANKS}-rank {b} codebook is {gap:.3g} "
+             f"from (b)'s")
+    log(f"        the {MESH_RANKS} ranks took {wall:.1f} s")
+
+
+def serve_cli(model: dict, local: dict) -> None:
+    """(d): ``python -m repro_torch.launch.serve`` at full width with the
+    codebook, as a user runs it; its lines parsed and held to (a), (b)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           LM_ARCH, "--reduced" if LM_REDUCED else "--no-reduced",
+           "--codebook", str(CODEBOOK_K), "--device", DEV]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                       env=env, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = p.stdout
+    need(p.returncode == 0, f"the serve CLI exited {p.returncode}: "
+         f"{p.stderr[-2000:]}")
+
+    def line(pattern, what):
+        m = re.search(pattern, out)
+        need(m is not None, f"the serve CLI printed no {what} line:\n{out}")
+        return m
+
+    cb = line(r"codebook: k=(\d+) over \((\d+), (\d+)\) embeddings in "
+              r"([\d.]+)s \(rounds=(\d+), converged=(\w+)\)", "codebook")
+    tm = line(r"prefill (\d+)x(\d+) in ([\d.]+)ms; (\d+) decode steps in "
+              r"([\d.]+)ms \((\d+) tok/s\) on (\S+)", "timing")
+    ids = json.loads(line(r"generated token ids \(row 0\): (\[.*\])",
+                          "token")[1])
+    cells = json.loads(line(r"codebook cells  \(row 0\): (\[.*\])",
+                            "cells")[1])
+    sv = line(r"codebook service: (\d+) background refreshes over (\d+) "
+              r"embeddings, snapshot v(\d+) \(deduped=(\d+), batch MSE "
+              r"([\d.]+)\)", "service")
+    E = local["E"]
+    delivered = LM_BATCH * (LM_GEN - 1)
+    need(int(cb[1]) == CODEBOOK_K and (int(cb[2]), int(cb[3])) == E.shape
+         and int(cb[5]) == local["rounds"],
+         f"the CLI's codebook line differs from (b)'s fit: {cb[0]}")
+    need(ids == model["gen"][0].tolist(),
+         f"the CLI generated {ids}, (a) {model['gen'][0].tolist()}")
+    need(len(cells) == LM_GEN and all(0 <= c < CODEBOOK_K for c in cells),
+         f"the CLI's cells {cells}")
+    need(int(sv[2]) + int(sv[4]) == delivered,
+         f"the CLI's service folded {sv[2]} and deduped {sv[4]} of "
+         f"{delivered} delivered rows")
+    log(f"    (d) {' '.join(cmd[1:])}: rc 0 in {wall:.1f} s; codebook "
+        f"{cb[4]} s, {cb[5]} rounds (as (b)); prefill {tm[3]} ms, "
+        f"{tm[4]} decode steps in {tm[5]} ms ({tm[6]} tok/s) on {tm[7]}; "
+        f"row 0's tokens equal (a)'s; service: {sv[1]} refreshes over "
+        f"{sv[2]} embeddings, {sv[4]} deduped, snapshot v{sv[3]}")
+
+
+def lm_serve_phase(smi: str) -> dict:
+    """Phase 13: the serve entry point at tinyllama-1.1b's full width
+    with the k-means codebook over its embeddings. Returns the launch
+    counts of (b) and (c) (every process)."""
+    t0 = time.perf_counter()
+    log(f"[13] serving {LM_ARCH} with a k={CODEBOOK_K} codebook over its "
+        f"embeddings (repro_torch.launch.serve)")
+    launches = dict.fromkeys(REPLACES, 0)
+    model = lm_model(smi)
+    local = codebook_local(model, launches)
+    codebook_kernels(local, smi)
+    codebook_sharded(local, launches)
+    serve_cli(model, local)
+    log(f"    launches in phase 13 (every process): {launches}; phase 13 "
+        f"took {time.perf_counter() - t0:.1f} s")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 13")
+    del model, local
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3309,6 +3830,8 @@ def main() -> int:
     obs_phase(X, Xv, untraced)
     mesh_phase(X, Xv, untraced)
     xl_engine_phase(X, Xv, untraced, dev["smi"])
+    del X, Xv, untraced
+    lm = lm_serve_phase(dev["smi"])
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])
@@ -3316,7 +3839,8 @@ def main() -> int:
     times["fused_round"] = xl["times"]
     kernels = [dict(name=name, route="cuda", source=SOURCE.format(name),
                     replaces=REPLACES[name], launches=launches[name],
-                    max_abs_err=errs[name], **times[name])
+                    max_abs_err=errs[name], **times[name],
+                    launches_phase13=lm[name])
                for name in REPLACES]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(dev["smi"])

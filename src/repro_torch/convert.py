@@ -6,7 +6,9 @@ port's `KMeansState` on ``device``; `codebook_from_numpy` does the same
 for a fitted codebook (centroids and counts). The tests use them to start
 one round from the same state in both packages. `outcome_from_numpy`
 carries a whole JAX `FitOutcome` over, so that a serving process can
-`adopt` a codebook the JAX package fitted. Only attribute access and the
+`adopt` a codebook the JAX package fitted. `params_from_numpy` carries a
+dense model's parameter tree over, so that both packages compute with
+the same weights. Only attribute access and the
 records' `to_dict` forms are used, so this module imports nothing of the
 JAX package.
 
@@ -80,3 +82,44 @@ def outcome_from_numpy(outcome, device="cuda") -> FitOutcome:
         config=FitConfig.from_dict(cfg),
         kernel_plan=(None if outcome.kernel_plan is None
                      else dict(outcome.kernel_plan)))
+
+
+#: the parameter tree of the dense family: top-level keys and a block's
+_DENSE_TOP = {"embed", "blocks", "ln_f", "lm_head"}
+_DENSE_BLOCK = {"ln1", "attn", "ln2", "mlp"}
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``device``. numpy has no bfloat16: a
+    JAX bf16 array comes as an ``ml_dtypes.bfloat16`` array, which
+    `torch.from_numpy` refuses, so it is bit-cast through int16."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(x).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The port's parameter tree for a JAX model's (``jax.tree.map(
+    np.asarray, params)``), leaf for leaf with the same dtypes and shapes
+    (blocks stacked over periods, as in both packages). Only the dense
+    family is carried: a tree with other parts (MoE, Mamba, cross
+    attention, an encoder) raises `NotImplementedError` (ROADMAP Queue 1
+    item 10)."""
+    device = resolve_device(device)
+    blocks = tree.get("blocks", {})
+    extra = set(tree) - _DENSE_TOP
+    extra |= {k for b in blocks.values() for k in set(b) - _DENSE_BLOCK}
+    if extra or set(blocks) != {"0"}:
+        raise NotImplementedError(
+            f"params_from_numpy carries the dense family only; this tree "
+            f"has {sorted(extra) or sorted(blocks)} (ROADMAP Queue 1 item "
+            f"10)")
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _tensor(x, device)
+
+    return conv(tree)

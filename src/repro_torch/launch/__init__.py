@@ -1,1 +1,1 @@
-"""Meshes of the port (`repro.launch`)."""
+"""Launchers of the port (`repro.launch`): meshes and the serve CLI."""

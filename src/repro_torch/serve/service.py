@@ -35,6 +35,16 @@ updates are no longer trusted: the service escalates to a full
 (checkpointed, killable+resumable) `fit` over its retained history
 reservoir — still on the refresher thread, with predict traffic served
 from the last snapshot throughout.
+
+A sharded estimator (``backend`` mesh, xl or multihost) refreshes
+through its engine's `partial_fit`, whose collectives every rank of the
+group must enter with the same rows. The refresher's micro-batches
+depend on timing, so the ranks of a group of more than one would enter
+them with different rows, or wait on each other forever: the service
+refuses such an estimator at construction (JAX's single controller has
+no such ranks). Over one rank it serves as over the local engine. To
+serve a codebook fitted over several ranks, adopt its stats onto a local
+estimator on each rank (`repro_torch.launch.serve.build_codebook`).
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.api.estimator import NestedKMeans, NotFittedError
 from repro_torch.kernels import ops
@@ -85,6 +96,16 @@ class ClusterService:
                  metrics: Optional[ServeMetrics] = None):
         if micro_batch < 1:
             raise ValueError(f"micro_batch must be >= 1, got {micro_batch}")
+        backend = estimator.config.backend
+        if (backend != "local" and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise ValueError(
+                f"ClusterService cannot refresh a backend={backend!r} "
+                f"estimator over {dist.get_world_size()} ranks: the "
+                f"refresher's timing-dependent micro-batches would enter "
+                f"partial_fit's collectives with different rows on each "
+                f"rank. Adopt the sharded fit onto a local estimator on "
+                f"each rank (as build_codebook does) and serve that")
         self._km = estimator
         self.queue = queue or IngestQueue(
             max_rows=max(4 * micro_batch, estimator.config.k), seed=seed)

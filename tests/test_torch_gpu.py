@@ -1091,3 +1091,106 @@ def test_two_gloo_model_ranks_on_one_card(cuda, tmp_path):
         for key in ("C_1x2_card", "labels_1x2_card", "tel_1x2_card"):
             np.testing.assert_array_equal(r[key], ranks[0][key])
     assert ranks[0]["labels_1x2_card"].min() >= 0
+
+
+# -- the dense model and the serve entry point on the card --------------------
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+def test_dense_model_on_card_matches_cpu(cuda):
+    """The reduced tinyllama's weights made on the CPU and copied to the
+    card: prefill and decode logits within 6e-2 of the CPU's (bf16
+    activations); the attention in f32 within 1e-5, TF32 off."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train import step as tstep
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_reduced("tinyllama-1.1b")
+    params = M.init_params(1, cfg, "cpu")
+    toks = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab, (2, 17)))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda))):
+        t = toks.to(dev)
+        lp, cache = tstep.make_prefill_step(cfg, cache_len=21)(
+            p, {"tokens": t[:, :-1]})
+        ld, _ = tstep.make_decode_step(cfg)(p, t[:, -1:], cache)
+        out[dev] = (lp.cpu(), ld.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=6e-2, atol=6e-2)
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, s, h, 16))
+                                .astype(np.float32))
+               for s, h in ((48, 4), (64, 2), (64, 2)))
+    kw = dict(causal=True, q_chunk=16, kv_chunk=16, q_offset=16)
+    want = L.flash_attention(q, k, v, **kw)
+    got = L.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_build_codebook_on_card_runs_the_kernels(cuda):
+    """The codebook over the reduced tinyllama's embedding table on the
+    card: kernels 1 and 3 launched (never their plain versions), the
+    same bits twice, its MSE within 1e-3 of the CPU fit's, and its
+    service folding each id in once."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_codebook
+    from repro_torch.models import model as M
+    from repro_torch.serve import ClusterService, IngestQueue
+    E = M.init_params(1, configs.get_reduced("tinyllama-1.1b"), "cpu")[
+        "embed"].float().numpy()
+    ops.reset_launch_counts()
+    km = build_codebook(E, 16, 0, device=cuda)
+    km.predict(E)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["assign_top2"] > 0 and counts["fused_nested_round"] > 0
+    assert km.outcome_.kernel_plan["backend"] == "cuda"
+    again = build_codebook(E, 16, 0, device=cuda)
+    np.testing.assert_array_equal(again.cluster_centers_,
+                                  km.cluster_centers_)
+    cpu = build_codebook(E, 16, 0, device="cpu")
+
+    def mse(C):
+        d = ((E[:, None, :] - C[None]) ** 2).sum(-1)
+        return float(d.min(1).mean())
+
+    assert abs(mse(km.cluster_centers_) - mse(cpu.cluster_centers_)) <= \
+        1e-3 * mse(cpu.cluster_centers_)
+    n0 = float(km.counts_.sum())
+    svc = ClusterService(km, micro_batch=32, flush_after_s=0.01,
+                         queue=IngestQueue(max_rows=1024, dedup=True))
+    svc.start()
+    try:
+        ids = np.arange(64)
+        svc.ingest(E[ids], ids=ids.tolist())
+        svc.ingest(E[ids], ids=ids.tolist())
+    finally:
+        svc.stop()
+    assert float(km.counts_.sum()) == n0 + 64
+    assert svc.snapshot.verify()
+
+
+@pytest.mark.gpu
+def test_serve_cli_on_card(cuda):
+    """``python -m repro_torch.launch.serve --codebook 16`` on the card
+    (its default device), reduced: rc 0 and its service line."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "tinyllama-1.1b", "--codebook", "16"], capture_output=True,
+        text=True, timeout=300, cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert p.returncode == 0, p.stderr
+    assert "on cuda" in p.stdout and "codebook service:" in p.stdout

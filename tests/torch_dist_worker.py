@@ -6,7 +6,8 @@ The test spawns ``world`` ranks of `run` with
 rank joins the group through a `FileStore` file, builds the mesh, runs one
 case on its shard of the inputs the test wrote to ``inputs.npz`` (the
 round cases), or fits the whole of them through the mesh engines (the
-``mesh`` case, whose parts the test names in ``inputs.npz``), and writes
+``mesh`` case, whose parts the test names in ``inputs.npz``) or through
+the serve launcher's `build_codebook` (the ``codebook`` case), and writes
 its outputs to ``rank<r>.npz`` beside it. This module imports no JAX:
 only torch, numpy and the port. tests/jax_mesh_oracle.py reads the fit's
 config and the kill schedule from here.
@@ -487,8 +488,57 @@ def _xl_engine(mesh, inp):
     return out
 
 
+#: the codebook case: each backend's build_codebook, then its service
+CODEBOOK_BACKENDS = ("mesh", "xl")
+CODEBOOK_SERVED = 96
+
+
+def _codebook(mesh, inp):
+    """`build_codebook` of ``inp["E"]`` at ``k`` on each backend of
+    `CODEBOOK_BACKENDS` over the whole group (its own (data, model)
+    mesh), the adopted local codebook's service folding in the first
+    `CODEBOOK_SERVED` rows, and a `ClusterService` over a sharded
+    estimator of the group, which must be refused."""
+    import time
+
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.launch.serve import build_codebook
+    from repro_torch.serve import ClusterService, IngestQueue
+    E, k = inp["E"], int(inp["k"])
+    out = {}
+    for backend in CODEBOOK_BACKENDS:
+        km = build_codebook(E, k, 0, backend=backend, device="cpu")
+        out[f"C_{backend}"] = km.cluster_centers_
+        out[f"engine_{backend}"] = np.array(km.config.backend)
+        n0 = float(np.sum(km.counts_))
+        svc = ClusterService(km, micro_batch=32, flush_after_s=0.01,
+                             queue=IngestQueue(max_rows=1024, dedup=True))
+        svc.start()
+        ids = np.arange(CODEBOOK_SERVED)
+        # every row twice: dedup by id keeps one of each
+        svc.ingest(E[ids], ids=ids.tolist())
+        svc.ingest(E[ids], ids=ids.tolist())
+        deadline = time.monotonic() + 30.0
+        while svc.queue.depth and time.monotonic() < deadline:
+            time.sleep(0.005)
+        svc.stop()
+        out[f"folded_{backend}"] = np.float64(np.sum(km.counts_) - n0)
+        out[f"rows_{backend}"] = np.int64(
+            svc.export_metrics()["refresh"]["rows"])
+        out[f"labels_{backend}"] = svc.predict(E)
+        out[f"verified_{backend}"] = np.bool_(svc.snapshot.verify())
+        sharded = NestedKMeans(FitConfig(k=k, backend=backend),
+                               mesh=mesh, device="cpu")
+        try:
+            ClusterService(sharded)
+            out[f"refused_{backend}"] = np.array("")
+        except ValueError as e:
+            out[f"refused_{backend}"] = np.array(str(e))
+    return out
+
+
 CASES = {"dp": _dp, "xl": _xl, "sharded": _sharded, "mesh": _mesh,
-         "xl_engine": _xl_engine}
+         "xl_engine": _xl_engine, "codebook": _codebook}
 
 
 def spawn(out_dir, case: str, shape, axes, *, timeout_s: float = 120.0,
