@@ -166,7 +166,7 @@ Phases (each raises on failure, so any fault exits non-zero):
      must be <= 1.0 (higher means the roofline model is wrong), and the
      last and mean utilization, each round's bottleneck and the spans'
      totals are logged. (b) After a warm-up, untraced fits, traced fits
-     and fits whose observer is the no-op seam rotate, 8 each; the
+     and fits whose observer is the no-op seam rotate, 4 each; the
      median per-round wall of each (the work clock, which stops before
      the round reaches the sink) is logged beside the JAX package's 3 %
      claim (benchmarks/obs_overhead.py), and each fit's wall is split
@@ -181,8 +181,14 @@ Phases (each raises on failure, so any fault exits non-zero):
      the rows (65,536-row chunks, as in phase 8): the device buffer's
      pointer must never move, and no growth may allocate a second
      buffer; what a growth allocates is logged against the buffer's
-     bytes. The launch counts are set to 0 before (a) and read
-     after (e): kernels 1-3 must be > 0.
+     bytes. (f) hostsync and retrace (JAX's audit fits) on mesh, xl and
+     multihost: one NCCL rank in this process, whose collectives are the
+     identity, so the gloo staging scope opens 0 times; then 2 spawned
+     ranks, a gloo group on the card, whose collectives of CUDA tensors
+     stage through the host in that scope: 0 unsanctioned syncs in every
+     rank, the staged collectives and their syncs logged a round. Every
+     rank's first-seen keys must equal its buckets. The launch counts
+     are set to 0 before (a) and read after (f): kernels 1-3 must be > 0.
   11. the mesh and multihost engines on phase 4's rows and config: (a) a
      one-process ``backend="multihost"`` fit, which joins a one-rank NCCL
      group from its coordinator fields, then a ``backend="mesh"`` fit
@@ -278,9 +284,29 @@ Phases (each raises on failure, so any fault exits non-zero):
      tinyllama-1.1b --no-reduced --codebook 1024`` as a subprocess: rc 0,
      its lines parsed, its codebook's rounds (b)'s and row 0's tokens
      (a)'s. Kernels 1-3 must be launched in the phase.
+  14. LM training (`repro_torch.launch.train`'s step) at tinyllama-1.1b's
+     full width from seed 0, the CLI's defaults (batch 8, seq 128, 2
+     microbatches, lr 3e-4 warmed up over 10 steps; `LMBatches` from seed
+     0): (a) 20 steps, the loss must fall from step 0 to step 19; ms a
+     step, tokens/s and peak memory are logged, and a 22nd step is
+     profiled. (b) The first step's loss and gradients at full width but
+     2 layers, bf16 against the same weights upcast to f32: the loss
+     within 6e-2, each leaf's gradient within 5e-2 relative (Frobenius).
+     (c) The same 6 steps twice: every param, moment and the count
+     bit-equal; a run checkpointed in the background after step 3 under
+     ``tempfile.mkdtemp()`` (removed after), killed, restored into a
+     state made from another seed and resumed: bit-equal at step 6. (d)
+     `build_codebook` with k=1024 over (a)'s trained 32000 x 2048 table:
+     kernels 1-3 launched, a second fit bit-equal, its float64 MSE within
+     1e-3 of the ref plan's; kernels 1-3 held at the fit's shapes as in
+     phase 13. (e) ``python -m repro_torch.launch.train --arch
+     tinyllama-1.1b --steps 4 --ckpt-dir DIR`` as a subprocess, then
+     ``--steps 6`` resumed from it: rc 0, step 0's loss (a)'s and step
+     5's (c)'s. Kernels 1-3 must be launched in the phase.
 
 The last two lines are a JSON object of the kernels (each with its
-main path's ``launches`` and phase 13's ``launches_phase13``) and the JSON
+main path's ``launches`` and phases 13 and 14's ``launches_phase13``
+and ``launches_phase14``) and the JSON
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -295,6 +321,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -305,6 +332,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # fails without the rest of the repository beside this script
 from repro_torch.roofline.analysis import (  # noqa: E402
     PEAK_TF32_FLOPS, roofline_terms)
+from repro_torch.util.tree import tree_leaves, tree_map  # noqa: E402
 
 N, D, K = 400_000, 784, 50           # KMEANS_INFMNIST
 N_VAL = 10_000
@@ -790,7 +818,8 @@ def profile_report(prof, wall_s: float, wall_profiled_s: float,
                   and not e.key.startswith("ProfilerStep")),
                  key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    log(f"    profile: device busy {busy_ms:.1f} ms = "
+    log(f"    profile: device busy {busy_ms:.1f} ms in "
+        f"{sum(e.count for e in dev)} kernels and copies = "
         f"{busy_ms / 10 / wall_profiled_s:.1f} % of the profiled {what}'s "
         f"wall {wall_profiled_s:.2f} s ({busy_ms / 10 / wall_s:.1f} % of "
         f"the unprofiled {what}'s {wall_s:.2f} s)")
@@ -2365,6 +2394,7 @@ def obs_phase(X, Xv, untraced) -> dict:
         log(f"    (e) in-place check of a store fit ({STORE_CHUNK_ROWS}-row "
             f"chunks): {len(found)} violations {[str(v) for v in found]}")
         need(found == [], "the store fit's buffer was not filled in place")
+        sharded_audits()
     finally:
         shutil.rmtree(root, ignore_errors=True)
         alog.removeHandler(handler)
@@ -2375,6 +2405,80 @@ def obs_phase(X, Xv, untraced) -> dict:
     for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
         need(launches[name] > 0, f"{name} was never launched in phase 10")
     return launches
+
+
+#: (f): the sharded backends the audits run on and the spawned ranks
+AUDIT_BACKENDS = ("mesh", "xl", "multihost")
+AUDIT_RANKS = 2
+
+
+def _audit_report(what: str, ranks: list, one_rank: bool) -> None:
+    """Log and hold what each rank's hostsync and retrace audits found on
+    each backend of `AUDIT_BACKENDS` (`analysis.ranks.audit_rank`)."""
+    for b in AUDIT_BACKENDS:
+        hs = [r["hostsync"][b] for r in ranks]
+        rt = [r["retrace"][b] for r in ranks]
+        rounds = [st["rounds"] for _, st in hs]
+        staged = [st["staged"] for _, st in hs]
+        syncs = [st["staged_syncs"] for _, st in hs]
+        log(f"        {what}, backend={b!r}: hostsync violations by rank "
+            f"{[len(v) for v, _ in hs]} over rounds {rounds}; gloo "
+            f"collectives of CUDA tensors in them {staged} "
+            f"({[round(n / max(m, 1), 3) for n, m in zip(staged, rounds)]} a "
+            f"round), syncs they made (sanctioned) {syncs} "
+            f"({[round(n / max(m, 1), 3) for n, m in zip(syncs, rounds)]} a "
+            f"round); retrace violations {[len(v) for v, _ in rt]}, round "
+            f"calls {[st['calls'] for _, st in rt]}, first-seen keys "
+            f"{[st['keys'] for _, st in rt]} over buckets "
+            f"{[st['buckets'] for _, st in rt]}: {rt[0][1]['invoked']}")
+        for v, _ in hs + rt:
+            for x in v:
+                log(f"            {x}")
+        need(all(not v for v, _ in hs), f"{what}: the {b} hostsync audit "
+             f"found unsanctioned synchronisations")
+        need(all(not v for v, _ in rt), f"{what}: the {b} retrace audit "
+             f"found violations")
+        need(all(st["keys"] == st["buckets"] > 1 for _, st in rt),
+             f"{what}: the {b} fit's first-seen keys are not its buckets")
+        need(all(st["invoked"] == rt[0][1]["invoked"] for _, st in rt),
+             f"{what}: the ranks' {b} fits invoked different buckets")
+        if one_rank:
+            need(staged == [0], f"{what}: the {b} audit opened the gloo "
+                 f"staging scope {staged} times")
+
+
+def sharded_audits() -> None:
+    """(f): hostsync and retrace on the sharded backends (JAX's audit
+    fits): one NCCL rank in this process, whose collectives are the
+    identity, so the gloo staging scope must open 0 times; then
+    `AUDIT_RANKS` spawned ranks, a gloo group on the one card, whose
+    collectives stage through the host: 0 unsanctioned syncs, the
+    sanctioned ones logged a round."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis.ranks import (RANK_CHECKS, audit_rank,
+                                            spawn_audits)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()
+        backend = dist.get_backend()
+        one = audit_rank(RANK_CHECKS, AUDIT_BACKENDS, device=DEV)
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    log(f"    (f) hostsync and retrace on {', '.join(AUDIT_BACKENDS)} (JAX's "
+        f"audit fits: 2048 and 4096 x 8 rows, k=8), one {backend} rank, "
+        f"{wall:.1f} s:")
+    _audit_report(f"one {backend} rank", [one], one_rank=True)
+    t0 = time.perf_counter()
+    ranks = spawn_audits(RANK_CHECKS, AUDIT_BACKENDS, ranks=AUDIT_RANKS,
+                         device=DEV)
+    log(f"        {AUDIT_RANKS} spawned ranks, a gloo group on the card, "
+        f"{time.perf_counter() - t0:.1f} s:")
+    _audit_report(f"{AUDIT_RANKS} gloo ranks", ranks, one_rank=False)
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2518,22 +2622,10 @@ def _spawn_ranks(root: str, fn=None, world: int = MESH_RANKS,
     """Runs ``fn`` (default `mesh_rank`) on ``world`` spawned ranks and
     waits for them; a rank that is still running at the deadline is
     killed."""
-    import torch.multiprocessing as tmp
-    ctx = tmp.start_processes(
-        fn or mesh_rank, args=(world, root,
-                               f"tcp://localhost:{_free_port()}"),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + join_s
-    try:
-        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise Failure(f"the {world} ranks did not finish in "
-                              f"{join_s} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
+    from repro_torch.analysis.ranks import spawn_and_join
+    fn = fn or mesh_rank
+    spawn_and_join(fn, (world, root, f"tcp://localhost:{_free_port()}"),
+                   world, join_s, fn.__name__)
 
 
 def _rank_fits(root: str, tag: str, plan: str = "cuda",
@@ -3385,7 +3477,7 @@ def lm_model(smi: str) -> dict:
     params = M.init_params(LM_SEED, cfg, DEV)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     need(n_params == cfg.param_count() + cfg.d_model,
          f"the model has {n_params} parameters, its config "
          f"{cfg.param_count()} (+ the final norm's {cfg.d_model})")
@@ -3450,14 +3542,6 @@ def lm_model(smi: str) -> dict:
             "gen": res["gen"]}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _codebook_mse(E, C) -> float:
     """Mean squared distance of E's rows to their nearest centroid,
     float64, on the card."""
@@ -3485,18 +3569,14 @@ def _served(svc, gen: np.ndarray, E, n0: float, km, what: str) -> dict:
             "refreshes": m["refresh"]["count"], "version": snap.version}
 
 
-def codebook_local(model: dict, launches: dict) -> dict:
-    """(b): the codebook over the embedding table through
-    `build_codebook`, repeated, on the ref plan, then its service fed the
-    served tokens of a greedy decode through `generate`."""
+def codebook_fits(E, launches: dict, what: str):
+    """`build_codebook` with k = `CODEBOOK_K` over the table ``E`` (the
+    CLI's fit), launching kernels 1-3, then again (bit-equal) and on the
+    ref plan (the table's float64 MSE within 1e-3). Returns the fit."""
     import dataclasses
 
     from repro_torch.api import NestedKMeans
-    from repro_torch.kernels import ref
-    from repro_torch.launch.serve import build_codebook, generate
-    from repro_torch.serve import ClusterService, IngestQueue
-    cfg, params = model["cfg"], model["params"]
-    E = params["embed"].float().cpu().numpy()
+    from repro_torch.launch.serve import build_codebook
 
     def fit():
         torch.cuda.synchronize()
@@ -3519,8 +3599,7 @@ def codebook_local(model: dict, launches: dict) -> dict:
          "the ref fit did not run the plain versions")
     mse, mse_ref = (_codebook_mse(E, k.cluster_centers_) for k in (km, kr))
     rel = abs(mse - mse_ref) / mse_ref
-    C_fit, rounds = km.cluster_centers_, km.n_rounds_
-    log(f"    (b) build_codebook(k={CODEBOOK_K}) over the {E.shape} "
+    log(f"    {what} build_codebook(k={CODEBOOK_K}) over the {E.shape} "
         f"embedding table (b0 {km.config.b0}, at most "
         f"{km.config.max_rounds} rounds): {km.n_rounds_} rounds, converged "
         f"{km.converged_}, wall {wall:.3f} s (repeat {wall2:.3f} s; rounds "
@@ -3532,7 +3611,20 @@ def codebook_local(model: dict, launches: dict) -> dict:
     need(same, "two codebook fits differ")
     need(rel <= 1e-3, f"the codebook's MSE is {rel:.3g} from the ref "
          f"fit's")
-    del kr
+    return km
+
+
+def codebook_local(model: dict, launches: dict) -> dict:
+    """(b): the codebook over the embedding table through
+    `build_codebook`, repeated, on the ref plan, then its service fed the
+    served tokens of a greedy decode through `generate`."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.serve import ClusterService, IngestQueue
+    cfg, params = model["cfg"], model["params"]
+    E = params["embed"].float().cpu().numpy()
+    km = codebook_fits(E, launches, "(b)")
+    C_fit, rounds = km.cluster_centers_, km.n_rounds_
 
     def serve():
         svc = ClusterService(
@@ -3809,6 +3901,308 @@ def lm_serve_phase(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+#: phase 14: the train CLI's defaults at tinyllama-1.1b's full width
+#: (batch 8, seq 128, 2 microbatches, lr 3e-4 warmed up over 10 steps);
+#: (a)'s steps, (c)'s steps and the step after which (c)'s run is killed,
+#: (b)'s layers and tolerances (bf16 against the same weights in f32),
+#: and (e)'s steps and its checkpoint interval
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR = 8, 128, 2, 3e-4
+TRAIN_STEPS, TRAIN_DET_STEPS, TRAIN_KILL_AT = 20, 6, 3
+TRAIN_GRAD_LAYERS, TRAIN_LOSS_TOL, TRAIN_GRAD_RTOL = 2, 6e-2, 5e-2
+TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 4, 2
+
+
+def _train_state(cfg, seed: int = LM_SEED):
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    params = M.init_params(seed, cfg, DEV)
+    return params, adamw.init(params)
+
+
+def _train_steps(cfg, params, opt, steps, *, timed=None, store=None):
+    """``steps`` of the train CLI's step on `LMBatches` from `LM_SEED`
+    (its data, its optimizer for a run of up to 100 steps); returns
+    (params, opt, losses as 0-d tensors). ``timed`` collects each step's
+    wall (the device drained); ``store`` takes a background checkpoint
+    after step `TRAIN_KILL_AT` - 1, labelled `TRAIN_KILL_AT` (the steps
+    it holds), as the CLI's ``--ckpt-every TRAIN_KILL_AT`` would."""
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    step = tstep.make_train_step(
+        cfg, n_micro=TRAIN_MICRO,
+        opt_cfg=adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                                  decay_steps=100))
+    data = LMBatches(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     seed=LM_SEED)
+    losses = []
+    for s in steps:
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in data.at(s).items()}
+        if timed is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        if timed is not None:
+            torch.cuda.synchronize()
+            timed.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        if store is not None and s == TRAIN_KILL_AT - 1:
+            store.save(TRAIN_KILL_AT, {"params": params, "opt": opt},
+                       background=True)
+    return params, opt, losses
+
+
+def _state_leaves(params, opt):
+    return (tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
+            + [opt.count])
+
+
+def train_steps_phase(smi: str) -> dict:
+    """(a): `TRAIN_STEPS` steps at full width; the loss must fall from
+    the first step to the last. Then two more steps, the second one
+    profiled (device busy share, the ops that take the device and the
+    host). Returns the trained embedding table (before the profiled
+    steps) and the losses."""
+    cfg = _lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = _train_state(cfg)
+    walls = []
+    params, opt, losses = _train_steps(cfg, params, opt, range(TRAIN_STEPS),
+                                       timed=walls)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    ms = float(np.median(walls[1:])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"    (a) {cfg.arch_id} at full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, "
+        f"{sum(t.numel() for t in tree_leaves(params)):,} bf16 parameters "
+        f"from seed {LM_SEED}, f32 moments and accumulators), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} in "
+        f"{TRAIN_MICRO} microbatches, remat on: {TRAIN_STEPS} steps, "
+        f"{ms:.3f} ms a step (median of steps 1-{TRAIN_STEPS - 1}; step 0 "
+        f"{walls[0] * 1e3:.3f} ms; min {min(walls[1:]) * 1e3:.3f}, max "
+        f"{max(walls[1:]) * 1e3:.3f}), {tokens / ms * 1e3:.0f} tokens/s, "
+        f"peak {peak:.2f} GiB ({smi}); loss by step "
+        f"{[round(x, 4) for x in losses]}")
+    need(all(math.isfinite(x) for x in losses), "a training loss is not "
+         "finite")
+    need(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} at "
+         f"step 0, {losses[-1]} at step {TRAIN_STEPS - 1}")
+    E = params["embed"].float().cpu().numpy()
+    state = {"params": params, "opt": opt, "step": TRAIN_STEPS}
+
+    def one_step():
+        s = state["step"]
+        state["params"], state["opt"], _ = _train_steps(
+            cfg, state["params"], state["opt"], range(s, s + 1))
+        torch.cuda.synchronize()
+        state["step"] = s + 1
+
+    t_prof = []
+
+    def report(prof):            # the profiled step is the last one
+        profile_report(prof, ms / 1e3, t_prof[-1], what="train step")
+
+    def timed_step():
+        t0 = time.perf_counter()
+        one_step()
+        t_prof.append(time.perf_counter() - t0)
+
+    trace_again(timed_step, report)
+    del state, params, opt
+    torch.cuda.empty_cache()
+    return {"E": E, "losses": losses, "ms": ms}
+
+
+def train_grads_phase() -> None:
+    """(b): the first step's loss and gradients at full width but
+    `TRAIN_GRAD_LAYERS` layers: bf16 against the same weights upcast to
+    f32 (the model then runs in f32), on the first microbatch."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(_lm_config(), n_layers=TRAIN_GRAD_LAYERS)
+    params = M.init_params(LM_SEED, cfg, DEV)
+    data = LMBatches(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     seed=LM_SEED)
+    mb = {k: torch.from_numpy(v[:TRAIN_BATCH // TRAIN_MICRO]).to(DEV)
+          for k, v in data.at(0).items()}
+    out = {}
+    for arm, tree in (("bf16", params),
+                      ("f32", tree_map(lambda p: p.float(), params))):
+        live = tree_map(lambda p: p.detach().requires_grad_(), tree)
+        loss, _ = M.train_loss(live, mb, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        out[arm] = (float(loss.detach()), [g.double() for g in grads])
+    errs = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+            for a, b in zip(out["bf16"][1], out["f32"][1])]
+    gap = abs(out["bf16"][0] - out["f32"][0])
+    log(f"    (b) the first step at full width, {TRAIN_GRAD_LAYERS} layers, "
+        f"on a {TRAIN_BATCH // TRAIN_MICRO} x {TRAIN_SEQ} microbatch: loss "
+        f"bf16 {out['bf16'][0]!r}, f32 {out['f32'][0]!r} (gap {gap:.3g}, "
+        f"held to {TRAIN_LOSS_TOL}); each leaf's gradient, relative "
+        f"(Frobenius) to the f32 arm's, held to {TRAIN_GRAD_RTOL}: max "
+        f"{max(errs):.4g}, by leaf {[round(e, 5) for e in errs]}")
+    need(gap <= TRAIN_LOSS_TOL, f"the bf16 loss is {gap} from the f32 one")
+    need(max(errs) <= TRAIN_GRAD_RTOL, f"a bf16 gradient is {max(errs):.3g} "
+         f"from the f32 one")
+    del params, out
+    torch.cuda.empty_cache()
+
+
+def train_repeat_phase() -> list:
+    """(c): the same `TRAIN_DET_STEPS` steps twice give the same bits;
+    a run checkpointed after step `TRAIN_KILL_AT` (in the background),
+    killed, and restored into a state made from another seed, resumed to
+    `TRAIN_DET_STEPS`, gives them too. Returns the unbroken run's
+    losses."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    cfg = _lm_config()
+    p, o = _train_state(cfg)
+    p, o, losses = _train_steps(cfg, p, o, range(TRAIN_DET_STEPS))
+    want = _state_leaves(p, o)
+    p2, o2 = _train_state(cfg)
+    p2, o2, _ = _train_steps(cfg, p2, o2, range(TRAIN_DET_STEPS))
+    twice = [bool(torch.equal(a, b)) for a, b in
+             zip(want, _state_leaves(p2, o2))]
+    del p2, o2
+    log(f"    (c) {TRAIN_DET_STEPS} steps twice: every param, moment and "
+        f"the count bit-equal: {all(twice)} ({sum(twice)} of {len(twice)} "
+        f"leaves)")
+    need(all(twice), "two runs of the same training steps differ")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        store = CheckpointStore(root)
+        p3, o3 = _train_state(cfg)
+        t0 = time.perf_counter()
+        _train_steps(cfg, p3, o3, range(TRAIN_KILL_AT), store=store)
+        t_save = time.perf_counter() - t0
+        store.wait()
+        size = sum(f.stat().st_size for f in Path(root).rglob("*"))
+        del p3, o3                          # the killed run
+        t0 = time.perf_counter()
+        tp, to = _train_state(cfg, seed=LM_SEED + 1)
+        got = store.restore({"params": tp, "opt": to}, device=DEV)
+        del tp, to
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        p4, o4, _ = _train_steps(cfg, got["params"], got["opt"],
+                                 range(TRAIN_KILL_AT, TRAIN_DET_STEPS))
+        same = [bool(torch.equal(a, b)) for a, b in
+                zip(want, _state_leaves(p4, o4))]
+        del got, p4, o4
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"        killed after step {TRAIN_KILL_AT} (its background "
+        f"checkpoint {size / 2 ** 30:.2f} GiB; {TRAIN_KILL_AT} steps and "
+        f"the save's copy {t_save:.2f} s), restored into a state from seed "
+        f"{LM_SEED + 1} in {t_restore:.2f} s and resumed: bit-equal at "
+        f"step {TRAIN_DET_STEPS}: {all(same)}")
+    need(all(same), "the resumed training run differs from the unbroken one")
+    del p, o, want
+    torch.cuda.empty_cache()
+    return [float(x) for x in losses]
+
+
+def train_cli(first: dict, repeat_losses: list) -> None:
+    """(e): ``python -m repro_torch.launch.train`` at full width as a user
+    runs it: `TRAIN_CLI_STEPS` steps under a temp dir, a checkpoint every
+    `TRAIN_CLI_EVERY`; step 0's loss must be (a)'s and the last step's
+    (c)'s. Then its final checkpoint is taken away, as a kill before the
+    final save leaves the directory, and the same command resumes from
+    the mid-run checkpoint: its last step line must be the unbroken
+    run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    step_re = (r"step +(\d+) loss (\d+\.\d{4}) lr (\S+) gnorm (\S+) "
+               r"\(([\d.]+)s\)")
+    steps, every = TRAIN_CLI_STEPS, TRAIN_CLI_EVERY
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           LM_ARCH, "--steps", str(steps), "--ckpt-every", str(every),
+           "--ckpt-dir", root, "--device", DEV]
+    if LM_REDUCED:
+        cmd.append("--reduced")
+
+    def run():
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                           env=env, timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        need(p.returncode == 0, f"the train CLI exited {p.returncode}: "
+             f"{p.stderr[-2000:]}")
+        lines = p.stdout.splitlines()
+        got = {int(m[1]): m for m in (re.fullmatch(step_re, ln)
+                                      for ln in lines) if m}
+        need(f"final checkpoint at step {steps}" in lines,
+             f"the train CLI printed no final checkpoint:\n{p.stdout}")
+        return wall, lines, got
+
+    try:
+        wall, lines, got = run()
+        last = steps - 1
+        need(sorted(got) == [0, last]
+             and got[0][2] == f"{first['losses'][0]:.4f}"
+             and got[last][2] == f"{repeat_losses[last]:.4f}",
+             f"the CLI's steps {sorted(got)}, its losses "
+             f"{[m[2] for m in got.values()]} against (a)'s step 0 "
+             f"{first['losses'][0]:.4f} and (c)'s step {last} "
+             f"{repeat_losses[last]:.4f}")
+        saved = CheckpointStore(root).steps()
+        need(saved[-2:] == [steps - every, steps], f"the CLI saved steps "
+             f"{saved}")
+        for d in Path(root).glob(f"step_{steps:09d}*"):
+            shutil.rmtree(d)
+        wall2, lines2, got2 = run()
+        need(f"resumed from checkpoint at step {steps - every}" in lines2
+             and sorted(got2) == [last]
+             and got2[last].groups()[:4] == got[last].groups()[:4],
+             f"the resumed CLI printed {lines2}; the unbroken run's step "
+             f"{last}: {got[last][0]}")
+        log(f"    (e) {' '.join(cmd[1:])}: rc 0 in {wall:.1f} s; "
+            f"{lines[0]}; {' / '.join(m[0] for m in got.values())} (step "
+            f"0's loss (a)'s, step {last}'s (c)'s); checkpoints {saved}. "
+            f"Its final checkpoint taken away, the same command: rc 0 in "
+            f"{wall2:.1f} s, resumed from step {steps - every}, "
+            f"{' / '.join(m[0] for m in got2.values())} (the unbroken "
+            f"run's loss, lr and gnorm)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def lm_train_phase(smi: str) -> dict:
+    """Phase 14: LM training at tinyllama-1.1b's full width, then the
+    codebook over the trained table. Returns the launch counts of (d)."""
+    t0 = time.perf_counter()
+    log(f"[14] training {LM_ARCH} (repro_torch.launch.train's step), then "
+        f"a k={CODEBOOK_K} codebook over the trained embeddings")
+    launches = dict.fromkeys(REPLACES, 0)
+    first = train_steps_phase(smi)
+    E = first.pop("E")
+    train_grads_phase()
+    repeat = train_repeat_phase()
+    km = codebook_fits(E, launches, "(d) on (a)'s trained table:")
+    codebook_kernels({"E": E, "C": km.cluster_centers_, "b0": km.config.b0},
+                     smi)
+    del km
+    train_cli(first, repeat)
+    log(f"    launches in phase 14: {launches}; phase 14 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 14")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3832,6 +4226,7 @@ def main() -> int:
     xl_engine_phase(X, Xv, untraced, dev["smi"])
     del X, Xv, untraced
     lm = lm_serve_phase(dev["smi"])
+    train = lm_train_phase(dev["smi"])
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])
@@ -3840,7 +4235,8 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=SOURCE.format(name),
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], **times[name],
-                    launches_phase13=lm[name])
+                    launches_phase13=lm[name],
+                    launches_phase14=train[name])
                for name in REPLACES]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(dev["smi"])

@@ -28,6 +28,15 @@ From empty counters the fit must key each invoked bucket exactly once,
 so a clean audit means first-seen keys == distinct buckets.
 `trace_violations` alone (the JAX package's contract, also used on a
 warm cache) does not treat a missing trace as a violation.
+
+On the sharded backends every rank audits its own process (one rank per
+process; JAX audits one controller over forced host devices): call
+`audit_backend` on every rank of an initialised group. b is a data
+rank's prefix on mesh, multihost and xl alike, as in JAX's engines, so
+the invoked buckets are the same on every rank and equal JAX's on as
+many devices; the lattice is checked against the rank's own b0 and
+b_max. The xl round keys the site ``xl_nested_round``, the others
+``nested_round``.
 """
 from __future__ import annotations
 
@@ -120,27 +129,59 @@ def trace_violations(diff: Dict, invoked: Sequence[Bucket], site: str, *,
     return out
 
 
-def _round_site():
-    """(tracecount site name, file, line, qualname) of the round body."""
-    from repro_torch.core import rounds
-    fn = rounds.nested_round
-    return ("nested_round", rel(inspect.getsourcefile(fn)),
-            fn.__code__.co_firstlineno, "nested_round")
+def _round_site(backend: str):
+    """(tracecount site name, file, line, qualname) of the round body
+    that keys this backend's rounds."""
+    if backend == "xl":
+        from repro_torch.core import distributed_xl as m
+        fn, site = m.xl_nested_round, "xl_nested_round"
+    else:
+        from repro_torch.core import rounds as m
+        fn, site = m.nested_round, "nested_round"
+    return (site, rel(inspect.getsourcefile(fn)),
+            fn.__code__.co_firstlineno, site)
+
+
+def _mesh_for(backend: str, config):
+    """JAX's audit layout over every rank of the process group: a flat
+    data dim for mesh; (world/2, 2) for xl when the world is even, else
+    (world, 1); None for multihost (the engine builds its own flat mesh)
+    and local."""
+    if backend not in ("mesh", "xl"):
+        return None
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"backend={backend!r} audits this rank's part of a sharded "
+            f"fit: call torch.distributed.init_process_group first, on "
+            f"every rank")
+    world = dist.get_world_size()
+    if backend == "xl":
+        m = 2 if world % 2 == 0 and world > 1 else 1
+        return make_host_mesh((world // m, m),
+                              (config.data_axes[0], config.model_axis))
+    return make_host_mesh((world,), config.data_axes)
 
 
 def audit_backend(backend: str = "local", *, X=None, config=None,
-                  device="cuda", stats: Optional[Dict[str, int]] = None
+                  device="cuda", stats: Optional[Dict] = None
                   ) -> List[Violation]:
     """Empty the trace counters, run one full growth schedule on
     ``backend`` and check the key contract; logs the count of distinct
     (b, capacity) buckets the fit invoked. ``X``/``config`` (an
-    unresolved `FitConfig`) audit a given fit; by default a small one
-    (4096 x 8 normal rows, k = 8, b0 = 64, 40 rounds) is made from a
-    seed. ``device``: the card unless the caller asks for the CPU.
-    ``stats``, if given, is filled with the fit's ``calls`` (round
-    calls), ``buckets`` (distinct (b, capacity) buckets) and ``keys``
-    (first-seen keys). Only the "local" backend is audited; the sharded
-    backends wait for ROADMAP Queue 1 item 9 step 5."""
+    unresolved `FitConfig`, whose backend becomes ``backend``) audit a
+    given fit; by default JAX's: 4096 x 8 normal rows from seed 0, k = 8,
+    b0 = max(2k, n // 64), 40 rounds. ``device``: the card unless the
+    caller asks for the CPU. mesh, xl and multihost audit this rank's
+    part of the fit on every rank of an initialised group, over
+    `_mesh_for`'s mesh. ``stats``, if given, is filled with the fit's
+    ``calls`` (round calls), ``buckets`` (distinct (b, capacity)
+    buckets), ``keys`` (first-seen keys) and ``invoked`` (the buckets,
+    sorted)."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.api.config import FitConfig
@@ -148,17 +189,15 @@ def audit_backend(backend: str = "local", *, X=None, config=None,
     from repro_torch.api.loop import run_loop
     from repro_torch.util import tracecount
 
-    if backend != "local":
-        raise NotImplementedError(
-            f"retrace: backend={backend!r} is not ported to repro_torch "
-            f"yet (ROADMAP Queue 1 item 9 step 5)")
     if X is None:
         X = np.random.default_rng(0).normal(size=(4096, 8)).astype(
             np.float32)
     if config is None:
-        config = FitConfig(k=8, b0=64, max_rounds=40, capacity_floor=32)
-    config = config.resolve(X.shape[0])
-    run = make_engine(config).begin(X, config, device=device)
+        k = 8
+        config = FitConfig(k=k, b0=max(2 * k, X.shape[0] // 64), seed=0,
+                           max_rounds=40, capacity_floor=32)
+    config = dataclasses.replace(config, backend=backend).resolve(X.shape[0])
+    run = make_engine(config, mesh=_mesh_for(backend, config)).begin(X, config, device=device)
 
     invoked: List[Bucket] = []
     inner_step = run.nested_step
@@ -175,7 +214,7 @@ def audit_backend(backend: str = "local", *, X=None, config=None,
     diff = tracecount.diff(before)
     del run.nested_step             # break the cycle run -> step -> run
 
-    site, site_file, site_line, qual = _round_site()
+    site, site_file, site_line, qual = _round_site(backend)
     qual = f"{qual}[backend={backend}]"
     out = trace_violations(diff, invoked, site, site_file=site_file,
                            site_line=site_line, qualname=qual)
@@ -196,7 +235,8 @@ def audit_backend(backend: str = "local", *, X=None, config=None,
               "buckets, %d first-seen keys: %s", backend, len(invoked),
               len(buckets), n_keys, buckets)
     if stats is not None:
-        stats.update(calls=len(invoked), buckets=len(buckets), keys=n_keys)
+        stats.update(calls=len(invoked), buckets=len(buckets), keys=n_keys,
+                     invoked=buckets)
     return out
 
 

@@ -13,10 +13,12 @@ other:
     readable; a versioned dir for the same step supersedes them.)
 
 Leaves are keyed as JAX's ``keystr`` keys a pytree path, in JAX's
-flattening order: dict keys sorted (``['a']``), dataclass fields in
-declaration order (``.C``); a ``None`` is an empty subtree and gets no
-file. `_flatten` is the port's own walk over nested dicts and frozen
-dataclasses of tensors, arrays or numbers.
+flattening order: dict keys sorted (``['a']``), dataclass and
+`NamedTuple` fields in declaration order (``.C``, ``.mu``); a ``None`` is
+an empty subtree and gets no file. `_flatten` is the port's own walk
+over nested dicts, frozen dataclasses and NamedTuples (the optimizer's
+`AdamWState`) of tensors, arrays or numbers, so a training checkpoint
+``{"params", "opt"}`` has the JAX package's keys too.
 
 Properties:
   * atomic: written to a ``.tmp-<pid>`` dir, then renamed to a FRESH
@@ -56,6 +58,10 @@ _EXOTIC = {
 }
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _flatten(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
     """(key, leaf) pairs of ``tree`` in JAX's order, keyed as JAX's
     ``keystr`` keys them."""
@@ -64,6 +70,9 @@ def _flatten(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flatten(tree[k], f"{path}[{k!r}]")
+    elif _is_namedtuple(tree):
+        for name in tree._fields:
+            yield from _flatten(getattr(tree, name), f"{path}.{name}")
     elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in dataclasses.fields(tree):
             yield from _flatten(getattr(tree, f.name), f"{path}.{f.name}")
@@ -78,6 +87,10 @@ def _rebuild(tree: Any, leaf_fn, path: str = "") -> Any:
     if isinstance(tree, dict):
         return {k: _rebuild(v, leaf_fn, f"{path}[{k!r}]")
                 for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return tree._replace(**{
+            name: _rebuild(getattr(tree, name), leaf_fn, f"{path}.{name}")
+            for name in tree._fields})
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
             f.name: _rebuild(getattr(tree, f.name), leaf_fn,

@@ -8,7 +8,8 @@ one round from the same state in both packages. `outcome_from_numpy`
 carries a whole JAX `FitOutcome` over, so that a serving process can
 `adopt` a codebook the JAX package fitted. `params_from_numpy` carries a
 dense model's parameter tree over, so that both packages compute with
-the same weights. Only attribute access and the
+the same weights, and `opt_state_from_numpy` its AdamW state, so that a
+training run carries across. Only attribute access and the
 records' `to_dict` forms are used, so this module imports nothing of the
 JAX package.
 
@@ -27,6 +28,8 @@ from repro_torch.api.telemetry import Telemetry
 from repro_torch.core.state import (ClusterStats, ElkanBounds, KMeansState,
                                    PointState)
 from repro_torch.kernels._build import resolve_device
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.util.tree import tree_map
 
 
 def _t(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -117,9 +120,14 @@ def params_from_numpy(tree, device="cuda"):
             f"has {sorted(extra) or sorted(blocks)} (ROADMAP Queue 1 item "
             f"10)")
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _tensor(x, device)
+    return tree_map(lambda x: _tensor(x, device), tree)
 
-    return conv(tree)
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The port's `AdamWState` for a JAX `AdamWState` whose leaves are
+    numpy arrays (``jax.tree.map(np.asarray, opt_state)``): f32 moments
+    leaf for leaf and the 0-d int32 ``count``, on ``device``."""
+    device = resolve_device(device)
+    return AdamWState(mu=tree_map(lambda x: _tensor(x, device), state.mu),
+                      nu=tree_map(lambda x: _tensor(x, device), state.nu),
+                      count=_tensor(state.count, device))

@@ -19,13 +19,38 @@ the same calls serve ranks on the CPU, ranks that share one card under
 gloo, and ranks on their own cards under NCCL. Its send and receive do
 not ("Bad address" from its TCP pair), and none is used. A collective
 that fails raises.
+
+A gloo collective of a CUDA tensor copies it through the host, and so
+waits for the stream, where NCCL's (and JAX's in-graph collectives) do
+not. Each such call runs inside the scopes that `STAGING_HOOKS` holds
+(none but while a host-sync audit is installed,
+`repro_torch.analysis.hostsync`), and only such a call: on CPU tensors,
+under NCCL and over a dim of one rank no scope is opened.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import Callable, ContextManager, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+
+#: factories of the scopes entered around a collective that gloo stages
+#: through the host (a CUDA tensor on a gloo group)
+STAGING_HOOKS: List[Callable[[], ContextManager]] = []
+
+
+def _staged(t: torch.Tensor, group):
+    """The scope of one collective of ``t`` on ``group``: every hook's
+    scope where gloo carries a CUDA tensor, else none."""
+    if not (STAGING_HOOKS and t.is_cuda
+            and dist.get_backend(group) == "gloo"):
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    for hook in STAGING_HOOKS:
+        stack.enter_context(hook())
+    return stack
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -70,7 +95,9 @@ def psum(tensors: Sequence[torch.Tensor], mesh: Optional[object],
             continue
         flat = torch.cat([tensors[i].reshape(-1).to(wire) for i in idx])
         for ax in axes:
-            dist.all_reduce(flat, group=mesh.get_group(ax))
+            group = mesh.get_group(ax)
+            with _staged(flat, group):
+                dist.all_reduce(flat, group=group)
         off = 0
         for i in idx:
             t = tensors[i]
@@ -87,7 +114,8 @@ def all_gather(t: torch.Tensor, mesh: Optional[object],
         return t[None]
     group = mesh.get_group(axis)
     parts = [torch.empty_like(t) for _ in range(axis_size(mesh, axis))]
-    dist.all_gather(parts, t.contiguous(), group=group)
+    with _staged(t, group):
+        dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
 
 
@@ -117,8 +145,9 @@ def psum_scatter(t: torch.Tensor, mesh: Optional[object],
     if t.shape[0] % m:
         raise ValueError(f"{t.shape[0]} rows do not scatter over {m} ranks")
     out = t.new_empty((t.shape[0] // m,) + tuple(t.shape[1:]))
-    dist.reduce_scatter_tensor(out, t.contiguous(),
-                               group=mesh.get_group(axis))
+    group = mesh.get_group(axis)
+    with _staged(t, group):
+        dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
     return out
 
 
@@ -126,7 +155,9 @@ def _preduce(t: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return t
     out = t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op, group=mesh.get_group(axis))
+    group = mesh.get_group(axis)
+    with _staged(out, group):
+        dist.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -162,9 +193,11 @@ def ppermute_ring(t: torch.Tensor, mesh: Optional[object],
     send = t.contiguous()
     recv = torch.empty_like(send)
     n = send.shape[0]
-    dist.all_to_all_single(
-        recv, send, output_split_sizes=[n * (r == (i - 1) % m)
-                                        for r in range(m)],
-        input_split_sizes=[n * (r == (i + 1) % m) for r in range(m)],
-        group=mesh.get_group(axis))
+    group = mesh.get_group(axis)
+    with _staged(send, group):
+        dist.all_to_all_single(
+            recv, send, output_split_sizes=[n * (r == (i - 1) % m)
+                                            for r in range(m)],
+            input_split_sizes=[n * (r == (i + 1) % m) for r in range(m)],
+            group=group)
     return recv

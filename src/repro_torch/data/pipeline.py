@@ -1,7 +1,6 @@
-"""The mesh engines' data placement: nested-prefix k-means sharding.
+"""Data pipelines: nested-prefix k-means sharding + LM token batches.
 
-Port of the k-means half of `repro/data/pipeline.py` (pure numpy, a copy
-and not an import; `LMBatches` goes with the LM stack).
+Port of `repro/data/pipeline.py` (pure numpy, a copy and not an import).
 
 `nested_shard_layout` is THE host-side description of how the mesh
 engines place points: shuffle, structural tail padding to a multiple of
@@ -10,6 +9,9 @@ prefixes equal the global shuffle prefix.
 `repro_torch.api.engines.mesh._MeshRun` and `KMeansShardedSource` both
 build on it, so the streaming source and the device placement can never
 drift apart.
+
+`LMBatches`: deterministic, seekable token batches (``state == (step,)``),
+so a restarted trainer resumes mid-epoch bit-identically.
 
 `KMeansShardedSource`: the nested-batch schedule needs each shard to
 hold a contiguous slice whose prefix-union equals the global shuffle
@@ -24,9 +26,11 @@ each shard's real rows stay prefix-contiguous with a per-shard
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from repro_torch.data import synthetic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,3 +171,30 @@ class KMeansShardedSource:
             raise ValueError(
                 f"prefix size {b} exceeds the {self.X.shape[0]} real rows")
         return self.X[self.perm[:b]]
+
+
+class LMBatches:
+    """Seekable synthetic LM batches: (tokens, labels) of (B, S) int32."""
+
+    def __init__(self, *, vocab: int, batch: int, seq: int,
+                 n_tokens: int = 2_000_000, seed: int = 0):
+        self.tokens = synthetic.lm_tokens(n_tokens, vocab=vocab, seed=seed)
+        self.batch, self.seq = batch, seq
+        self.per_step = batch * (seq + 1)
+        self.n_steps = len(self.tokens) // self.per_step
+
+    def __len__(self) -> int:
+        return self.n_steps
+
+    def at(self, step: int) -> Dict[str, np.ndarray]:
+        i = (step % self.n_steps) * self.per_step
+        chunk = self.tokens[i: i + self.per_step].reshape(
+            self.batch, self.seq + 1)
+        return {"tokens": chunk[:, :-1].astype(np.int32),
+                "labels": chunk[:, 1:].astype(np.int32)}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.at(step)
+            step += 1

@@ -1,13 +1,14 @@
 """Synthetic stand-ins for the paper's datasets.
 
 The port's own copy of `repro/data/synthetic.py` (`infmnist_like`,
-`gaussian_blobs`), so the port and `chip_smoke.py` make data without
-importing the JAX package. Same seeds, same numbers.
+`gaussian_blobs`, `lm_tokens`), so the port and `chip_smoke.py` make
+data without importing the JAX package. Same seeds, same numbers.
 
 * ``infmnist_like``  — dense 784-d: k* prototype "digits" (smooth random
   blobs) + per-sample smooth deformation fields + pixel noise, matching
   the generative recipe of Loosli et al.'s infinite-MNIST.
 * ``gaussian_blobs`` — a simple mixture for tests.
+* ``lm_tokens``      — a Zipf token stream for the LM trainer.
 """
 from __future__ import annotations
 
@@ -74,3 +75,15 @@ def gaussian_blobs(n: int, *, k: int = 50, dim: int = 64,
     X = (centers[rng.integers(0, k, n)]
          + rng.normal(size=(n, dim)).astype(np.float32))
     return X.astype(np.float32), centers
+
+
+def lm_tokens(n_tokens: int, *, vocab: int, seed: int = 0,
+              repeat_p: float = 0.3) -> np.ndarray:
+    """Zipf unigram stream with short-range repetition (compressible)."""
+    rng = np.random.default_rng(seed)
+    base = rng.zipf(1.3, n_tokens).astype(np.int64)
+    toks = (base % (vocab - 2)) + 1
+    rep = rng.random(n_tokens) < repeat_p
+    idx = np.maximum(np.arange(n_tokens) - rng.integers(1, 32, n_tokens), 0)
+    toks[rep] = toks[idx[rep]]
+    return toks.astype(np.int32)

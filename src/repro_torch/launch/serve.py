@@ -29,6 +29,7 @@ leaves it after.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import socket
@@ -181,6 +182,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def codebook_group(backend: str, device: torch.device):
+    """With a sharded codebook ``backend`` and no process group up, a
+    one-rank group of this process's own at a free localhost port (NCCL
+    on the card, gloo on the CPU), left on exit; else nothing."""
+    own = backend != "local" and not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.list_archs())
@@ -236,15 +255,8 @@ def main(argv=None):
     E = None
     if args.codebook:
         E = params["embed"].float().cpu().numpy()
-        own_group = (args.codebook_backend != "local"
-                     and not dist.is_initialized())
-        if own_group:
-            dist.init_process_group(
-                "nccl" if device.type == "cuda" else "gloo",
-                init_method=f"tcp://localhost:{_free_port()}",
-                world_size=1, rank=0)
         t0 = time.time()
-        try:
+        with codebook_group(args.codebook_backend, device):
             codebook = build_codebook(args.codebook_store or E,
                                       args.codebook, args.seed,
                                       checkpoint_dir=args.checkpoint_dir,
@@ -253,9 +265,6 @@ def main(argv=None):
                                       backend=args.codebook_backend,
                                       trace_dir=args.trace_dir,
                                       device=device)
-        finally:
-            if own_group:
-                dist.destroy_process_group()
         what = (f"store {args.codebook_store}" if args.codebook_store
                 else f"{E.shape} embeddings")
         print(f"codebook: k={args.codebook} over {what} "

@@ -1,25 +1,35 @@
-"""The decoder of the model zoo, dense family: init, prefill and decode.
+"""The decoder of the model zoo, dense family: init, training loss,
+prefill and decode.
 
 Port of `repro/models/model.py` for ``family="dense"``. Layers are stacked
 per *period position*, with a leading ``n_periods`` dimension, as in JAX,
 so a JAX parameter tree maps onto the port's one to one
 (`repro_torch.convert.params_from_numpy`). JAX scans the stack; the port
-loops over the periods. There is no rematerialisation: this is serving.
+loops over the periods, each a slice of one `torch.unbind` of the stack
+(so a backward pass stacks the periods' gradients once).
 
   family    period   position structure
   dense      1       [attn + mlp]
+
+``backbone_full(..., remat=True)`` (training) runs each period under
+`torch.utils.checkpoint.checkpoint` (non-reentrant): its activations are
+recomputed in the backward pass instead of kept. JAX's remat policy
+(``dots_with_no_batch_dims_saveable``) only chooses what is kept, so
+remat on and off give the same bits. Serving runs without it.
 
 The other families (moe, ssm, hybrid, encdec, vlm) are refused with a
 `NotImplementedError` where parameters, caches or a forward pass are
 built (ROADMAP Queue 1 item 10); nothing is computed half-way.
 
-Entry points: init_params / prefill / make_decode_cache / decode_step.
+Entry points: init_params / train_loss / prefill / make_decode_cache /
+decode_step.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels._build import resolve_device
@@ -93,15 +103,18 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda") -> Params:
     return p
 
 
-def _period(tree, i: int):
-    """Period ``i``'s slice of a tree stacked over periods (views)."""
+def _periods(tree, n: int):
+    """The ``n`` periods' slices of a tree stacked over periods: views,
+    one `torch.unbind` a leaf, whose backward stacks the periods'
+    gradients in one step."""
     if isinstance(tree, dict):
-        return {k: _period(x, i) for k, x in tree.items()}
-    return tree[i]
+        parts = {k: _periods(x, n) for k, x in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return torch.unbind(tree)
 
 
 # --------------------------------------------------------------------------
-# forward: full-sequence (prefill)
+# forward: full-sequence (train / prefill)
 # --------------------------------------------------------------------------
 
 def _layer_full(p: Params, x, cfg: ModelConfig, *, positions):
@@ -114,15 +127,21 @@ def _layer_full(p: Params, x, cfg: ModelConfig, *, positions):
 
 
 def backbone_full(params: Params, x, cfg: ModelConfig, *, positions,
-                  want_cache: bool = False):
+                  want_cache: bool = False, remat: bool = True):
     """Run the stacked blocks over a full sequence, period by period.
     Returns (x, caches): with ``want_cache``, ``caches[t]["kv"]`` is the
-    (k, v) of every period stacked, (n_periods, B, S, KV, Dh) each."""
+    (k, v) of every period stacked, (n_periods, B, S, KV, Dh) each.
+    ``remat`` recomputes each period's activations in the backward pass
+    (it changes no value)."""
     require_ported(cfg.family)
     ks, vs = [], []
-    for i in range(n_periods(cfg)):
-        x, (k_, v_) = _layer_full(_period(params["blocks"]["0"], i), x, cfg,
-                                  positions=positions)
+    for p in _periods(params["blocks"]["0"], n_periods(cfg)):
+        if remat:
+            x, (k_, v_) = checkpoint(_layer_full, p, x, cfg,
+                                     positions=positions,
+                                     use_reentrant=False)
+        else:
+            x, (k_, v_) = _layer_full(p, x, cfg, positions=positions)
         if want_cache:
             ks.append(k_)
             vs.append(v_)
@@ -147,6 +166,32 @@ def logits_fn(params: Params, x, cfg: ModelConfig):
     return (x @ w).float()
 
 
+def train_loss(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig, *, remat: bool = True):
+    """Token-mean cross entropy; labels == -100 masked out. Returns
+    ``(loss, {"xent", "aux"})``; the dense family has no auxiliary loss,
+    so aux is 0 and the loss is the cross entropy, as in JAX.
+
+    The gold logit is taken as a masked sum over the vocabulary (one
+    nonzero term, so exact) rather than a gather, whose backward on the
+    card scatters with atomics: this backward is a ``where``, and two
+    runs of a step give the same bits."""
+    require_ported(cfg.family)
+    x, positions = embed_inputs(params, batch, cfg)
+    x, _ = backbone_full(params, x, cfg, positions=positions, remat=remat)
+    logits = logits_fn(params, x, cfg)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    lab = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(vocab == lab[..., None], logits, 0.0).sum(-1)
+    nll = (logz - gold) * mask
+    loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    aux = torch.zeros((), device=loss.device)
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
+
+
 # --------------------------------------------------------------------------
 # serving: prefill + decode
 # --------------------------------------------------------------------------
@@ -163,7 +208,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     x, positions = embed_inputs(params, batch, cfg)
     S = x.shape[1]
     x, caches = backbone_full(params, x, cfg, positions=positions,
-                              want_cache=True)
+                              want_cache=True, remat=False)
     logits = logits_fn(params, x[:, -1:], cfg)
     cache = make_decode_cache(cfg, batch=x.shape[0], cache_len=cache_len,
                               dtype=caches["0"]["kv"][0].dtype,
@@ -201,8 +246,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
     x = params["embed"][token]
     pos = cache["pos"]
     ent = cache["blocks"]["0"]
-    for i in range(n_periods(cfg)):
-        p = _period(params["blocks"]["0"], i)
+    for i, p in enumerate(_periods(params["blocks"]["0"], n_periods(cfg))):
         h, _ = L.attention_decode_fwd(
             p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
             k_cache=ent["k"][i], v_cache=ent["v"][i], pos=pos)

@@ -1,0 +1,2 @@
+"""Optimizers of the port (`repro.optim`): AdamW and int8 gradient
+compression."""

@@ -14,9 +14,8 @@ with the card's power limit beside it. The port's f32 top-2s run as three
 TF32 products a pair (3xTF32), priced at the TF32 rate.
 
 There is no link term: one card has no collective traffic, and the
-sharded engines' all-reduce over NVLink is not measured yet (ROADMAP
-Queue 1 item 9 step 5). The
-HLO parsing of the reference (and `roofline/hlo_cost.py`) has no
+sharded engines' all-reduce over NVLink across cards is not measured yet
+(PERF.md §7). The HLO parsing of the reference (and `roofline/hlo_cost.py`) has no
 counterpart here.
 """
 from __future__ import annotations

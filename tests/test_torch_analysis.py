@@ -10,10 +10,12 @@ class. The CUDA layer of hostsync is held on the card in
 tests/test_torch_gpu.py.
 """
 import contextlib
+import json
 import logging
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 import numpy as np
@@ -28,12 +30,31 @@ from repro_torch.analysis import (donation, hostsync, replicated_lint,
                                   retrace)
 from repro_torch.analysis import _selftest as fx
 from repro_torch.analysis.report import Violation, repo_root
+from repro_torch.core import collectives
 
 FIXTURE = repo_root() / "src/repro_torch/analysis/_selftest.py"
 
 
 def _kinds(found):
     return sorted((v.kind, v.line) for v in found)
+
+
+@contextlib.contextmanager
+def _one_rank_group():
+    """A one-rank gloo group in this process, destroyed after (a later
+    test in the same worker expects none)."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 # -- replicated-control-flow lint -------------------------------------------
@@ -233,8 +254,13 @@ def test_local_fit_keys_only_its_pow2_buckets(caplog):
                       caplog.records[-1].getMessage())
         assert m and 1 < int(m[1]) == int(m[2])
         assert stats["keys"] == stats["buckets"] == int(m[1])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        retrace.audit_backend("mesh", device="cpu")
+    # the sharded backends are audited too: a one-rank mesh fit keys the
+    # local fit's buckets (b is a data rank's prefix)
+    with _one_rank_group():
+        mesh = {}
+        assert retrace.audit_backend("mesh", device="cpu", stats=mesh) == []
+    assert mesh["keys"] == mesh["buckets"] == stats["buckets"]
+    assert mesh["invoked"] == stats["invoked"]
 
 
 def test_round_key_carries_width_type_and_device():
@@ -392,8 +418,14 @@ def test_interceptor_restores_torch_tensor():
     assert {n: torch.Tensor.__dict__.get(n) for n in hostsync._HOOKS} == own
     assert [v.kind for v in audit.violations] == ["d2h-item"]
     assert audit.violations[0].file == "tests/test_torch_analysis.py"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        hostsync.audit_backend("xl", device="cpu")
+    # the staging hook is the audit's while it is installed, and only then
+    assert collectives.STAGING_HOOKS == []
+    # the sharded backends are audited too: a one-rank xl fit, whose
+    # collectives are the identity, stages nothing through the host
+    with _one_rank_group():
+        stats = {}
+        assert hostsync.audit_backend("xl", device="cpu", stats=stats) == []
+    assert stats == {"rounds": 24, "staged": 0, "staged_syncs": 0}
 
 
 # -- CLI ----------------------------------------------------------------------
@@ -407,11 +439,17 @@ def _cli(*args):
 
 
 def test_cli_all_selftest_exits_zero_on_the_cpu():
-    r = _cli("all", "--selftest", "--device", "cpu")
+    r = _cli("all", "--selftest", "--device", "cpu", "--ranks", "2")
     assert r.returncode == 0, r.stdout + r.stderr
     for check in ("lint", "hostsync", "retrace", "donation"):
         assert f"[{check}] selftest: planted bug class flagged" in r.stdout
     assert "device=cpu" in r.stdout and "_selftest.py" in r.stdout
+    # and inside each of the 2 spawned ranks of the sharded backends
+    for check in ("hostsync", "retrace"):
+        m = re.search(rf"{check} selftest by rank: findings \[(.*)\]",
+                      r.stdout)
+        assert m and len(m[1].split(",")) == 2 and "0" not in m[1].split(
+            ", "), r.stdout
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "
@@ -427,11 +465,133 @@ def test_cli_runtime_auditors_refuse_to_leave_the_card_unasked():
 
 
 def test_cli_all_is_clean_and_refuses_unported_backends(tmp_path):
-    r = _cli("all", "--device", "cpu", "--trace-dir", str(tmp_path))
+    r = _cli("all", "--device", "cpu", "--ranks", "2", "--trace-dir",
+             str(tmp_path))
     assert r.returncode == 0, r.stdout + r.stderr
     for check in ("lint", "hostsync", "retrace", "donation"):
         assert f"[{check}] OK" in r.stdout
     assert "distinct (b, capacity) buckets" in r.stdout
     assert (tmp_path / "local" / "metrics-p00000.json").exists()
-    r = _cli("hostsync", "--backends", "local,mesh")
-    assert r.returncode == 2 and "item 9" in r.stderr
+    # the default backends are JAX's (local, mesh, xl), the sharded ones
+    # audited in 2 spawned gloo ranks (4 in the `sharded` fixture), each
+    # writing its own trace stream
+    assert ("[hostsync] OK (backends: local, mesh, xl; ranks 2; device "
+            "cpu)") in r.stdout
+    assert "retrace[xl] by rank: round calls [40, 40]" in r.stdout
+    for r_ in range(2):
+        assert (tmp_path / "mesh" / f"metrics-p{r_:05d}.json").exists()
+    r = _cli("hostsync", "--backends", "local,mesh,sideways")
+    assert r.returncode == 2 and "unknown backends ['sideways']" in r.stderr
+
+
+# -- the sharded backends, one rank per process ------------------------------
+
+TESTS = repo_root() / "tests"
+SHARDED = {2: ("mesh", "xl", "multihost"), 4: ("mesh", "xl")}
+CASES = [(n, b) for n, bs in SHARDED.items() for b in bs]
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """hostsync and retrace on every backend of `SHARDED` in 2 and in 4
+    spawned gloo ranks (the 2-rank hostsync audits traced), beside JAX's
+    retrace audit of the same backends on as many forced host devices
+    (tests/jax_audit_oracle.py, in subprocesses started first)."""
+    from repro_torch.analysis.ranks import RANK_CHECKS, spawn_audits
+    wd = tmp_path_factory.mktemp("sharded")
+    env = {"PYTHONPATH": f"{repo_root() / 'src'}:{TESTS}",
+           "JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin:/usr/local/bin"}
+    procs = [subprocess.Popen(
+        [sys.executable, str(TESTS / "jax_audit_oracle.py"), str(wd),
+         str(n), ",".join(bs)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for n, bs in SHARDED.items()]
+    try:
+        # the 2- and 4-rank groups run side by side
+        with ThreadPoolExecutor(len(SHARDED)) as pool:
+            futs = {n: pool.submit(
+                spawn_audits, RANK_CHECKS, bs, ranks=n, device="cpu",
+                trace_dir=str(wd / "tr") if n == 2 else None, timeout_s=240)
+                for n, bs in SHARDED.items()}
+        ranks = {n: f.result() for n, f in futs.items()}
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            assert p.returncode == 0, out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    jax_ = {n: json.loads((wd / f"jax_audit_{n}.json").read_text())
+            for n in SHARDED}
+    return ranks, jax_, wd / "tr"
+
+
+@pytest.mark.parametrize("n,backend", CASES)
+def test_sharded_audits_are_clean_in_every_rank(sharded, n, backend):
+    """0 violations of either check in every rank; from empty counters
+    every rank keys each invoked bucket once; on the CPU no collective
+    stages a CUDA tensor."""
+    ranks, _, _ = sharded
+    assert len(ranks[n]) == n
+    for res in ranks[n]:
+        found, stats = res["hostsync"][backend]
+        assert found == []
+        assert stats == {"rounds": 24, "staged": 0, "staged_syncs": 0}
+        found, stats = res["retrace"][backend]
+        assert found == []
+        assert stats["calls"] == 40 and stats["keys"] == stats["buckets"]
+        assert stats["invoked"] == ranks[n][0]["retrace"][backend][1][
+            "invoked"]
+
+
+@pytest.mark.parametrize("n,backend", CASES)
+def test_sharded_buckets_equal_jax_on_as_many_devices(sharded, n, backend):
+    """The (b, capacity) buckets a rank's fit invokes are those of JAX's
+    audit on n forced host devices (b is a data shard's prefix in both),
+    and JAX's audit is clean too."""
+    ranks, jax_, _ = sharded
+    want = jax_[n][backend]
+    assert want["violations"] == 0
+    got = ranks[n][0]["retrace"][backend][1]["invoked"]
+    assert [list(t) for t in got] == want["invoked"]
+
+
+def test_two_rank_traced_audit_counts_rounds_once(sharded):
+    """Each rank writes its own stream; `summarize` counts the fit's
+    rounds once, from the lead rank, and lists both ranks."""
+    from repro_torch.obs import read_events, summarize
+    _, _, tr = sharded
+    for backend in SHARDED[2]:
+        s = summarize(read_events(tr / backend))
+        assert s["rounds"] == 24, backend
+        assert s["processes"] == [0, 1]
+        assert s["rounds_by_process"] == {0: 24, 1: 24}
+
+
+def test_gloo_staging_scope_sanctions_only_its_syncs():
+    """`core.collectives` opens the audit's staging scope around a gloo
+    collective of a CUDA tensor only; inside it a sync-debug sync is
+    counted, not a violation, while a host coercion still is one."""
+    import types
+    cuda_like = types.SimpleNamespace(is_cuda=True)
+    cpu = torch.ones(2)
+    audit = hostsync.HostSyncAudit(device="cpu")
+    with _one_rank_group(), audit.installed():
+        with audit.round_scope():
+            with collectives._staged(cpu, None):
+                assert audit.staged == 0
+            with collectives._staged(cuda_like, None):
+                audit.notify("cuda-sync")
+                audit.notify("item")
+            audit.notify("cuda-sync")
+    assert (audit.rounds, audit.staged, audit.staged_syncs) == (1, 1, 1)
+    assert sorted(v.kind for v in audit.violations) == ["cuda-sync",
+                                                        "d2h-item"]
+    with collectives._staged(cuda_like, None):   # no audit: no scope
+        pass
+    assert collectives.STAGING_HOOKS == []
+    # on a card the scope counts the sync warnings gloo's own thread has
+    # c10 write to fd 2, and passes every other line through
+    import os
+    with hostsync._stderr_syncs() as n:
+        os.write(2, f"[W] {hostsync._SYNC_WARNING} (function f)\n".encode())
+    assert n == [1]

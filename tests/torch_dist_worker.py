@@ -7,7 +7,8 @@ rank joins the group through a `FileStore` file, builds the mesh, runs one
 case on its shard of the inputs the test wrote to ``inputs.npz`` (the
 round cases), or fits the whole of them through the mesh engines (the
 ``mesh`` case, whose parts the test names in ``inputs.npz``) or through
-the serve launcher's `build_codebook` (the ``codebook`` case), and writes
+the serve launcher's `build_codebook` (the ``codebook`` case), or sums
+int8-compressed gradients (the ``compress`` case), and writes
 its outputs to ``rank<r>.npz`` beside it. This module imports no JAX:
 only torch, numpy and the port. tests/jax_mesh_oracle.py reads the fit's
 config and the kill schedule from here.
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.ranks import spawn_and_join
 from repro_torch.core import collectives, distributed, state as tstate
 from repro_torch.launch.mesh import make_host_mesh
 
@@ -537,8 +539,20 @@ def _codebook(mesh, inp):
     return out
 
 
+def _compress(mesh, inp):
+    """`optim.compression.compressed_psum` of this rank's ``g[rank]`` and
+    ``e[rank]`` over the whole group."""
+    from repro_torch.optim import compression
+    r = dist.get_rank()
+    s, err = compression.compressed_psum(
+        {"g": torch.from_numpy(inp["g"][r])},
+        {"g": torch.from_numpy(inp["e"][r])})
+    return {"s": _np(s["g"]), "err": _np(err["g"])}
+
+
 CASES = {"dp": _dp, "xl": _xl, "sharded": _sharded, "mesh": _mesh,
-         "xl_engine": _xl_engine, "codebook": _codebook}
+         "xl_engine": _xl_engine, "codebook": _codebook,
+         "compress": _compress}
 
 
 def spawn(out_dir, case: str, shape, axes, *, timeout_s: float = 120.0,
@@ -546,26 +560,11 @@ def spawn(out_dir, case: str, shape, axes, *, timeout_s: float = 120.0,
     """Run ``case`` on prod(shape) spawned ranks with ``inputs``; their
     outputs by rank. Raises `TimeoutError` when the ranks are not done
     in ``timeout_s`` (a stuck rank is killed, not waited for)."""
-    import time
-
-    import torch.multiprocessing as tmp
     out_dir = Path(out_dir)
     np.savez(out_dir / "inputs.npz", **inputs)
     world = math.prod(shape)
-    ctx = tmp.start_processes(
-        run, args=(world, str(out_dir), case, shape, axes), nprocs=world,
-        join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout_s
-    try:
-        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{case}: ranks did not finish in "
-                                   f"{timeout_s} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
+    spawn_and_join(run, (world, str(out_dir), case, shape, axes), world,
+                   timeout_s, case)
     return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
 
 
