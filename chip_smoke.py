@@ -287,8 +287,8 @@ Phases (each raises on failure, so any fault exits non-zero):
   14. LM training (`repro_torch.launch.train`'s step) at tinyllama-1.1b's
      full width from seed 0, the CLI's defaults (batch 8, seq 128, 2
      microbatches, lr 3e-4 warmed up over 10 steps; `LMBatches` from seed
-     0): (a) 20 steps, the loss must fall from step 0 to step 19; ms a
-     step, tokens/s and peak memory are logged, and a 22nd step is
+     0): (a) 10 steps, the loss must fall from step 0 to step 9; ms a
+     step, tokens/s and peak memory are logged, and a 12th step is
      profiled. (b) The first step's loss and gradients at full width but
      2 layers, bf16 against the same weights upcast to f32: the loss
      within 6e-2, each leaf's gradient within 5e-2 relative (Frobenius).
@@ -300,13 +300,44 @@ Phases (each raises on failure, so any fault exits non-zero):
      kernels 1-3 launched, a second fit bit-equal, its float64 MSE within
      1e-3 of the ref plan's; kernels 1-3 held at the fit's shapes as in
      phase 13. (e) ``python -m repro_torch.launch.train --arch
-     tinyllama-1.1b --steps 4 --ckpt-dir DIR`` as a subprocess, then
-     ``--steps 6`` resumed from it: rc 0, step 0's loss (a)'s and step
-     5's (c)'s. Kernels 1-3 must be launched in the phase.
+     tinyllama-1.1b --reduced --steps 4 --ckpt-every 2 --ckpt-dir DIR``
+     as a subprocess: rc 0, step 0's and step 3's losses those of the
+     same steps in this process; its final checkpoint taken away, the
+     same command resumes from step 2 and prints the unbroken run's step
+     3 line (reduced, so the script keeps its time limit). Kernels 1-3
+     must be launched in the phase.
+  15. the moe, ssm and hybrid families at full width from seed 0, phase
+     13's prompt and phase 14's training defaults: (a) granite-moe-1b-a400m
+     (24 layers, d_model 1024, 32 experts top-8 of d_ff 512, vocab 49155;
+     1.385 B bf16 parameters) through `generate` twice (the same tokens);
+     decode against the prefill one token longer at capacity factor 8
+     (drops depend on the token count): in f32 within 1e-3, in bf16
+     phase 13's greedy-token rule; the shares of (token, choice) pairs
+     dropped at the config's 1.25 in prefill and one decode step,
+     recounted from each layer's router; prefill ms, ms a decode step,
+     tokens/s and peak memory. (b) 10 train steps: the loss falls from
+     step 0 to step 9, the aux loss (the first microbatch, before each
+     step) finite and logged; ms a step, tokens/s, peak memory; one more
+     step profiled (device busy share, the top ops); 3 steps twice:
+     params, moments and count bit-equal. (c) `build_codebook` with
+     k=1024 over (b)'s trained 49155 x 1024 table as phase 14 (d):
+     kernels 1-3 launched, a second fit bit-equal, the ref plan's MSE
+     within 1e-3, kernels 1-3 held and timed at the fit's shapes. (d)
+     mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads, d_state 128;
+     2.83 B) served as (a) (no MoE), then 6 train steps: every grad norm
+     finite, the loss falling. (e) jamba-v0.1-52b at full width cut to
+     one period of 8 layers (13.27 B): served twice in bf16 (the same
+     tokens); decode against prefill at capacity factor 8 as (a), the
+     f32 arm after the bf16 model's leaves are upcast one by one in
+     place; peak memory. (f) ``python -m repro_torch.launch.serve --arch
+     granite-moe-1b-a400m --no-reduced --codebook 1024`` as a subprocess:
+     rc 0, row 0's tokens (a)'s. Kernels 1-3 must be launched in the
+     phase.
 
 The last two lines are a JSON object of the kernels (each with its
-main path's ``launches`` and phases 13 and 14's ``launches_phase13``
-and ``launches_phase14``) and the JSON
+main path's ``launches`` and phases 13, 14 and 15's
+``launches_phase13``, ``launches_phase14`` and ``launches_phase15``)
+and the JSON
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -806,13 +837,21 @@ def compare_phase() -> dict:
 
 # ---------------------------------------------------------------- phase 4
 
+def _averages(prof):
+    """``prof.key_averages()``, computed once a trace: each call groups
+    every event again, seconds for a fit's trace."""
+    if not hasattr(prof, "_averages"):
+        prof._averages = prof.key_averages()
+    return prof._averages
+
+
 def profile_report(prof, wall_s: float, wall_profiled_s: float,
                    what: str = "fit") -> None:
     """The profiled run's device work (kernels and copies, each counted
     once: an operator's own entry would count its kernels again), its
     share of the run's wall time, and the host calls that took longest.
     ``wall_s`` is the wall time of the same run unprofiled."""
-    events = prof.key_averages()
+    events = _averages(prof)
     # a schedule's step span is a range on the device, not device work
     dev = sorted((e for e in events if str(e.device_type).endswith("CUDA")
                   and not e.key.startswith("ProfilerStep")),
@@ -862,7 +901,7 @@ FIT_TOP2 = {"nkm::tc::tc_top2_kernel<64, 2>": "assign_top2's top-2",
 def sync_counts(prof) -> dict:
     """{host call: count} of the calls that wait for the device."""
     out = dict.fromkeys(SYNC_CALLS, 0)
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.key in out:
             out[e.key] += e.count
     return out
@@ -1194,7 +1233,7 @@ def device_parts(prof, names) -> dict:
     """{name: (device ms, launches)} of the device kernels whose name
     holds each of ``names``, in a profiled run."""
     out = dict.fromkeys(names, (0.0, 0))
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if str(e.device_type).endswith("CUDA"):
             for name in names:
                 if name in e.key:
@@ -2153,8 +2192,9 @@ def serve_phase(X, outcome) -> dict:
 
 # ---------------------------------------------------------------- phase 10
 
-#: fits of each arm of phase 10 (b), after a warm-up
-OVERHEAD_PAIRS = 8
+#: fits of each arm of phase 10 (b), after a warm-up (4, not 8: with
+#: phase 15 the script needs the time to stay inside its limit)
+OVERHEAD_PAIRS = 4
 
 
 def _round_ts(km) -> list:
@@ -3461,26 +3501,29 @@ def _beyond(got, want, tol) -> int:
     return int(((got - want).abs() > tol + tol * want.abs()).sum())
 
 
-def lm_model(smi: str) -> dict:
-    """(a): the model at full width on the card from seed 0, the CLI's
-    prompt (its recipe and defaults), prefill and greedy decode through
-    `launch.serve.generate`, and decode's logits held to the prefill of
-    the prompt one token longer: in f32 (the same weights upcast, f32
-    activations and cache) within `LM_TOL_F32`; in bf16, the served model,
-    the greedy tokens wherever the prefill's top two logits are more
-    than 2 `LM_TOL` apart, which must be so for at least half the rows."""
-    from repro_torch.launch.serve import generate
+def _f32_copy(tree):
+    return ({k: _f32_copy(v) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.float())
+
+
+def _init_model(cfg):
+    """The model from `LM_SEED` on the card: (params, seconds, count)."""
     from repro_torch.models import model as M
-    cfg = _lm_config()
-    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = M.init_params(LM_SEED, cfg, DEV)
     torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    need(n_params == cfg.param_count() + cfg.d_model,
-         f"the model has {n_params} parameters, its config "
-         f"{cfg.param_count()} (+ the final norm's {cfg.d_model})")
+    return (params, time.perf_counter() - t0,
+            sum(t.numel() for t in tree_leaves(params)))
+
+
+def serve_model(cfg, params, smi: str, what: str, t_init: float,
+                n_params: int) -> dict:
+    """The CLI's prompt (its recipe and defaults), prefill and greedy
+    decode through `launch.serve.generate`, twice: the same tokens. Logs
+    prefill ms, ms a decode step, tokens/s and peak memory (since the
+    caller's reset)."""
+    from repro_torch.launch.serve import generate
     rng = np.random.default_rng(LM_SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
                                            (LM_BATCH, LM_PROMPT))).to(DEV)
@@ -3488,35 +3531,46 @@ def lm_model(smi: str) -> dict:
     res = generate(cfg, params, tokens, LM_GEN)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     need(np.array_equal(res["gen"], warm["gen"]),
-         "two greedy decodes of one prompt gave different tokens")
+         f"{what}: two greedy decodes of one prompt gave different tokens")
     t_dec = res["t_decode"] / (LM_GEN - 1)
-    log(f"    (a) {cfg.arch_id} at {'reduced' if LM_REDUCED else 'full'} "
-        f"width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}; {n_params:,} bf16 parameters, made from seed "
-        f"{LM_SEED} on the card in {t_init:.2f} s); batch {LM_BATCH}, "
-        f"prompt {LM_PROMPT}, {LM_GEN} tokens: prefill "
-        f"{res['t_prefill'] * 1e3:.3f} ms, {t_dec * 1e3:.3f} ms a decode "
-        f"step ({LM_BATCH / t_dec:.0f} tok/s; warm-up run: prefill "
+    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+             + (f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+                if cfg.n_heads else "")
+             + (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff "
+                f"{cfg.moe.d_expert_ff} cf {cfg.moe.capacity_factor}, "
+                if cfg.moe else f"d_ff {cfg.d_ff}, " if cfg.d_ff else "")
+             + (f"SSD {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
+                f"heads of {cfg.ssm.head_dim} d_state {cfg.ssm.d_state} "
+                f"chunk {cfg.ssm.chunk}, " if cfg.ssm else ""))
+    log(f"    {what} {cfg.arch_id} at {'reduced' if LM_REDUCED else 'full'} "
+        f"width ({shape}vocab {cfg.vocab}; {n_params:,} parameters, made "
+        f"from seed {LM_SEED} on the card in {t_init:.2f} s); batch "
+        f"{LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} tokens (the same twice):"
+        f" prefill {res['t_prefill'] * 1e3:.3f} ms, {t_dec * 1e3:.3f} ms a "
+        f"decode step ({LM_BATCH / t_dec:.0f} tok/s; warm-up run: prefill "
         f"{warm['t_prefill'] * 1e3:.3f} ms, "
         f"{warm['t_decode'] / (LM_GEN - 1) * 1e3:.3f} ms a step), peak "
         f"{peak:.2f} GiB ({smi})")
-    nxt = torch.from_numpy(res["gen"][:, :1]).to(DEV)
-    got, want = _decode_vs_prefill(cfg, params, tokens, nxt)
-    need(got.shape == (LM_BATCH, cfg.vocab), f"decode logits {got.shape}")
+    return {"cfg": cfg, "params": params, "tokens": tokens,
+            "gen": res["gen"],
+            "nxt": torch.from_numpy(res["gen"][:, :1]).to(DEV)}
 
-    def f32(tree):
-        return ({k: f32(v) for k, v in tree.items()}
-                if isinstance(tree, dict) else tree.float())
 
-    # f32 weights run the model in f32 (its compute dtype is the params')
-    got32, want32 = _decode_vs_prefill(cfg, f32(params), tokens, nxt)
-    # the bf16 model's greedy tokens where its top two logits are apart
+def decode_checks(bf16, f32, what: str) -> None:
+    """Decode's logits at position `LM_PROMPT` against the prefill of the
+    prompt one token longer (`_decode_vs_prefill` pairs): in f32 (the
+    same weights upcast, f32 activations and cache) within `LM_TOL_F32`;
+    in bf16, the served model, the greedy tokens wherever the prefill's
+    top two logits are more than 2 `LM_TOL` apart, which must be so for
+    at least half the rows."""
+    (got, want), (got32, want32) = bf16, f32
+    need(got.shape == (LM_BATCH, want.shape[1]),
+         f"{what}: decode logits {got.shape}")
     top2 = torch.topk(want, 2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * LM_TOL
     same_tok = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
-    log(f"        decode at position {LM_PROMPT} against the prefill of "
-        f"{LM_PROMPT + 1} tokens: f32 max |diff| "
+    log(f"        {what} decode at position {LM_PROMPT} against the prefill "
+        f"of {LM_PROMPT + 1} tokens: f32 max |diff| "
         f"{float((got32 - want32).abs().max()):.4g} ("
         f"{_beyond(got32, want32, LM_TOL_F32)} of {got.numel()} logits "
         f"beyond rtol=atol={LM_TOL_F32}); bf16 max |diff| "
@@ -3531,15 +3585,31 @@ def lm_model(smi: str) -> dict:
         f"{int(clear.sum())} of {LM_BATCH} rows whose top-2 gap exceeds "
         f"{2 * LM_TOL}: {same_tok}")
     need(_beyond(got32, want32, LM_TOL_F32) == 0,
-         f"decode's logits differ from the prefill's beyond {LM_TOL_F32} "
-         f"(f32)")
+         f"{what}: decode's logits differ from the prefill's beyond "
+         f"{LM_TOL_F32} (f32)")
     need(int(clear.sum()) >= LM_BATCH // 2,
-         f"only {int(clear.sum())} of {LM_BATCH} rows have a top-2 gap "
-         f"over {2 * LM_TOL}: too few to compare the bf16 greedy tokens")
-    need(same_tok, "bf16 decode's greedy token differs from the prefill's "
-         "where their top two logits are apart")
-    return {"cfg": cfg, "params": params, "tokens": tokens,
-            "gen": res["gen"]}
+         f"{what}: only {int(clear.sum())} of {LM_BATCH} rows have a top-2 "
+         f"gap over {2 * LM_TOL}: too few to compare the bf16 greedy tokens")
+    need(same_tok, f"{what}: bf16 decode's greedy token differs from the "
+         f"prefill's where their top two logits are apart")
+
+
+def lm_model(smi: str) -> dict:
+    """(a): the model at full width on the card from seed 0, served
+    (`serve_model`), and decode's logits held to the prefill of the
+    prompt one token longer in f32 and bf16 (`decode_checks`)."""
+    cfg = _lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init, n_params = _init_model(cfg)
+    need(n_params == cfg.param_count() + cfg.d_model,
+         f"the model has {n_params} parameters, its config "
+         f"{cfg.param_count()} (+ the final norm's {cfg.d_model})")
+    model = serve_model(cfg, params, smi, "(a)", t_init, n_params)
+    tokens, nxt = model["tokens"], model["nxt"]
+    decode_checks(_decode_vs_prefill(cfg, params, tokens, nxt),
+                  _decode_vs_prefill(cfg, _f32_copy(params), tokens, nxt),
+                  "(a)")
+    return model
 
 
 def _codebook_mse(E, C) -> float:
@@ -3829,11 +3899,14 @@ def codebook_sharded(local: dict, launches: dict) -> None:
     log(f"        the {MESH_RANKS} ranks took {wall:.1f} s")
 
 
-def serve_cli(model: dict, local: dict) -> None:
-    """(d): ``python -m repro_torch.launch.serve`` at full width with the
-    codebook, as a user runs it; its lines parsed and held to (a), (b)."""
+def run_serve_cli(arch: str, gen0: list, table: tuple, what: str):
+    """``python -m repro_torch.launch.serve --arch ARCH`` at full width
+    with the codebook, as a user runs it: rc 0, its lines parsed, row
+    0's tokens ``gen0`` and its codebook over the ``table``-shaped
+    embeddings. Returns (cmd, wall, codebook, timing and service
+    matches)."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           LM_ARCH, "--reduced" if LM_REDUCED else "--no-reduced",
+           arch, "--reduced" if LM_REDUCED else "--no-reduced",
            "--codebook", str(CODEBOOK_K), "--device", DEV]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
@@ -3841,12 +3914,13 @@ def serve_cli(model: dict, local: dict) -> None:
                        env=env, timeout=CLI_TIMEOUT_S)
     wall = time.perf_counter() - t0
     out = p.stdout
-    need(p.returncode == 0, f"the serve CLI exited {p.returncode}: "
+    need(p.returncode == 0, f"{what}: the serve CLI exited {p.returncode}: "
          f"{p.stderr[-2000:]}")
 
-    def line(pattern, what):
+    def line(pattern, name):
         m = re.search(pattern, out)
-        need(m is not None, f"the serve CLI printed no {what} line:\n{out}")
+        need(m is not None, f"{what}: the serve CLI printed no {name} "
+             f"line:\n{out}")
         return m
 
     cb = line(r"codebook: k=(\d+) over \((\d+), (\d+)\) embeddings in "
@@ -3860,18 +3934,27 @@ def serve_cli(model: dict, local: dict) -> None:
     sv = line(r"codebook service: (\d+) background refreshes over (\d+) "
               r"embeddings, snapshot v(\d+) \(deduped=(\d+), batch MSE "
               r"([\d.]+)\)", "service")
-    E = local["E"]
     delivered = LM_BATCH * (LM_GEN - 1)
-    need(int(cb[1]) == CODEBOOK_K and (int(cb[2]), int(cb[3])) == E.shape
-         and int(cb[5]) == local["rounds"],
-         f"the CLI's codebook line differs from (b)'s fit: {cb[0]}")
-    need(ids == model["gen"][0].tolist(),
-         f"the CLI generated {ids}, (a) {model['gen'][0].tolist()}")
+    need(int(cb[1]) == CODEBOOK_K and (int(cb[2]), int(cb[3])) == table,
+         f"{what}: the CLI's codebook line: {cb[0]}")
+    need(ids == gen0, f"{what}: the CLI generated {ids}, the in-process "
+         f"run {gen0}")
     need(len(cells) == LM_GEN and all(0 <= c < CODEBOOK_K for c in cells),
-         f"the CLI's cells {cells}")
+         f"{what}: the CLI's cells {cells}")
     need(int(sv[2]) + int(sv[4]) == delivered,
-         f"the CLI's service folded {sv[2]} and deduped {sv[4]} of "
+         f"{what}: the CLI's service folded {sv[2]} and deduped {sv[4]} of "
          f"{delivered} delivered rows")
+    return cmd, wall, cb, tm, sv
+
+
+def serve_cli(model: dict, local: dict) -> None:
+    """(d): ``python -m repro_torch.launch.serve`` at full width with the
+    codebook, as a user runs it; its lines parsed and held to (a), (b)."""
+    cmd, wall, cb, tm, sv = run_serve_cli(
+        LM_ARCH, model["gen"][0].tolist(), local["E"].shape, "(d)")
+    need(int(cb[5]) == local["rounds"],
+         f"the CLI's codebook took {cb[5]} rounds, (b)'s fit "
+         f"{local['rounds']}")
     log(f"    (d) {' '.join(cmd[1:])}: rc 0 in {wall:.1f} s; codebook "
         f"{cb[4]} s, {cb[5]} rounds (as (b)); prefill {tm[3]} ms, "
         f"{tm[4]} decode steps in {tm[5]} ms ({tm[6]} tok/s) on {tm[7]}; "
@@ -3909,7 +3992,7 @@ def lm_serve_phase(smi: str) -> dict:
 #: (b)'s layers and tolerances (bf16 against the same weights in f32),
 #: and (e)'s steps and its checkpoint interval
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR = 8, 128, 2, 3e-4
-TRAIN_STEPS, TRAIN_DET_STEPS, TRAIN_KILL_AT = 20, 6, 3
+TRAIN_STEPS, TRAIN_DET_STEPS, TRAIN_KILL_AT = 10, 6, 3
 TRAIN_GRAD_LAYERS, TRAIN_LOSS_TOL, TRAIN_GRAD_RTOL = 2, 6e-2, 5e-2
 TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 4, 2
 
@@ -3921,14 +4004,19 @@ def _train_state(cfg, seed: int = LM_SEED):
     return params, adamw.init(params)
 
 
-def _train_steps(cfg, params, opt, steps, *, timed=None, store=None):
+def _train_steps(cfg, params, opt, steps, *, timed=None, store=None,
+                 metrics=None, aux=None):
     """``steps`` of the train CLI's step on `LMBatches` from `LM_SEED`
     (its data, its optimizer for a run of up to 100 steps); returns
     (params, opt, losses as 0-d tensors). ``timed`` collects each step's
     wall (the device drained); ``store`` takes a background checkpoint
     after step `TRAIN_KILL_AT` - 1, labelled `TRAIN_KILL_AT` (the steps
-    it holds), as the CLI's ``--ckpt-every TRAIN_KILL_AT`` would."""
+    it holds), as the CLI's ``--ckpt-every TRAIN_KILL_AT`` would;
+    ``metrics`` collects each step's metrics; ``aux`` each step's MoE
+    aux loss, `train_loss` on its first microbatch before the step (no
+    gradient, outside ``timed``)."""
     from repro_torch.data.pipeline import LMBatches
+    from repro_torch.models import model as M
     from repro_torch.optim import adamw
     from repro_torch.train import step as tstep
     step = tstep.make_train_step(
@@ -3941,6 +4029,12 @@ def _train_steps(cfg, params, opt, steps, *, timed=None, store=None):
     for s in steps:
         batch = {k: torch.from_numpy(v).to(DEV)
                  for k, v in data.at(s).items()}
+        if aux is not None:
+            with torch.no_grad():
+                mb = {k: v[:TRAIN_BATCH // TRAIN_MICRO]
+                      for k, v in batch.items()}
+                aux.append(float(M.train_loss(params, mb, cfg,
+                                              remat=False)[1]["aux"]))
         if timed is not None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3949,6 +4043,8 @@ def _train_steps(cfg, params, opt, steps, *, timed=None, store=None):
             torch.cuda.synchronize()
             timed.append(time.perf_counter() - t0)
         losses.append(m["loss"])
+        if metrics is not None:
+            metrics.append(m)
         if store is not None and s == TRAIN_KILL_AT - 1:
             store.save(TRAIN_KILL_AT, {"params": params, "opt": opt},
                        background=True)
@@ -3960,12 +4056,12 @@ def _state_leaves(params, opt):
             + [opt.count])
 
 
-def train_steps_phase(smi: str) -> dict:
+def train_steps_phase(smi: str) -> np.ndarray:
     """(a): `TRAIN_STEPS` steps at full width; the loss must fall from
     the first step to the last. Then two more steps, the second one
     profiled (device busy share, the ops that take the device and the
     host). Returns the trained embedding table (before the profiled
-    steps) and the losses."""
+    steps)."""
     cfg = _lm_config()
     torch.cuda.reset_peak_memory_stats()
     params, opt = _train_state(cfg)
@@ -4013,7 +4109,7 @@ def train_steps_phase(smi: str) -> dict:
     trace_again(timed_step, report)
     del state, params, opt
     torch.cuda.empty_cache()
-    return {"E": E, "losses": losses, "ms": ms}
+    return E
 
 
 def train_grads_phase() -> None:
@@ -4053,19 +4149,18 @@ def train_grads_phase() -> None:
     torch.cuda.empty_cache()
 
 
-def train_repeat_phase() -> list:
+def train_repeat_phase() -> None:
     """(c): the same `TRAIN_DET_STEPS` steps twice give the same bits;
     a run checkpointed after step `TRAIN_KILL_AT` (in the background),
     killed, and restored into a state made from another seed, resumed to
-    `TRAIN_DET_STEPS`, gives them too. Returns the unbroken run's
-    losses."""
+    `TRAIN_DET_STEPS`, gives them too."""
     import shutil
     import tempfile
 
     from repro_torch.checkpoint.store import CheckpointStore
     cfg = _lm_config()
     p, o = _train_state(cfg)
-    p, o, losses = _train_steps(cfg, p, o, range(TRAIN_DET_STEPS))
+    p, o, _ = _train_steps(cfg, p, o, range(TRAIN_DET_STEPS))
     want = _state_leaves(p, o)
     p2, o2 = _train_state(cfg)
     p2, o2, _ = _train_steps(cfg, p2, o2, range(TRAIN_DET_STEPS))
@@ -4107,31 +4202,36 @@ def train_repeat_phase() -> list:
     need(all(same), "the resumed training run differs from the unbroken one")
     del p, o, want
     torch.cuda.empty_cache()
-    return [float(x) for x in losses]
 
 
-def train_cli(first: dict, repeat_losses: list) -> None:
-    """(e): ``python -m repro_torch.launch.train`` at full width as a user
-    runs it: `TRAIN_CLI_STEPS` steps under a temp dir, a checkpoint every
-    `TRAIN_CLI_EVERY`; step 0's loss must be (a)'s and the last step's
-    (c)'s. Then its final checkpoint is taken away, as a kill before the
-    final save leaves the directory, and the same command resumes from
-    the mid-run checkpoint: its last step line must be the unbroken
-    run's."""
+def train_cli() -> None:
+    """(e): ``python -m repro_torch.launch.train --reduced`` as a user runs
+    it: `TRAIN_CLI_STEPS` steps under a temp dir, a checkpoint every
+    `TRAIN_CLI_EVERY`; step 0's loss and the last step's must be those of
+    the same steps run in this process. Then its final checkpoint is
+    taken away, as a kill before the final save leaves the directory,
+    and the same command resumes from the mid-run checkpoint: its last
+    step line must be the unbroken run's. The reduced width keeps the
+    script inside its time limit: at full width the two runs' three
+    10.25 GiB saves and a restore took 92-139 s; (a)-(c) train the full
+    width in this process through the same step."""
     import shutil
     import tempfile
 
+    from repro_torch import configs
     from repro_torch.checkpoint.store import CheckpointStore
+    cfg = configs.get_reduced(LM_ARCH)
+    _, _, want = _train_steps(cfg, *_train_state(cfg),
+                              range(TRAIN_CLI_STEPS))
+    want = [float(x) for x in want]
     root = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     step_re = (r"step +(\d+) loss (\d+\.\d{4}) lr (\S+) gnorm (\S+) "
                r"\(([\d.]+)s\)")
     steps, every = TRAIN_CLI_STEPS, TRAIN_CLI_EVERY
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           LM_ARCH, "--steps", str(steps), "--ckpt-every", str(every),
-           "--ckpt-dir", root, "--device", DEV]
-    if LM_REDUCED:
-        cmd.append("--reduced")
+           LM_ARCH, "--reduced", "--steps", str(steps), "--ckpt-every",
+           str(every), "--ckpt-dir", root, "--device", DEV]
 
     def run():
         t0 = time.perf_counter()
@@ -4151,12 +4251,12 @@ def train_cli(first: dict, repeat_losses: list) -> None:
         wall, lines, got = run()
         last = steps - 1
         need(sorted(got) == [0, last]
-             and got[0][2] == f"{first['losses'][0]:.4f}"
-             and got[last][2] == f"{repeat_losses[last]:.4f}",
+             and got[0][2] == f"{want[0]:.4f}"
+             and got[last][2] == f"{want[last]:.4f}",
              f"the CLI's steps {sorted(got)}, its losses "
-             f"{[m[2] for m in got.values()]} against (a)'s step 0 "
-             f"{first['losses'][0]:.4f} and (c)'s step {last} "
-             f"{repeat_losses[last]:.4f}")
+             f"{[m[2] for m in got.values()]} against this process's "
+             f"{want[0]:.4f} at step 0 and {want[last]:.4f} at step "
+             f"{last}")
         saved = CheckpointStore(root).steps()
         need(saved[-2:] == [steps - every, steps], f"the CLI saved steps "
              f"{saved}")
@@ -4169,8 +4269,8 @@ def train_cli(first: dict, repeat_losses: list) -> None:
              f"the resumed CLI printed {lines2}; the unbroken run's step "
              f"{last}: {got[last][0]}")
         log(f"    (e) {' '.join(cmd[1:])}: rc 0 in {wall:.1f} s; "
-            f"{lines[0]}; {' / '.join(m[0] for m in got.values())} (step "
-            f"0's loss (a)'s, step {last}'s (c)'s); checkpoints {saved}. "
+            f"{lines[0]}; {' / '.join(m[0] for m in got.values())} (the "
+            f"in-process run's losses); checkpoints {saved}. "
             f"Its final checkpoint taken away, the same command: rc 0 in "
             f"{wall2:.1f} s, resumed from step {steps - every}, "
             f"{' / '.join(m[0] for m in got2.values())} (the unbroken "
@@ -4186,19 +4286,269 @@ def lm_train_phase(smi: str) -> dict:
     log(f"[14] training {LM_ARCH} (repro_torch.launch.train's step), then "
         f"a k={CODEBOOK_K} codebook over the trained embeddings")
     launches = dict.fromkeys(REPLACES, 0)
-    first = train_steps_phase(smi)
-    E = first.pop("E")
+    E = train_steps_phase(smi)
     train_grads_phase()
-    repeat = train_repeat_phase()
+    train_repeat_phase()
     km = codebook_fits(E, launches, "(d) on (a)'s trained table:")
     codebook_kernels({"E": E, "C": km.cluster_centers_, "b0": km.config.b0},
                      smi)
     del km
-    train_cli(first, repeat)
+    train_cli()
     log(f"    launches in phase 14: {launches}; phase 14 took "
         f"{time.perf_counter() - t0:.1f} s")
     for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
         need(launches[name] > 0, f"{name} was never launched in phase 14")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 15
+
+#: phase 15: the MoE, SSD and hybrid families at full width from seed 0.
+#: The MoE capacity factor of the decode-against-prefill checks (no drops:
+#: decode routes B tokens, prefill B * S, so their capacities differ, as
+#: tests/test_models.py holds it), (b)'s steps and repeated steps, (d)'s
+#: training steps, and the hybrid's depth: one period (jamba's 32 layers
+#: are 51.5 B parameters, 103 GB in bf16, more than the card holds)
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("granite-moe-1b-a400m", "mamba2-2.7b",
+                                   "jamba-v0.1-52b")
+CHECK_CF = 8.0
+MOE_STEPS, MOE_DET_STEPS, SSM_STEPS = 10, 3, 6
+
+
+def _family_config(arch: str):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    cfg = (configs.get_reduced(arch) if LM_REDUCED
+           else configs.get_config(arch))
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=M.period_len(cfg))
+    return cfg
+
+
+def _with_cf(cfg, cf: float):
+    import dataclasses
+    return (cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf)))
+
+
+def _upcast_in_place(tree) -> None:
+    """Each leaf of ``tree`` replaced by its f32 copy, one at a time, so
+    the bf16 leaf is freed as its copy lands."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _upcast_in_place(v)
+        else:
+            tree[k] = v.float()
+
+
+def moe_drops(cfg, params, tokens, nxt) -> tuple:
+    """The shares of (token, choice) pairs the MoE layers drop at the
+    config's own capacity factor in the prompt's prefill and one decode
+    step, recounted from each layer's router on its input
+    (`layers.moe_route`)."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import step as tstep
+    seen = []
+    orig = L.moe_fwd
+
+    def counting(p, x, moe):
+        valid = L.moe_route(p, x.reshape(-1, x.shape[-1]), moe)[3]
+        seen.append((valid.numel(), int((~valid).sum())))
+        return orig(p, x, moe)
+
+    L.moe_fwd = counting
+    try:
+        _, cache = tstep.make_prefill_step(
+            cfg, cache_len=LM_PROMPT + LM_GEN)(params, {"tokens": tokens})
+        n_pre = len(seen)
+        tstep.make_decode_step(cfg)(params, nxt, cache)
+    finally:
+        L.moe_fwd = orig
+    return tuple(sum(d for _, d in part) / sum(n for n, _ in part)
+                 for part in (seen[:n_pre], seen[n_pre:]))
+
+
+def moe_serve(smi: str) -> dict:
+    """(a): granite-moe served twice (the same tokens); decode against
+    the prefill one token longer at capacity factor `CHECK_CF`, in f32
+    and bf16 (`decode_checks`); the drop shares at the config's own."""
+    cfg = _family_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init, n_params = _init_model(cfg)
+    need(n_params == cfg.param_count() + cfg.d_model,
+         f"(a): the model has {n_params} parameters, its config "
+         f"{cfg.param_count()} (+ the final norm's {cfg.d_model})")
+    model = serve_model(cfg, params, smi, "(a)", t_init, n_params)
+    tokens, nxt = model["tokens"], model["nxt"]
+    check = _with_cf(cfg, CHECK_CF)
+    decode_checks(_decode_vs_prefill(check, params, tokens, nxt),
+                  _decode_vs_prefill(check, _f32_copy(params), tokens, nxt),
+                  f"(a) at capacity factor {CHECK_CF}:")
+    pre, dec = moe_drops(cfg, params, tokens, nxt)
+    log(f"        dropped at capacity factor {cfg.moe.capacity_factor}: "
+        f"{pre:.4%} of the prefill's (token, choice) pairs ({LM_BATCH} x "
+        f"{LM_PROMPT} tokens, {cfg.n_layers} layers), {dec:.4%} of one "
+        f"decode step's ({LM_BATCH} tokens)")
+    gen = model["gen"]
+    del model, params
+    torch.cuda.empty_cache()
+    return {"gen": gen}
+
+
+def moe_train(smi: str) -> np.ndarray:
+    """(b): `MOE_STEPS` steps of the train CLI's step on granite-moe
+    (the loss must fall, the aux loss stay finite), a profiled step, and
+    `MOE_DET_STEPS` steps twice, bit-equal. Returns the trained
+    embedding table."""
+    cfg = _family_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = _train_state(cfg)
+    walls, aux = [], []
+    params, opt, losses = _train_steps(cfg, params, opt, range(MOE_STEPS),
+                                       timed=walls, aux=aux)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    ms = float(np.median(walls[1:])) * 1e3
+    log(f"    (b) {cfg.arch_id} training, batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches, remat on, f32 moments "
+        f"and accumulators: {MOE_STEPS} steps, {ms:.3f} ms a step (median "
+        f"of steps 1-{MOE_STEPS - 1}; step 0 {walls[0] * 1e3:.3f} ms; min "
+        f"{min(walls[1:]) * 1e3:.3f}, max {max(walls[1:]) * 1e3:.3f}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB ({smi}); loss by step "
+        f"{[round(x, 4) for x in losses]}; aux (the first microbatch, "
+        f"before the step) {[round(x, 4) for x in aux]}")
+    need(all(math.isfinite(x) for x in losses + aux),
+         "(b): a loss or aux loss is not finite")
+    need(losses[-1] < losses[0], f"(b): the loss did not fall: {losses[0]}"
+         f" at step 0, {losses[-1]} at step {MOE_STEPS - 1}")
+    E = params["embed"].float().cpu().numpy()
+    state = {"params": params, "opt": opt, "step": MOE_STEPS}
+    t_prof = []
+
+    def timed_step():
+        t0 = time.perf_counter()
+        s = state["step"]
+        state["params"], state["opt"], _ = _train_steps(
+            cfg, state["params"], state["opt"], range(s, s + 1))
+        torch.cuda.synchronize()
+        state["step"] = s + 1
+        t_prof.append(time.perf_counter() - t0)
+
+    trace_again(timed_step, lambda prof: profile_report(
+        prof, ms / 1e3, t_prof[-1], what="MoE train step"))
+    del state, params, opt
+    torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2):
+        p, o = _train_state(cfg)
+        p, o, _ = _train_steps(cfg, p, o, range(MOE_DET_STEPS))
+        runs.append(_state_leaves(p, o))
+        del p, o
+    same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+    log(f"        {MOE_DET_STEPS} steps twice: every param, moment and the "
+        f"count bit-equal: {all(same)} ({sum(same)} of {len(same)} leaves)")
+    need(all(same), "(b): two runs of the same MoE training steps differ")
+    del runs
+    torch.cuda.empty_cache()
+    return E
+
+
+def ssm_phase(smi: str) -> None:
+    """(d): mamba2 served as (a) is, then `SSM_STEPS` training steps:
+    every gradient finite (the grad norm), the loss falling."""
+    cfg = _family_config(SSM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init, n_params = _init_model(cfg)
+    model = serve_model(cfg, params, smi, "(d)", t_init, n_params)
+    tokens, nxt = model["tokens"], model["nxt"]
+    decode_checks(_decode_vs_prefill(cfg, params, tokens, nxt),
+                  _decode_vs_prefill(cfg, _f32_copy(params), tokens, nxt),
+                  "(d)")
+    del model, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = _train_state(cfg)
+    walls, metrics = [], []
+    params, opt, _ = _train_steps(cfg, params, opt, range(SSM_STEPS),
+                                  timed=walls, metrics=metrics)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    ms = float(np.median(walls[1:])) * 1e3
+    log(f"        training, batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (one SSD "
+        f"chunk of {min(cfg.ssm.chunk, TRAIN_SEQ)}) in {TRAIN_MICRO} "
+        f"microbatches: {SSM_STEPS} steps, {ms:.3f} ms a step (median of "
+        f"steps 1-{SSM_STEPS - 1}; step 0 {walls[0] * 1e3:.3f} ms), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB ({smi}); loss by step "
+        f"{[round(x, 4) for x in losses]}; grad norm by step "
+        f"{[round(x, 4) for x in norms]}")
+    need(all(math.isfinite(x) for x in losses + norms),
+         "(d): a loss or gradient norm is not finite")
+    need(losses[-1] < losses[0], f"(d): the loss did not fall: {losses[0]}"
+         f" at step 0, {losses[-1]} at step {SSM_STEPS - 1}")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def hybrid_phase(smi: str) -> None:
+    """(e): jamba at full width, one period: served twice in bf16 (the
+    same tokens); decode against the prefill one token longer at
+    capacity factor `CHECK_CF` in bf16, then, the bf16 model's leaves
+    upcast one by one in place, in f32 (`decode_checks`)."""
+    cfg = _family_config(HYBRID_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init, n_params = _init_model(cfg)
+    model = serve_model(cfg, params, smi, "(e)", t_init, n_params)
+    tokens, nxt = model["tokens"], model["nxt"]
+    del model
+    check = _with_cf(cfg, CHECK_CF)
+    bf16 = _decode_vs_prefill(check, params, tokens, nxt)
+    torch.cuda.empty_cache()
+    _upcast_in_place(params)
+    f32 = _decode_vs_prefill(check, params, tokens, nxt)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    decode_checks(bf16, f32, f"(e) at capacity factor {CHECK_CF}:")
+    log(f"        the f32 model ({n_params:,} parameters upcast leaf by "
+        f"leaf): peak {peak:.2f} GiB over (e) ({smi})")
+    del params, bf16, f32
+    torch.cuda.empty_cache()
+
+
+def families_phase(smi: str) -> dict:
+    """Phase 15: the MoE, Mamba2-SSD and hybrid families at full width,
+    serving and training, the codebook over granite's trained table, and
+    the serve CLI on granite. Returns the launch counts of (c)."""
+    t0 = time.perf_counter()
+    log(f"[15] the moe, ssm and hybrid families: {MOE_ARCH} served and "
+        f"trained with a k={CODEBOOK_K} codebook over its trained "
+        f"embeddings, {SSM_ARCH} served and trained, {HYBRID_ARCH} (one "
+        f"period) served")
+    launches = dict.fromkeys(REPLACES, 0)
+    served = moe_serve(smi)
+    E = moe_train(smi)
+    km = codebook_fits(E, launches, "(c) on (b)'s trained table:")
+    codebook_kernels({"E": E, "C": km.cluster_centers_, "b0": km.config.b0},
+                     smi)
+    del km, E
+    ssm_phase(smi)
+    hybrid_phase(smi)
+    cfg = _family_config(MOE_ARCH)
+    cmd, wall, cb, tm, sv = run_serve_cli(
+        MOE_ARCH, served["gen"][0].tolist(), (cfg.vocab, cfg.d_model), "(f)")
+    log(f"    (f) {' '.join(cmd[1:])}: rc 0 in {wall:.1f} s; codebook "
+        f"{cb[4]} s, {cb[5]} rounds; prefill {tm[3]} ms, {tm[4]} decode "
+        f"steps in {tm[5]} ms ({tm[6]} tok/s) on {tm[7]}; row 0's tokens "
+        f"equal (a)'s; service: {sv[1]} refreshes over {sv[2]} embeddings,"
+        f" {sv[4]} deduped, snapshot v{sv[3]}")
+    log(f"    launches in phase 15: {launches}; phase 15 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 15")
     torch.cuda.empty_cache()
     return launches
 
@@ -4210,15 +4560,30 @@ def main() -> int:
         return 1
 
     t0 = time.perf_counter()
+    lap = [t0]
+
+    def took(n: int) -> None:
+        # phases 8-15 log their own time
+        now = time.perf_counter()
+        log(f"    phase {n} took {now - lap[0]:.1f} s")
+        lap[0] = now
+
     dev = device_phase()
+    took(1)
     build_phase()
+    took(2)
     errs = compare_phase()
+    took(3)
     main = main_path_phase()
+    took(4)
     times = timing_phase(main["X"])
+    took(5)
     xl = xl_phase()
+    took(6)
     X, Xv = main.pop("X"), main.pop("Xv")
     untraced = main.pop("fit")
     unbroken = other_paths_phase(X, Xv, main.pop("curve"))
+    took(7)
     resume_phase(X, Xv, dict(unbroken, **{"tb-hamerly2": untraced}))
     serve_phase(X, main.pop("outcome"))
     obs_phase(X, Xv, untraced)
@@ -4227,6 +4592,7 @@ def main() -> int:
     del X, Xv, untraced
     lm = lm_serve_phase(dev["smi"])
     train = lm_train_phase(dev["smi"])
+    families = families_phase(dev["smi"])
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])
@@ -4236,7 +4602,8 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], **times[name],
                     launches_phase13=lm[name],
-                    launches_phase14=train[name])
+                    launches_phase14=train[name],
+                    launches_phase15=families[name])
                for name in REPLACES]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(dev["smi"])

@@ -8,7 +8,8 @@ Port of `repro/launch/serve.py`. The model is built from ``--seed`` on
 ``--device`` (default the card; ``--device cpu`` runs on the CPU, and
 ``--device cuda`` without a card fails). ``--reduced`` (the default)
 takes the architecture's reduced config and ``--no-reduced`` its full
-width. The port runs the dense family (ROADMAP Queue 1 item 10).
+width. The port runs the dense, moe, ssm and hybrid families; encdec and
+vlm raise `NotImplementedError` (ROADMAP Queue 1 item 10).
 
 With ``--codebook K`` the server also maintains a k-means VQ codebook
 over the token-embedding table, served through `repro_torch.serve`: the

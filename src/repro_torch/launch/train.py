@@ -1,4 +1,4 @@
-"""LM training CLI: a dense architecture, reduced or at full width.
+"""LM training CLI: an architecture, reduced or at full width.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch tinyllama-1.1b --reduced --steps 50 --batch 8 --seq 128 \\
@@ -7,8 +7,9 @@
 Port of `repro/launch/train.py`, with its flags and its lines. The model
 is built from ``--seed`` on ``--device`` (default the card; ``--device
 cpu`` runs on the CPU, and ``--device cuda`` without a card fails).
-The port trains the dense family; the others raise `NotImplementedError`
-naming ROADMAP Queue 1 item 10 where the model is built. Each step is
+The port trains the dense, moe, ssm and hybrid families; encdec and vlm
+raise `NotImplementedError` naming ROADMAP Queue 1 item 10 where the
+model is built. Each step is
 `repro_torch.train.step.make_train_step`'s, which updates the
 parameters and the optimizer state in place (JAX donates them).
 Checkpoints save in the background every ``--ckpt-every`` steps (each

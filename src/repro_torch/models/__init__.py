@@ -1,1 +1,2 @@
-"""The model zoo of the port (`repro.models`): the dense family."""
+"""The model zoo of the port (`repro.models`): the dense, moe, ssm and
+hybrid families."""

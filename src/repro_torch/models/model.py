@@ -1,15 +1,20 @@
-"""The decoder of the model zoo, dense family: init, training loss,
-prefill and decode.
+"""The decoder of the model zoo: init, training loss, prefill and decode,
+for the dense, moe, ssm and hybrid families.
 
-Port of `repro/models/model.py` for ``family="dense"``. Layers are stacked
-per *period position*, with a leading ``n_periods`` dimension, as in JAX,
-so a JAX parameter tree maps onto the port's one to one
+Port of `repro/models/model.py`. Layers are stacked per *period
+position*, with a leading ``n_periods`` dimension, as in JAX, so a JAX
+parameter tree maps onto the port's one to one
 (`repro_torch.convert.params_from_numpy`). JAX scans the stack; the port
 loops over the periods, each a slice of one `torch.unbind` of the stack
-(so a backward pass stacks the periods' gradients once).
+(so a backward pass stacks the periods' gradients once), and over the
+positions within each.
 
   family    period   position structure
   dense      1       [attn + mlp]
+  moe(all)   1       [attn + moe]
+  moe(alt)   2       [attn + mlp, attn + moe]
+  ssm        1       [mamba]
+  hybrid     8       [attn|mamba at t==0|t>0; moe on odd t]   (jamba)
 
 ``backbone_full(..., remat=True)`` (training) runs each period under
 `torch.utils.checkpoint.checkpoint` (non-reentrant): its activations are
@@ -17,9 +22,9 @@ recomputed in the backward pass instead of kept. JAX's remat policy
 (``dots_with_no_batch_dims_saveable``) only chooses what is kept, so
 remat on and off give the same bits. Serving runs without it.
 
-The other families (moe, ssm, hybrid, encdec, vlm) are refused with a
-`NotImplementedError` where parameters, caches or a forward pass are
-built (ROADMAP Queue 1 item 10); nothing is computed half-way.
+The encdec and vlm families are refused with a `NotImplementedError`
+where parameters, caches or a forward pass are built (ROADMAP Queue 1
+item 10); nothing is computed half-way.
 
 Entry points: init_params / train_loss / prefill / make_decode_cache /
 decode_step.
@@ -38,56 +43,91 @@ from repro_torch.models import layers as L
 Params = Dict[str, Any]
 
 #: the families the port's model runs
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_ported(family: str) -> None:
     """Raise for a model family the port does not run yet."""
     if family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the port runs the dense family only; family={family!r} "
-            f"waits for ROADMAP Queue 1 item 10")
+            f"the port runs the {', '.join(PORTED_FAMILIES)} families; "
+            f"family={family!r} waits for ROADMAP Queue 1 item 10")
 
 
 # --------------------------------------------------------------------------
 # period structure
 # --------------------------------------------------------------------------
 
+def period_len(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        return cfg.hybrid_period
+    if cfg.moe is not None and cfg.moe.layout == "alternate":
+        return 2
+    return 1
+
+
 def n_periods(cfg: ModelConfig) -> int:
-    """The length of the stack: the dense family's period is one layer."""
-    return cfg.n_layers
+    pl = period_len(cfg)
+    assert cfg.n_layers % pl == 0, (cfg.n_layers, pl)
+    return cfg.n_layers // pl
+
+
+def pos_is_attn(cfg: ModelConfig, t: int) -> bool:
+    return cfg.is_attention_layer(t)
+
+
+def pos_is_moe(cfg: ModelConfig, t: int) -> bool:
+    return cfg.is_moe_layer(t)
+
+
+def pos_has_ffn(cfg: ModelConfig, t: int) -> bool:
+    return cfg.family != "ssm"
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
-def _init_position(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Params for one dense layer."""
+def _init_position(gen: torch.Generator, cfg: ModelConfig, t: int) -> Params:
+    """Params for one layer at period-position t."""
     d = cfg.d_model
     ones = torch.ones((d,), dtype=L.PDTYPE, device=gen.device)
-    return {"ln1": ones, "attn": L.init_attention(gen, cfg),
-            "ln2": ones.clone(), "mlp": L.init_mlp(gen, d, cfg.d_ff)}
+    p: Params = {"ln1": ones}
+    if pos_is_attn(cfg, t):
+        p["attn"] = L.init_attention(gen, cfg)
+    else:
+        p["mamba"] = L.init_mamba(gen, d, cfg.ssm)
+    if pos_has_ffn(cfg, t):
+        p["ln2"] = ones.clone()
+        if pos_is_moe(cfg, t):
+            p["moe"] = L.init_moe(gen, d, cfg.moe)
+        else:
+            p["mlp"] = L.init_mlp(gen, d, cfg.d_ff)
+    return p
 
 
 def _stack(trees):
-    """Leaf-wise `torch.stack` of equally shaped param trees."""
+    """Leaf-wise `torch.stack` of equally shaped trees (dicts, tuples)."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(_stack(list(z)) for z in zip(*trees))
     return torch.stack(trees)
 
 
 def _init_stacked(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Params]:
-    """{pos_t: params stacked over periods}: the dense family's period is
-    one layer, keyed "0" as in JAX."""
-    return {"0": _stack([_init_position(gen, cfg)
-                         for _ in range(n_periods(cfg))])}
+    """{pos_t: params stacked over periods}, keyed "0".."pl-1" as in
+    JAX."""
+    return {str(t): _stack([_init_position(gen, cfg, t)
+                            for _ in range(n_periods(cfg))])
+            for t in range(period_len(cfg))}
 
 
 def init_params(seed: int, cfg: ModelConfig, device="cuda") -> Params:
     """Random weights from ``seed`` on ``device``: the JAX package's tree
-    and distributions (N(0, 1) scaled by fan-in^-0.5, bf16), drawn from
-    one `torch.Generator` on the device (so not JAX's numbers)."""
+    and distributions (N(0, 1) scaled by fan-in^-0.5, bf16; the router
+    and the SSD's decay leaves f32), drawn from one `torch.Generator` on
+    the device (so not JAX's numbers)."""
     require_ported(cfg.family)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -117,37 +157,84 @@ def _periods(tree, n: int):
 # forward: full-sequence (train / prefill)
 # --------------------------------------------------------------------------
 
-def _layer_full(p: Params, x, cfg: ModelConfig, *, positions):
-    """One dense layer, full sequence. Returns (x, (k, v))."""
-    h, kv = L.attention_fwd(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                            cfg, positions=positions)
-    x = x + h
-    x = x + L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, kv
+def _ffn(p: Params, x, cfg: ModelConfig, t: int):
+    """The position's feed-forward half on ``x``: (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if pos_has_ffn(cfg, t):
+        h_in = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        if pos_is_moe(cfg, t):
+            h, a = L.moe_fwd(p["moe"], h_in, cfg.moe)
+            aux = aux + a
+        else:
+            h = L.mlp_fwd(p["mlp"], h_in)
+        x = x + h
+    return x, aux
+
+
+def _layer_full(p: Params, x, cfg: ModelConfig, t: int, *, positions,
+                want_cache: bool):
+    """One layer at period-position t, full sequence. Returns (x, aux,
+    cache entry): ``{"kv": (k, v)}`` or ``{"ssm": {"ssm", "conv"}}`` with
+    ``want_cache``, else ``{}``."""
+    cache = {}
+    h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if pos_is_attn(cfg, t):
+        h, kv = L.attention_fwd(p["attn"], h_in, cfg, positions=positions)
+        if want_cache:
+            cache["kv"] = kv
+    else:
+        h = L.mamba_fwd(p["mamba"], h_in, cfg.ssm, cfg.d_model,
+                        return_state=want_cache)
+        if want_cache:
+            h, cache["ssm"] = h
+    x, aux = _ffn(p, x + h, cfg, t)
+    return x, aux, cache
+
+
+def _period_full(pp: Params, x, cfg: ModelConfig, *, positions,
+                 want_cache: bool):
+    """One period's positions in turn: (x, aux summed in f32, {t: cache
+    entry})."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = {}
+    for t in range(period_len(cfg)):
+        x, a, c = _layer_full(pp[str(t)], x, cfg, t, positions=positions,
+                              want_cache=want_cache)
+        aux = aux + a
+        if c:
+            caches[str(t)] = c
+    return x, aux, caches
+
+
+def _stack_caches(per_period):
+    """[{t: entry}] over the periods -> {t: entry stacked over them}."""
+    return {t: _stack([c[t] for c in per_period]) for t in per_period[0]}
 
 
 def backbone_full(params: Params, x, cfg: ModelConfig, *, positions,
                   want_cache: bool = False, remat: bool = True):
     """Run the stacked blocks over a full sequence, period by period.
-    Returns (x, caches): with ``want_cache``, ``caches[t]["kv"]`` is the
-    (k, v) of every period stacked, (n_periods, B, S, KV, Dh) each.
+    Returns (x, aux, caches): aux is the periods' MoE aux losses summed
+    in f32, in JAX's order; with ``want_cache``, ``caches[t]`` is
+    position t's entry (``"kv"``: (k, v) of (n_periods, B, S, KV, Dh);
+    ``"ssm"``: the SSM and conv states) stacked over the periods.
     ``remat`` recomputes each period's activations in the backward pass
     (it changes no value)."""
     require_ported(cfg.family)
-    ks, vs = [], []
-    for p in _periods(params["blocks"]["0"], n_periods(cfg)):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kept = []
+    for pp in _periods(params["blocks"], n_periods(cfg)):
         if remat:
-            x, (k_, v_) = checkpoint(_layer_full, p, x, cfg,
-                                     positions=positions,
-                                     use_reentrant=False)
+            x, a, c = checkpoint(_period_full, pp, x, cfg,
+                                 positions=positions, want_cache=want_cache,
+                                 use_reentrant=False)
         else:
-            x, (k_, v_) = _layer_full(p, x, cfg, positions=positions)
+            x, a, c = _period_full(pp, x, cfg, positions=positions,
+                                   want_cache=want_cache)
+        aux = aux + a
         if want_cache:
-            ks.append(k_)
-            vs.append(v_)
-    caches = {"0": {"kv": (torch.stack(ks), torch.stack(vs))}} \
-        if want_cache else {}
-    return x, caches
+            kept.append(c)
+    return x, aux, (_stack_caches(kept) if want_cache else {})
 
 
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
@@ -168,9 +255,9 @@ def logits_fn(params: Params, x, cfg: ModelConfig):
 
 def train_loss(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, *, remat: bool = True):
-    """Token-mean cross entropy; labels == -100 masked out. Returns
-    ``(loss, {"xent", "aux"})``; the dense family has no auxiliary loss,
-    so aux is 0 and the loss is the cross entropy, as in JAX.
+    """Token-mean cross entropy (+ 0.01 x the MoE aux loss); labels ==
+    -100 masked out. Returns ``(loss, {"xent", "aux"})``, as in JAX; a
+    family without MoE has aux 0.
 
     The gold logit is taken as a masked sum over the vocabulary (one
     nonzero term, so exact) rather than a gather, whose backward on the
@@ -178,7 +265,8 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     runs of a step give the same bits."""
     require_ported(cfg.family)
     x, positions = embed_inputs(params, batch, cfg)
-    x, _ = backbone_full(params, x, cfg, positions=positions, remat=remat)
+    x, aux, _ = backbone_full(params, x, cfg, positions=positions,
+                              remat=remat)
     logits = logits_fn(params, x, cfg)
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -188,7 +276,6 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     gold = torch.where(vocab == lab[..., None], logits, 0.0).sum(-1)
     nll = (logz - gold) * mask
     loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
-    aux = torch.zeros((), device=loss.device)
     return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
@@ -200,57 +287,97 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, cache_len: int):
     """Run the prompt, return (last-token logits, decode cache).
 
-    The K/V caches are allocated at ``cache_len``, in the dtype of the
-    prompt's K/V, and hold the prompt's rows; the rest is zero, as JAX
-    pads them.
+    The cache is `make_decode_cache`'s in the activations' dtype (the
+    SSM states f32): the attention positions' K/V hold the prompt's rows
+    and the rest is zero, as JAX pads them; the Mamba positions hold the
+    prompt's SSM and conv states.
     """
     require_ported(cfg.family)
     x, positions = embed_inputs(params, batch, cfg)
     S = x.shape[1]
-    x, caches = backbone_full(params, x, cfg, positions=positions,
-                              want_cache=True, remat=False)
+    x, _, caches = backbone_full(params, x, cfg, positions=positions,
+                                 want_cache=True, remat=False)
     logits = logits_fn(params, x[:, -1:], cfg)
     cache = make_decode_cache(cfg, batch=x.shape[0], cache_len=cache_len,
-                              dtype=caches["0"]["kv"][0].dtype,
-                              device=x.device)
+                              dtype=x.dtype, device=x.device)
     cache["pos"].fill_(S)
-    k_, v_ = caches["0"]["kv"]   # (n_periods, B, S, KV, Dh)
-    cache["blocks"]["0"]["k"][:, :, :S] = k_
-    cache["blocks"]["0"]["v"][:, :, :S] = v_
+    for t, c in caches.items():
+        ent = cache["blocks"][t]
+        if "kv" in c:
+            k_, v_ = c["kv"]   # (n_periods, B, S, KV, Dh)
+            ent["k"][:, :, :S] = k_
+            ent["v"][:, :, :S] = v_
+        if "ssm" in c:
+            ent["ssm"].copy_(c["ssm"]["ssm"])
+            for part in ("x", "bc"):
+                ent["conv"][part].copy_(c["ssm"]["conv"][part])
     return logits, cache
 
 
 def make_decode_cache(cfg: ModelConfig, *, batch: int, cache_len: int,
                       dtype: torch.dtype, device="cuda") -> Dict[str, Any]:
-    """Zero-initialised cache: ``{"pos": 0-d int32, "blocks": {"0": {"k",
-    "v"}}}`` with (n_periods, batch, cache_len, KV, Dh) K/V."""
+    """Zero-initialised cache: ``{"pos": 0-d int32, "blocks": {t: ...}}``,
+    JAX's shapes and dtypes. An attention position holds ``"k"``/``"v"``
+    of (n_periods, batch, cache_len, KV, Dh) in ``dtype``; a Mamba
+    position ``"ssm"`` (n_periods, batch, nh, head_dim, d_state) in f32
+    and ``"conv": {"x", "bc"}``, the last d_conv - 1 inputs of its convs,
+    in ``dtype``."""
     require_ported(cfg.family)
     device = resolve_device(device)
-    shp = (n_periods(cfg), batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    np_ = n_periods(cfg)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    blocks = {}
+    for t in range(period_len(cfg)):
+        if pos_is_attn(cfg, t):
+            shp = (np_, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+            blocks[str(t)] = {"k": zeros(*shp), "v": zeros(*shp)}
+        else:
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            nh = d_in // s.head_dim
+            gn = s.n_groups * s.d_state
+            blocks[str(t)] = {
+                "ssm": zeros(np_, batch, nh, s.head_dim, s.d_state,
+                             dt=torch.float32),
+                "conv": {"x": zeros(np_, batch, s.d_conv - 1, d_in),
+                         "bc": zeros(np_, batch, s.d_conv - 1, 2 * gn)}}
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "blocks": {"0": {"k": torch.zeros(shp, dtype=dtype,
-                                              device=device),
-                             "v": torch.zeros(shp, dtype=dtype,
-                                              device=device)}}}
+            "blocks": blocks}
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
                 cfg: ModelConfig):
     """One decode step. token: (B, 1) int. Returns (logits, new cache).
 
-    The cache is donated, as JAX's decode step donates it: its K/V
-    tensors take the new rows in place and belong to the returned cache,
-    whose ``pos`` is a new tensor one higher. Do not reuse the old one.
+    The cache is donated, as JAX's decode step donates it: its K/V rows,
+    SSM states and conv states are written into its tensors in place and
+    belong to the returned cache, whose ``pos`` is a new tensor one
+    higher. Do not reuse the old one.
     """
     require_ported(cfg.family)
     x = params["embed"][token]
     pos = cache["pos"]
-    ent = cache["blocks"]["0"]
-    for i, p in enumerate(_periods(params["blocks"]["0"], n_periods(cfg))):
-        h, _ = L.attention_decode_fwd(
-            p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-            k_cache=ent["k"][i], v_cache=ent["v"][i], pos=pos)
-        x = x + h
-        x = x + L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    blocks = cache["blocks"]
+    for i, pp in enumerate(_periods(params["blocks"], n_periods(cfg))):
+        for t in range(period_len(cfg)):
+            p, ent = pp[str(t)], blocks[str(t)]
+            h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            if pos_is_attn(cfg, t):
+                h, _ = L.attention_decode_fwd(
+                    p["attn"], h_in, cfg, k_cache=ent["k"][i],
+                    v_cache=ent["v"][i], pos=pos)
+            else:
+                conv = ent["conv"]
+                h, st = L.mamba_decode_fwd(
+                    p["mamba"], h_in, cfg.ssm, cfg.d_model,
+                    {"ssm": ent["ssm"][i],
+                     "conv": {"x": conv["x"][i], "bc": conv["bc"][i]}})
+                ent["ssm"][i].copy_(st["ssm"])
+                conv["x"][i].copy_(st["conv"]["x"])
+                conv["bc"][i].copy_(st["conv"]["bc"])
+            x, _ = _ffn(p, x + h, cfg, t)
     logits = logits_fn(params, x, cfg)
     return logits, dict(cache, pos=pos + 1)

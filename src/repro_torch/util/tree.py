@@ -1,7 +1,7 @@
 """Nested dicts of tensors as trees, walked in JAX's order.
 
 The port's parameter, gradient and moment trees are nested dicts (the
-JAX package's pytrees of the dense family). `tree_leaves` lists the
+JAX package's pytrees of the model families). `tree_leaves` lists the
 leaves as ``jax.tree.leaves`` does (dict keys sorted), so a sum over
 them adds in JAX's order; `tree_map` maps leaf-wise over trees of one
 structure and keeps each dict's own key order.

@@ -1194,3 +1194,89 @@ def test_serve_cli_on_card(cuda):
         env=dict(os.environ, PYTHONPATH=str(root / "src")))
     assert p.returncode == 0, p.stderr
     assert "on cuda" in p.stdout and "codebook service:" in p.stdout
+
+
+# -- the moe, ssm and hybrid families on the card ----------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b",
+                                  "jamba-v0.1-52b"])
+def test_moe_ssm_hybrid_models_on_card_match_cpu(cuda, arch):
+    """The reduced granite-moe (moe), mamba2 (ssm) and jamba (hybrid):
+    weights made on the CPU and copied to the card, prefill and decode
+    logits within 6e-2 of the CPU's (bf16 activations), the decode's
+    SSM state written in place."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.train import step as tstep
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_reduced(arch)
+    params = M.init_params(1, cfg, "cpu")
+    toks = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab, (2, 21)))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda))):
+        t = toks.to(dev)
+        lp, cache = tstep.make_prefill_step(cfg, cache_len=24)(
+            p, {"tokens": t[:, :-1]})
+        ld, new = tstep.make_decode_step(cfg)(p, t[:, -1:], cache)
+        out[dev] = (lp.cpu(), ld.cpu())
+        assert all(new["blocks"][t_] is cache["blocks"][t_]
+                   for t_ in cache["blocks"])
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=6e-2, atol=6e-2)
+
+
+def _train_steps_on(cfg, device, steps, seed=0):
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    params = M.init_params(seed, cfg, device)
+    opt = adamw.init(params)
+    step = tstep.make_train_step(cfg, n_micro=2, opt_cfg=adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=2, decay_steps=20))
+    data = LMBatches(vocab=cfg.vocab, batch=4, seq=steps[1],
+                     n_tokens=40_000, seed=0)
+    metrics = []
+    for s in range(steps[0]):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.at(s).items()}
+        params, opt, m = step(params, opt, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return params, opt, metrics
+
+
+@pytest.mark.gpu
+def test_moe_train_step_on_card_repeats_its_bits(cuda):
+    """3 train steps of the reduced granite-moe on the card, twice: every
+    param, moment and the count bit-equal (the dispatch writes unique
+    slots, the combine's backward adds one term a slot), the loss
+    finite."""
+    from repro_torch import configs
+    from repro_torch.util.tree import tree_leaves
+    cfg = configs.get_reduced("granite-moe-1b-a400m")
+    runs = [_train_steps_on(cfg, cuda, (3, 16)) for _ in range(2)]
+    (p1, o1, m1), (p2, o2, m2) = runs
+    assert m1 == m2 and all(np.isfinite(m["loss"]) for m in m1)
+    for a, b in zip(tree_leaves(p1) + tree_leaves(o1.mu) + tree_leaves(o1.nu)
+                    + [o1.count],
+                    tree_leaves(p2) + tree_leaves(o2.mu) + tree_leaves(o2.nu)
+                    + [o2.count]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_ssm_train_step_at_chunk_128_has_finite_gradients(cuda):
+    """mamba2 reduced with ``chunk=128`` at S = 128 (one chunk of 128,
+    where the reference's SSD gradient is NaN, ROADMAP Queue 3 item 9):
+    2 steps on the card, each grad_norm and loss finite."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get_reduced("mamba2-2.7b")
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           chunk=128))
+    _, _, metrics = _train_steps_on(cfg, cuda, (2, 128))
+    for m in metrics:
+        assert np.isfinite(m["grad_norm"]) and np.isfinite(m["loss"]), m
