@@ -333,11 +333,48 @@ Phases (each raises on failure, so any fault exits non-zero):
      granite-moe-1b-a400m --no-reduced --codebook 1024`` as a subprocess:
      rc 0, row 0's tokens (a)'s. Kernels 1-3 must be launched in the
      phase.
+  16. the paper's RCV1 fit: `KMEANS_RCV1`'s algorithm (tb, hamerly2,
+     k=50, b0=5000) on `benchmarks/common.py::dataset("rcv1")`'s rows,
+     60,000 ``rcv1_like`` rows at d=2048 (seed 0; the config's 781,265
+     cut for the host's generation time) with 6,000 validation rows,
+     held as phase 4 holds infMNIST: kernels 1-3 launched (fit +
+     predict), a second fit bit-identical, the final validation MSE
+     within 1e-3 of the ``kernel_backend="ref"`` fit's, which repeats its
+     bits; rounds, the sum of ``n_recomputed``, wall and peak memory
+     logged; kernels 1-3 held and timed on the rows and the fitted
+     centroids at d=2048, k=50 as phase 12 holds them
+     (`check_wide_kernels`), beside their plain versions, ``index_add_``
+     and their bounds.
+  17. the encdec and vlm families from seed 0, on normal frames or
+     patches from a numpy seed, phase 13's prompt and phase 14's
+     training defaults: (a) whisper-tiny at full width (4 + 4 layers,
+     d_model 384, 6 heads, vocab 51865, 1536 frames; its parameter count
+     is the config's plus the decoder's cross attention and its norm,
+     4 d^2 + d a layer, and the final norm) served twice (the same
+     tokens), decode against the prefill one token longer in f32 within
+     1e-3 and in bf16 by phase 13's rule, then served on the serve CLI's
+     zero frames. (e) `build_codebook` with k=1024 over its 51865 x 384
+     table as phase 13 (b) (kernels 1-3 launched, bit-equal twice, the
+     ref plan's MSE within 1e-3, kernels 1-3 held and timed at the fit's
+     shapes), then ``python -m repro_torch.launch.serve --arch
+     whisper-tiny --no-reduced --codebook 1024``: rc 0, its codebook's
+     rounds the in-process fit's and row 0's tokens (a)'s on the zero
+     frames. (b) 10 train steps (batch 8, seq 128, 2 microbatches): the
+     loss falls, every grad norm finite; ms a step, tokens/s, peak
+     memory; 3 steps twice bit-equal. (c) internvl2-76b at full width cut
+     to 8 of its 80 layers (8.95 B parameters; 80 are 131.4 GiB in bf16),
+     256 patches before the prompt, served twice in bf16 with the cache
+     sized patches + prompt + generated; decode against prefill in bf16,
+     then in f32 after the leaves are upcast one by one in place; peak
+     memory. (d) internvl2-76b at 1 layer (2.96 B) trained over 256
+     patches + 128 tokens (the loss after the patch prefix is stripped):
+     3 steps twice bit-equal (the first run's state in host memory),
+     every loss finite; the states reckoned before the run. Kernels 1-3
+     must be launched in the phase.
 
 The last two lines are a JSON object of the kernels (each with its
-main path's ``launches`` and phases 13, 14 and 15's
-``launches_phase13``, ``launches_phase14`` and ``launches_phase15``)
-and the JSON
+main path's ``launches`` and phases 13-17's ``launches_phase13`` ...
+``launches_phase17``) and the JSON
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -3105,7 +3142,8 @@ def check_wide_kernels(x, C, ks, smi: str) -> None:
             *got, x, c, "assign_top2", plain=ref.assign_top2_ref(x, c)[1])
         need(same_bits(kmeans_assign.assign_top2_cuda(x, c), got),
              "assign_top2 is not deterministic")
-        tc_ops = 3 * 2.0 * n * (-(-k // 128) * 128) * d
+        k_pad = 64 if k <= 64 else -(-k // 128) * 128
+        tc_ops = 3 * 2.0 * n * k_pad * d
         b1, how1 = bound(n * d * 4 + k * d * 4 + n * 12, 0.0,
                          tf32_flops=tc_ops)
         ms1 = time_ms(lambda: kmeans_assign.assign_top2_cuda(x, c))
@@ -3481,16 +3519,20 @@ def _lm_config():
             else configs.get_config(LM_ARCH))
 
 
-def _decode_vs_prefill(cfg, params, tokens, nxt):
+def _decode_vs_prefill(cfg, params, tokens, nxt, inputs=None):
     """Decode's logits at position ``len(prompt)`` (after the prompt's
     prefill) and the prefill's logits of the prompt one token longer, as
-    float64 (B, vocab) each."""
+    float64 (B, vocab) each. ``inputs``: the frames or patches beside the
+    tokens; the cache is sized as the serve CLI sizes it."""
+    from repro_torch.launch.serve import cache_len
     from repro_torch.train import step as tstep
-    prefill = tstep.make_prefill_step(cfg, cache_len=LM_PROMPT + LM_GEN)
-    logits_p, cache = prefill(params, {"tokens": tokens})
+    inputs = inputs or {}
+    prefill = tstep.make_prefill_step(
+        cfg, cache_len=cache_len(cfg, LM_PROMPT, LM_GEN))
+    logits_p, cache = prefill(params, {"tokens": tokens, **inputs})
     logits_d, _ = tstep.make_decode_step(cfg)(params, nxt, cache)
     logits_f, _ = prefill(params, {"tokens": torch.cat(
-        [tokens, nxt.long()], dim=1)})
+        [tokens, nxt.long()], dim=1), **inputs})
     need(bool(torch.isfinite(logits_p).all()
               and torch.isfinite(logits_d).all()),
          "the model's logits are not finite")
@@ -3518,17 +3560,18 @@ def _init_model(cfg):
 
 
 def serve_model(cfg, params, smi: str, what: str, t_init: float,
-                n_params: int) -> dict:
+                n_params: int, inputs=None) -> dict:
     """The CLI's prompt (its recipe and defaults), prefill and greedy
-    decode through `launch.serve.generate`, twice: the same tokens. Logs
-    prefill ms, ms a decode step, tokens/s and peak memory (since the
-    caller's reset)."""
+    decode through `launch.serve.generate`, twice: the same tokens.
+    ``inputs``: the frames or patches beside the prompt. Logs prefill
+    ms, ms a decode step, tokens/s and peak memory (since the caller's
+    reset)."""
     from repro_torch.launch.serve import generate
     rng = np.random.default_rng(LM_SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
                                            (LM_BATCH, LM_PROMPT))).to(DEV)
-    warm = generate(cfg, params, tokens, LM_GEN)
-    res = generate(cfg, params, tokens, LM_GEN)
+    warm = generate(cfg, params, tokens, LM_GEN, inputs=inputs)
+    res = generate(cfg, params, tokens, LM_GEN, inputs=inputs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     need(np.array_equal(res["gen"], warm["gen"]),
          f"{what}: two greedy decodes of one prompt gave different tokens")
@@ -3541,7 +3584,11 @@ def serve_model(cfg, params, smi: str, what: str, t_init: float,
                 if cfg.moe else f"d_ff {cfg.d_ff}, " if cfg.d_ff else "")
              + (f"SSD {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
                 f"heads of {cfg.ssm.head_dim} d_state {cfg.ssm.d_state} "
-                f"chunk {cfg.ssm.chunk}, " if cfg.ssm else ""))
+                f"chunk {cfg.ssm.chunk}, " if cfg.ssm else "")
+             + (f"encoder {cfg.encoder.n_layers} layers over "
+                f"{cfg.encoder.n_ctx} frames, " if cfg.family == "encdec"
+                else f"{cfg.encoder.n_ctx} patches before the prompt, "
+                if cfg.family == "vlm" else ""))
     log(f"    {what} {cfg.arch_id} at {'reduced' if LM_REDUCED else 'full'} "
         f"width ({shape}vocab {cfg.vocab}; {n_params:,} parameters, made "
         f"from seed {LM_SEED} on the card in {t_init:.2f} s); batch "
@@ -3552,13 +3599,14 @@ def serve_model(cfg, params, smi: str, what: str, t_init: float,
         f"{warm['t_decode'] / (LM_GEN - 1) * 1e3:.3f} ms a step), peak "
         f"{peak:.2f} GiB ({smi})")
     return {"cfg": cfg, "params": params, "tokens": tokens,
-            "gen": res["gen"],
+            "gen": res["gen"], "inputs": inputs,
             "nxt": torch.from_numpy(res["gen"][:, :1]).to(DEV)}
 
 
-def decode_checks(bf16, f32, what: str) -> None:
-    """Decode's logits at position `LM_PROMPT` against the prefill of the
-    prompt one token longer (`_decode_vs_prefill` pairs): in f32 (the
+def decode_checks(bf16, f32, what: str, prefix: int = 0) -> None:
+    """Decode's logits at position `LM_PROMPT` (after a vlm's ``prefix``
+    patches) against the prefill of the prompt one token longer
+    (`_decode_vs_prefill` pairs): in f32 (the
     same weights upcast, f32 activations and cache) within `LM_TOL_F32`;
     in bf16, the served model, the greedy tokens wherever the prefill's
     top two logits are more than 2 `LM_TOL` apart, which must be so for
@@ -3569,8 +3617,8 @@ def decode_checks(bf16, f32, what: str) -> None:
     top2 = torch.topk(want, 2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * LM_TOL
     same_tok = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
-    log(f"        {what} decode at position {LM_PROMPT} against the prefill "
-        f"of {LM_PROMPT + 1} tokens: f32 max |diff| "
+    log(f"        {what} decode at position {prefix + LM_PROMPT} against "
+        f"the prefill of {prefix + LM_PROMPT + 1} positions: f32 max |diff| "
         f"{float((got32 - want32).abs().max()):.4g} ("
         f"{_beyond(got32, want32, LM_TOL_F32)} of {got.numel()} logits "
         f"beyond rtol=atol={LM_TOL_F32}); bf16 max |diff| "
@@ -4005,10 +4053,11 @@ def _train_state(cfg, seed: int = LM_SEED):
 
 
 def _train_steps(cfg, params, opt, steps, *, timed=None, store=None,
-                 metrics=None, aux=None):
+                 metrics=None, aux=None, inputs=None):
     """``steps`` of the train CLI's step on `LMBatches` from `LM_SEED`
-    (its data, its optimizer for a run of up to 100 steps); returns
-    (params, opt, losses as 0-d tensors). ``timed`` collects each step's
+    (its data as the CLI batches it, `lm_batch`, with ``inputs`` over its
+    frame or patch stubs; its optimizer for a run of up to 100 steps);
+    returns (params, opt, losses as 0-d tensors). ``timed`` collects each step's
     wall (the device drained); ``store`` takes a background checkpoint
     after step `TRAIN_KILL_AT` - 1, labelled `TRAIN_KILL_AT` (the steps
     it holds), as the CLI's ``--ckpt-every TRAIN_KILL_AT`` would;
@@ -4016,6 +4065,7 @@ def _train_steps(cfg, params, opt, steps, *, timed=None, store=None,
     aux loss, `train_loss` on its first microbatch before the step (no
     gradient, outside ``timed``)."""
     from repro_torch.data.pipeline import LMBatches
+    from repro_torch.launch.train import lm_batch
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
     from repro_torch.train import step as tstep
@@ -4027,8 +4077,7 @@ def _train_steps(cfg, params, opt, steps, *, timed=None, store=None,
                      seed=LM_SEED)
     losses = []
     for s in steps:
-        batch = {k: torch.from_numpy(v).to(DEV)
-                 for k, v in data.at(s).items()}
+        batch = dict(lm_batch(cfg, data.at(s), DEV), **(inputs or {}))
         if aux is not None:
             with torch.no_grad():
                 mb = {k: v[:TRAIN_BATCH // TRAIN_MICRO]
@@ -4313,7 +4362,7 @@ def lm_train_phase(smi: str) -> dict:
 MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("granite-moe-1b-a400m", "mamba2-2.7b",
                                    "jamba-v0.1-52b")
 CHECK_CF = 8.0
-MOE_STEPS, MOE_DET_STEPS, SSM_STEPS = 10, 3, 6
+MOE_STEPS, DET_STEPS, SSM_STEPS = 10, 3, 6
 
 
 def _family_config(arch: str):
@@ -4342,6 +4391,31 @@ def _upcast_in_place(tree) -> None:
             _upcast_in_place(v)
         else:
             tree[k] = v.float()
+
+
+def _repeat_steps(cfg, what: str, inputs=None, on_host=False) -> None:
+    """`DET_STEPS` train steps from seed 0, twice: every param, moment
+    and the count bit-equal, every loss finite; each step's wall is
+    logged. ``on_host`` keeps the first run's state in host memory while
+    the second runs (two states do not fit on the card)."""
+    runs, losses, walls = [], [], []
+    for _ in range(2):
+        p, o = _train_state(cfg)
+        p, o, ls = _train_steps(cfg, p, o, range(DET_STEPS), inputs=inputs,
+                                timed=walls)
+        losses.append([float(x) for x in ls])
+        leaves = _state_leaves(p, o)
+        runs.append([t.cpu() for t in leaves] if on_host else leaves)
+        del p, o, leaves
+        torch.cuda.empty_cache()
+    same = [bool(torch.equal(a.to(b.device), b)) for a, b in zip(*runs)]
+    log(f"        {DET_STEPS} steps twice: every param, moment and the "
+        f"count bit-equal: {all(same)} ({sum(same)} of {len(same)} "
+        f"leaves); losses {losses[0]}; ms a step "
+        f"{[round(w * 1e3, 3) for w in walls]}")
+    need(all(math.isfinite(x) for x in losses[0] + losses[1]),
+         f"{what}: a loss is not finite")
+    need(all(same), f"{what}: two runs of the same training steps differ")
 
 
 def moe_drops(cfg, params, tokens, nxt) -> tuple:
@@ -4442,18 +4516,7 @@ def moe_train(smi: str) -> np.ndarray:
         prof, ms / 1e3, t_prof[-1], what="MoE train step"))
     del state, params, opt
     torch.cuda.empty_cache()
-    runs = []
-    for _ in range(2):
-        p, o = _train_state(cfg)
-        p, o, _ = _train_steps(cfg, p, o, range(MOE_DET_STEPS))
-        runs.append(_state_leaves(p, o))
-        del p, o
-    same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
-    log(f"        {MOE_DET_STEPS} steps twice: every param, moment and the "
-        f"count bit-equal: {all(same)} ({sum(same)} of {len(same)} leaves)")
-    need(all(same), "(b): two runs of the same MoE training steps differ")
-    del runs
-    torch.cuda.empty_cache()
+    _repeat_steps(cfg, "(b)")
     return E
 
 
@@ -4553,6 +4616,293 @@ def families_phase(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+
+#: phase 16: `benchmarks/common.py::dataset("rcv1")`'s rows (60,000 train
+#: + 6,000 validation at d = 2048, seed 0) under `KMEANS_RCV1`'s
+#: algorithm; its 781,265 rows are cut (one Python draw a row: ~170 s of
+#: host time)
+RCV1_N, RCV1_D = 60_000, 2048
+
+
+def _rcv1_fit(X, Xv, **kw):
+    """`KMEANS_RCV1`'s fit (tb, hamerly2, k = 50, b0 = 5000), seed 0,
+    with ``kw`` over its config."""
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.configs import get_kmeans_config
+    w = get_kmeans_config("kmeans_rcv1")
+    cfg = FitConfig(**dict(dict(k=w.k, b0=w.b0, algorithm=w.algorithm,
+                                rho=w.rho, bounds=w.bounds, seed=0), **kw))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km = NestedKMeans(cfg, device=DEV).fit(X, X_val=Xv)
+    torch.cuda.synchronize()
+    return km, time.perf_counter() - t0
+
+
+def rcv1_phase(smi: str) -> dict:
+    """Phase 16: the paper's RCV1 fit on the card, held as phase 4 holds
+    infMNIST; kernels 1-3 held and timed at d = 2048, k = 50 on its rows
+    and centroids. Returns the fit's launch counts (fit + predict)."""
+    from repro_torch.data.synthetic import rcv1_like
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    X = rcv1_like(RCV1_N + RCV1_N // 10, dim=RCV1_D, seed=0)
+    X, Xv = X[:RCV1_N], X[RCV1_N:]
+    log(f"[16] the paper's RCV1 fit: rcv1_like {X.shape} + {Xv.shape} "
+        f"(seed 0) in {time.perf_counter() - t0:.1f} s (host); "
+        f"{(X.nbytes + Xv.nbytes) / 1e6:.0f} MB of f32")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    km, wall = _rcv1_fit(X, Xv)
+    labels = km.predict(X)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tel = [r for r in km.telemetry_ if r.batch_mse is not None]
+    k = km.config.k
+    log(f"    cuda fit (k={k}, b0 {km.config.b0}, {km.config.algorithm}, "
+        f"{km.config.bounds}): {len(tel)} rounds, final b "
+        f"{km.telemetry_[-1].b}, sum n_recomputed "
+        f"{sum(r.n_recomputed for r in tel)}, converged {km.converged_}, "
+        f"final val MSE {km.final_mse_!r}, wall {wall:.2f} s (rounds "
+        f"{km.telemetry_[-1].t:.3f} s), peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB ({smi})")
+    log(f"    launches (fit + predict): {launches}")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in the RCV1 "
+             f"fit")
+    C = km.cluster_centers_
+    need(C.shape == (k, RCV1_D) and bool(np.isfinite(C).all()),
+         "RCV1: centroids are not finite (k, d)")
+    need(labels.shape == (RCV1_N,) and labels.min() >= 0
+         and labels.max() < k, "RCV1: predict labels")
+    need(km.converged_ is False or np.array_equal(labels, km.labels_),
+         "RCV1: a converged fit's labels differ from predict")
+    km2, wall2 = _rcv1_fit(X, Xv)
+    same = np.array_equal(km2.cluster_centers_, C) \
+        and np.array_equal(km2.labels_, km.labels_)
+    kmr, wallr = _rcv1_fit(X, Xv, kernel_backend="ref")
+    kmr2, wallr2 = _rcv1_fit(X, Xv, kernel_backend="ref")
+    rel = abs(kmr.final_mse_ - km.final_mse_) / abs(kmr.final_mse_)
+    same_ref = np.array_equal(kmr2.cluster_centers_, kmr.cluster_centers_) \
+        and np.array_equal(kmr2.labels_, kmr.labels_)
+    log(f"    second cuda fit: wall {wall2:.2f} s, bit-identical: {same}; "
+        f"ref fit (plain versions on the card): "
+        f"{sum(r.batch_mse is not None for r in kmr.telemetry_)} rounds, "
+        f"final val MSE {kmr.final_mse_!r}, wall {wallr:.2f} s, relative "
+        f"gap {rel:.3g}; a second ref fit (wall {wallr2:.2f} s) "
+        f"bit-identical: {same_ref}; the cuda and ref schedules part at "
+        f"round {_parts_at(km, kmr)}")
+    need(same, "RCV1: a second identical fit is not bit-identical")
+    need(rel <= 1e-3, "RCV1: cuda and ref fits differ in val MSE beyond "
+         "1e-3")
+    need(same_ref, "RCV1: two ref fits on the card differ")
+    del km2, kmr, kmr2
+    log(f"    kernels 1-3 at d = {RCV1_D}, k = {k} on the {RCV1_N} rows "
+        f"and the fitted centroids:")
+    check_wide_kernels(torch.from_numpy(X).to(DEV),
+                       torch.from_numpy(C).to(DEV), (k,), smi)
+    torch.cuda.empty_cache()
+    log(f"    phase 16 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 17
+
+#: phase 17: the encdec and vlm families from seed 0, phase 13's prompt
+#: and phase 14's training defaults. internvl2-76b's 80 layers are 70.55 B
+#: parameters (131.4 GiB in bf16, more than the card holds): served at 8
+#: layers (8.95 B) and trained at 1 (2.96 B: bf16 weights, f32 moments
+#: and accumulators).
+ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "internvl2-76b"
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 8, 1
+ENCDEC_STEPS = 10
+
+
+def _cut(cfg, n_layers: int):
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, n_layers))
+
+
+def _modality_inputs(cfg, batch: int) -> dict:
+    """Normal frame (encdec) or patch (vlm) embeddings from the numpy
+    seed `LM_SEED`, bf16 on the card: zeros, the CLIs' stubs, would
+    leave the encoder's input to the sinusoid alone."""
+    e = cfg.encoder
+    name, width = (("frames", e.d_frontend) if cfg.family == "encdec"
+                   else ("patches", cfg.d_model))
+    x = np.random.default_rng(LM_SEED).standard_normal(
+        (batch, e.n_ctx, width), dtype=np.float32)
+    return {name: torch.from_numpy(x).to(DEV, torch.bfloat16)}
+
+
+def encdec_serve(smi: str) -> dict:
+    """(a): whisper-tiny served twice on normal frames (the same
+    tokens); decode against the prefill one token longer in f32 and
+    bf16 (`decode_checks`: decode adds `sinusoid_at(32)` where that
+    prefill adds `sinusoid`'s row 32); then served once more on the
+    serve CLI's zero frames, whose tokens (e) holds the CLI to."""
+    from repro_torch.launch.serve import generate, modality_stubs
+    cfg = _family_config(ENCDEC_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init, n_params = _init_model(cfg)
+    d = cfg.d_model
+    # ModelConfig.param_count() counts neither the decoder's cross
+    # attention and its norm (4 d^2 + d a layer) nor the final norm (d)
+    # nor enc_in
+    extra = cfg.n_layers * (4 * d * d + d) + d + (
+        cfg.encoder.d_frontend * d if cfg.encoder.d_frontend != d else 0)
+    need(n_params == cfg.param_count() + extra,
+         f"(a): the model has {n_params} parameters, its config "
+         f"{cfg.param_count()} + {extra} (cross attention, ln_x, ln_f)")
+    inputs = _modality_inputs(cfg, LM_BATCH)
+    model = serve_model(cfg, params, smi, "(a)", t_init, n_params, inputs)
+    tokens, nxt = model["tokens"], model["nxt"]
+    decode_checks(
+        _decode_vs_prefill(cfg, params, tokens, nxt, inputs),
+        _decode_vs_prefill(cfg, _f32_copy(params), tokens, nxt, inputs),
+        "(a)")
+    stub = generate(cfg, params, tokens, LM_GEN,
+                    inputs=modality_stubs(cfg, LM_BATCH, DEV))
+    log(f"        on the CLI's zero frames: row 0's tokens "
+        f"{stub['gen'][0].tolist()} (normal frames: "
+        f"{model['gen'][0].tolist()})")
+    E = params["embed"].float().cpu().numpy()
+    del model, params
+    torch.cuda.empty_cache()
+    return {"gen_stub": stub["gen"], "E": E}
+
+
+def encdec_train(smi: str) -> None:
+    """(b): `ENCDEC_STEPS` steps of the train CLI's step on whisper-tiny
+    (normal frames over the CLI's stubs): the loss falls; then
+    `DET_STEPS` steps twice, bit-equal."""
+    cfg = _family_config(ENCDEC_ARCH)
+    inputs = _modality_inputs(cfg, TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = _train_state(cfg)
+    walls, metrics = [], []
+    params, opt, _ = _train_steps(cfg, params, opt, range(ENCDEC_STEPS),
+                                  timed=walls, metrics=metrics,
+                                  inputs=inputs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    ms = float(np.median(walls[1:])) * 1e3
+    log(f"    (b) {cfg.arch_id} training, batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ} (+ {cfg.encoder.n_ctx} frames a row through the "
+        f"encoder) in {TRAIN_MICRO} microbatches, remat on, f32 moments and "
+        f"accumulators: {ENCDEC_STEPS} steps, {ms:.3f} ms a step (median "
+        f"of steps 1-{ENCDEC_STEPS - 1}; step 0 {walls[0] * 1e3:.3f} ms; "
+        f"min {min(walls[1:]) * 1e3:.3f}, max {max(walls[1:]) * 1e3:.3f}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB ({smi}); loss by step "
+        f"{[round(x, 4) for x in losses]}; grad norm by step "
+        f"{[round(x, 4) for x in norms]}")
+    need(all(math.isfinite(x) for x in losses + norms),
+         "(b): a loss or gradient norm is not finite")
+    need(losses[-1] < losses[0], f"(b): the loss did not fall: {losses[0]}"
+         f" at step 0, {losses[-1]} at step {ENCDEC_STEPS - 1}")
+    del params, opt
+    torch.cuda.empty_cache()
+    _repeat_steps(cfg, "(b)", inputs)
+
+
+def vlm_serve(smi: str) -> None:
+    """(c): internvl2-76b at `VLM_SERVE_LAYERS` layers served twice in
+    bf16 on normal patches (the same tokens), its cache sized as the
+    serve CLI sizes it (patches + prompt + generated tokens); decode
+    against the prefill one token longer in bf16, then, the model's
+    leaves upcast one by one in place, in f32 (`decode_checks`)."""
+    from repro_torch.launch.serve import cache_len
+    cfg = _cut(_family_config(VLM_ARCH), VLM_SERVE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init, n_params = _init_model(cfg)
+    need(n_params == cfg.param_count() + cfg.d_model,
+         f"(c): the model has {n_params} parameters, its config "
+         f"{cfg.param_count()} (+ the final norm's {cfg.d_model})")
+    inputs = _modality_inputs(cfg, LM_BATCH)
+    model = serve_model(cfg, params, smi, "(c)", t_init, n_params, inputs)
+    tokens, nxt = model["tokens"], model["nxt"]
+    del model
+    bf16 = _decode_vs_prefill(cfg, params, tokens, nxt, inputs)
+    torch.cuda.empty_cache()
+    _upcast_in_place(params)
+    f32 = _decode_vs_prefill(cfg, params, tokens, nxt, inputs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    decode_checks(bf16, f32, "(c)", prefix=cfg.encoder.n_ctx)
+    log(f"        cache of {cache_len(cfg, LM_PROMPT, LM_GEN)} positions "
+        f"({cfg.encoder.n_ctx} patches + {LM_PROMPT} + {LM_GEN}); the f32 "
+        f"model ({n_params:,} parameters upcast leaf by leaf): peak "
+        f"{peak:.2f} GiB over (c) ({smi})")
+    del params, bf16, f32
+    torch.cuda.empty_cache()
+
+
+def vlm_train(smi: str) -> None:
+    """(d): internvl2-76b at `VLM_TRAIN_LAYERS` layer(s): the train CLI's
+    step over the patches and the CLI's batch (seq 128 is not longer
+    than the 256 patches, so every token stays, as in JAX); the loss is
+    taken after the patch prefix is stripped. `DET_STEPS` steps twice,
+    bit-equal, the first run's state held in host memory."""
+    cfg = _cut(_family_config(VLM_ARCH), VLM_TRAIN_LAYERS)
+    n = cfg.param_count() + cfg.d_model
+    p = cfg.encoder.n_ctx
+    seq = TRAIN_SEQ - p if TRAIN_SEQ > p else TRAIN_SEQ   # `lm_batch`
+    log(f"    (d) {cfg.arch_id} training at {cfg.n_layers} layer(s) "
+        f"({n:,} parameters), batch {TRAIN_BATCH} x ({p} patches + {seq} "
+        f"tokens) in "
+        f"{TRAIN_MICRO} microbatches; reckoned states: bf16 weights "
+        f"{2 * n / 2 ** 30:.2f} GiB, f32 moments {8 * n / 2 ** 30:.2f} GiB,"
+        f" f32 accumulators {4 * n / 2 ** 30:.2f} GiB, bf16 gradients "
+        f"{2 * n / 2 ** 30:.2f} GiB: {16 * n / 2 ** 30:.2f} GiB")
+    inputs = _modality_inputs(cfg, TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _repeat_steps(cfg, "(d)", inputs, on_host=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"        the two runs with their host copies in "
+        f"{time.perf_counter() - t0:.1f} s; peak {peak:.2f} GiB ({smi})")
+
+
+def encdec_vlm_phase(smi: str) -> dict:
+    """Phase 17: the encdec and vlm families at full width (internvl2 cut
+    in depth), serving and training, the codebook over whisper's table
+    and the serve CLI on whisper. Returns the launch counts of (e)."""
+    t0 = time.perf_counter()
+    log(f"[17] the encdec and vlm families: {ENCDEC_ARCH} served and "
+        f"trained, a k={CODEBOOK_K} codebook over its embeddings and the "
+        f"serve CLI; {VLM_ARCH} served at {VLM_SERVE_LAYERS} layers and "
+        f"trained at {VLM_TRAIN_LAYERS}")
+    launches = dict.fromkeys(REPLACES, 0)
+    served = encdec_serve(smi)
+    E = served["E"]
+    km = codebook_fits(E, launches, f"(e) on {ENCDEC_ARCH}'s table:")
+    codebook_kernels({"E": E, "C": km.cluster_centers_, "b0": km.config.b0},
+                     smi)
+    cmd, wall, cb, tm, sv = run_serve_cli(
+        ENCDEC_ARCH, served["gen_stub"][0].tolist(), E.shape, "(e)")
+    need(int(cb[5]) == km.n_rounds_, f"(e): the CLI's codebook took "
+         f"{cb[5]} rounds, the in-process fit {km.n_rounds_}")
+    log(f"    (e) {' '.join(cmd[1:])}: rc 0 in {wall:.1f} s; codebook "
+        f"{cb[4]} s, {cb[5]} rounds (the in-process fit's); prefill {tm[3]}"
+        f" ms, {tm[4]} decode steps in {tm[5]} ms ({tm[6]} tok/s) on "
+        f"{tm[7]}; row 0's tokens equal (a)'s on the zero frames; service: "
+        f"{sv[1]} refreshes over {sv[2]} embeddings, {sv[4]} deduped, "
+        f"snapshot v{sv[3]}")
+    del km, E, served
+    encdec_train(smi)
+    vlm_serve(smi)
+    vlm_train(smi)
+    log(f"    launches in phase 17: {launches}; phase 17 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        need(launches[name] > 0, f"{name} was never launched in phase 17")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4593,6 +4943,8 @@ def main() -> int:
     lm = lm_serve_phase(dev["smi"])
     train = lm_train_phase(dev["smi"])
     families = families_phase(dev["smi"])
+    rcv1 = rcv1_phase(dev["smi"])
+    encdec = encdec_vlm_phase(dev["smi"])
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])
@@ -4603,7 +4955,9 @@ def main() -> int:
                     max_abs_err=errs[name], **times[name],
                     launches_phase13=lm[name],
                     launches_phase14=train[name],
-                    launches_phase15=families[name])
+                    launches_phase15=families[name],
+                    launches_phase16=rcv1[name],
+                    launches_phase17=encdec[name])
                for name in REPLACES]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(dev["smi"])

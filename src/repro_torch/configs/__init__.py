@@ -5,8 +5,7 @@ Every assigned architecture is a selectable config (``--arch <id>``).
 Port of `repro/configs/__init__.py`, with the ten architecture files and
 `kmeans_workloads.py` beside it: copies, since the port imports nothing
 of `repro` (the tests hold every config equal to the JAX package's).
-The port's model runs the dense, moe, ssm and hybrid families; encdec
-and vlm are refused where a model is built (ROADMAP Queue 1 item 10).
+The port's model runs every family of them.
 """
 from __future__ import annotations
 

@@ -7,9 +7,9 @@ for a fitted codebook (centroids and counts). The tests use them to start
 one round from the same state in both packages. `outcome_from_numpy`
 carries a whole JAX `FitOutcome` over, so that a serving process can
 `adopt` a codebook the JAX package fitted. `params_from_numpy` carries a
-model's parameter tree over (the dense, moe, ssm and hybrid families),
-so that both packages compute with the same weights, and `opt_state_from_numpy` its AdamW state, so that a
-training run carries across. Only attribute access and the
+model's parameter tree over (every family), so that both packages
+compute with the same weights, and `opt_state_from_numpy` its AdamW
+state, so that a training run carries across. Only attribute access and the
 records' `to_dict` forms are used, so this module imports nothing of the
 JAX package.
 
@@ -87,11 +87,6 @@ def outcome_from_numpy(outcome, device="cuda") -> FitOutcome:
                      else dict(outcome.kernel_plan)))
 
 
-#: the parameter tree of the ported families: top-level keys and a block's
-_TOP = {"embed", "blocks", "ln_f", "lm_head"}
-_BLOCK = {"ln1", "attn", "mamba", "ln2", "mlp", "moe"}
-
-
 def _tensor(x, device) -> torch.Tensor:
     """A numpy leaf as a tensor on ``device``. numpy has no bfloat16: a
     JAX bf16 array comes as an ``ml_dtypes.bfloat16`` array, which
@@ -108,19 +103,9 @@ def params_from_numpy(tree, device="cuda"):
     np.asarray, params)``), leaf for leaf with the same dtypes and shapes
     (blocks stacked over periods and keyed by period position, as in
     both packages; bf16 leaves bf16, the router's and the SSD's f32 ones
-    f32). The dense, moe, ssm and hybrid families are carried: a tree
-    with encoder or cross-attention parts (``encoder``, ``enc_in``,
-    ``xattn``, ``ln_x``) raises `NotImplementedError` (ROADMAP Queue 1
-    item 10)."""
+    f32), the encdec family's ``encoder``, ``enc_in``, ``xattn`` and
+    ``ln_x`` among them."""
     device = resolve_device(device)
-    blocks = tree.get("blocks", {})
-    extra = set(tree) - _TOP
-    extra |= {k for b in blocks.values() for k in set(b) - _BLOCK}
-    if extra:
-        raise NotImplementedError(
-            f"params_from_numpy carries the dense, moe, ssm and hybrid "
-            f"families; this tree has {sorted(extra)} (ROADMAP Queue 1 "
-            f"item 10)")
     return tree_map(lambda x: _tensor(x, device), tree)
 
 

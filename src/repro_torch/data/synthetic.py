@@ -1,12 +1,16 @@
 """Synthetic stand-ins for the paper's datasets.
 
 The port's own copy of `repro/data/synthetic.py` (`infmnist_like`,
-`gaussian_blobs`, `lm_tokens`), so the port and `chip_smoke.py` make
-data without importing the JAX package. Same seeds, same numbers.
+`rcv1_like`, `gaussian_blobs`, `lm_tokens`), so the port and
+`chip_smoke.py` make data without importing the JAX package. Same seeds,
+same numbers.
 
 * ``infmnist_like``  — dense 784-d: k* prototype "digits" (smooth random
   blobs) + per-sample smooth deformation fields + pixel noise, matching
   the generative recipe of Loosli et al.'s infinite-MNIST.
+* ``rcv1_like``      — tf-idf-ish documents: Zipfian feature popularity,
+  log-normal document lengths, l2-normalised rows, densified (the
+  paper's RCV1 at d = 2048, as `configs.kmeans_workloads.KMEANS_RCV1`).
 * ``gaussian_blobs`` — a simple mixture for tests.
 * ``lm_tokens``      — a Zipf token stream for the LM trainer.
 """
@@ -63,6 +67,43 @@ def infmnist_like(n: int, *, n_classes: int = 10, seed: int = 0,
         img += noise * rng.standard_normal((m, side, side)).astype(
             np.float32)
         out[lo:hi] = np.clip(img, 0, 1).reshape(m, -1)
+    return out
+
+
+def rcv1_like(n: int, *, dim: int = 2048, avg_nnz: int = 60,
+              n_topics: int = 50, seed: int = 0,
+              chunk: int = 50_000) -> np.ndarray:
+    """(n, dim) f32 l2-normalised tf-idf-like rows (densified).
+
+    Each document mixes a topic's Zipfian feature distribution with a
+    global background, log-normal lengths — clusterable structure similar
+    in spirit to RCV1's. One ``rng.choice`` a row, in Python.
+    """
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, dim + 1, dtype=np.float64)
+    background = 1.0 / ranks ** 1.1
+    topic_feats = np.stack([
+        rng.permutation(dim)[:dim] for _ in range(n_topics)])
+    out = np.empty((n, dim), np.float32)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        m = hi - lo
+        topics = rng.integers(0, n_topics, m)
+        lengths = np.maximum(
+            5, rng.lognormal(np.log(avg_nnz), 0.6, m)).astype(np.int32)
+        block = np.zeros((m, dim), np.float32)
+        for i in range(m):
+            t = topics[i]
+            probs = background.copy()
+            boost = topic_feats[t][: dim // 10]
+            probs[boost] *= 20.0
+            probs /= probs.sum()
+            idx = rng.choice(dim, size=min(int(lengths[i]), dim),
+                             replace=False, p=probs)
+            tf = 1.0 + rng.standard_exponential(len(idx))
+            block[i, idx] = tf.astype(np.float32)
+        norms = np.linalg.norm(block, axis=1, keepdims=True)
+        out[lo:hi] = block / np.maximum(norms, 1e-9)
     return out
 
 

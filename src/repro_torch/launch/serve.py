@@ -8,8 +8,10 @@ Port of `repro/launch/serve.py`. The model is built from ``--seed`` on
 ``--device`` (default the card; ``--device cpu`` runs on the CPU, and
 ``--device cuda`` without a card fails). ``--reduced`` (the default)
 takes the architecture's reduced config and ``--no-reduced`` its full
-width. The port runs the dense, moe, ssm and hybrid families; encdec and
-vlm raise `NotImplementedError` (ROADMAP Queue 1 item 10).
+width. Every family runs; the encdec (whisper) and vlm (internvl2)
+models take zero frame or patch embeddings beside the prompt, as JAX's
+CLI gives them (`modality_stubs`), and the vlm's cache holds its patch
+prefix, the prompt and the generated tokens (`cache_len`).
 
 With ``--codebook K`` the server also maintains a k-means VQ codebook
 over the token-embedding table, served through `repro_torch.serve`: the
@@ -134,28 +136,54 @@ def build_codebook(E, k: int, seed: int, *,
     return km
 
 
+def modality_stubs(cfg, batch: int, device) -> dict:
+    """The inputs beside the tokens that JAX's CLIs give an encdec or vlm
+    model: zero ``frames`` (batch, n_ctx, d_frontend) or zero
+    ``patches`` (batch, n_ctx, d_model), bf16; ``{}`` for the other
+    families."""
+    enc = cfg.encoder
+    if cfg.family == "encdec":
+        shape = (batch, enc.n_ctx, enc.d_frontend)
+        return {"frames": torch.zeros(shape, dtype=torch.bfloat16,
+                                      device=device)}
+    if cfg.family == "vlm":
+        shape = (batch, enc.n_ctx, cfg.d_model)
+        return {"patches": torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=device)}
+    return {}
+
+
+def cache_len(cfg, prompt_len: int, gen: int) -> int:
+    """The decode cache's positions: the prompt and the generated tokens,
+    and the vlm's patch prefix before them."""
+    return prompt_len + gen + (cfg.encoder.n_ctx if cfg.family == "vlm"
+                               else 0)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def generate(cfg, params, tokens: torch.Tensor, gen: int, *,
-             service=None, E=None) -> dict:
+             inputs=None, service=None, E=None) -> dict:
     """Prefill ``tokens`` (B, P), then ``gen - 1`` greedy decode steps.
 
-    With a ``service``, each decode step's tokens are ingested as the
+    ``inputs`` holds what the model takes beside the tokens (an encdec
+    model's ``frames``, a vlm's ``patches``; `modality_stubs`). With a
+    ``service``, each decode step's tokens are ingested as the
     rows of ``E`` (the embedding table, host f32) they index, their ids
     the dedup keys. Returns ``{"gen": (B, gen) int32 ids, "t_prefill",
     "t_decode"}`` (seconds, host clock, the device drained).
     """
     dev = tokens.device
     B, P = tokens.shape
-    prefill = tstep.make_prefill_step(cfg, cache_len=P + gen)
+    prefill = tstep.make_prefill_step(cfg, cache_len=cache_len(cfg, P, gen))
     decode = tstep.make_decode_step(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, {"tokens": tokens, **(inputs or {})})
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
@@ -281,7 +309,9 @@ def main(argv=None):
 
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).to(device)
     try:
-        res = generate(cfg, params, tokens, args.gen, service=service, E=E)
+        res = generate(cfg, params, tokens, args.gen,
+                       inputs=modality_stubs(cfg, B, device),
+                       service=service, E=E)
     except BaseException:
         if service is not None:
             service.stop(drain=False)

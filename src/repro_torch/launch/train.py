@@ -7,9 +7,10 @@
 Port of `repro/launch/train.py`, with its flags and its lines. The model
 is built from ``--seed`` on ``--device`` (default the card; ``--device
 cpu`` runs on the CPU, and ``--device cuda`` without a card fails).
-The port trains the dense, moe, ssm and hybrid families; encdec and vlm
-raise `NotImplementedError` naming ROADMAP Queue 1 item 10 where the
-model is built. Each step is
+Every family trains; an encdec (whisper) or vlm (internvl2) model takes
+JAX's zero frame or patch stubs beside the synthetic tokens, and a vlm's
+tokens and labels lose their first ``n_ctx`` columns where ``--seq``
+exceeds ``n_ctx``, as in JAX (`lm_batch`). Each step is
 `repro_torch.train.step.make_train_step`'s, which updates the
 parameters and the optimizer state in place (JAX donates them).
 Checkpoints save in the background every ``--ckpt-every`` steps (each
@@ -33,11 +34,27 @@ from repro_torch import configs
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.data.pipeline import LMBatches
 from repro_torch.kernels._build import resolve_device
-from repro_torch.launch.serve import build_codebook, codebook_group
+from repro_torch.launch.serve import (build_codebook, codebook_group,
+                                      modality_stubs)
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.train import step as tstep
 from repro_torch.util.tree import tree_leaves
+
+
+def lm_batch(cfg, arrays: dict, device) -> dict:
+    """A step's batch from `LMBatches`' numpy ``arrays`` on ``device``,
+    as JAX's CLI makes it: the encdec and vlm models get zero frame or
+    patch stubs (`modality_stubs`), and a vlm's tokens and labels drop
+    their first ``n_ctx`` columns when they are longer than that."""
+    batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    if cfg.family == "vlm":
+        p = cfg.encoder.n_ctx
+        for k in ("tokens", "labels"):
+            if batch[k].shape[1] > p:
+                batch[k] = batch[k][:, p:]
+    batch.update(modality_stubs(cfg, batch["tokens"].shape[0], device))
+    return batch
 
 
 def main(argv=None):
@@ -87,6 +104,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
+    if cfg.family in ("encdec", "vlm"):
+        print(f"note: {args.arch} needs modality inputs; using zero "
+              "frame/patch stubs for the synthetic-token run")
     params = M.init_params(args.seed, cfg, device)
     n_params = sum(x.numel() for x in tree_leaves(params))
     print(f"{args.arch} ({'reduced' if args.reduced else 'FULL'}): "
@@ -109,12 +129,10 @@ def main(argv=None):
         params, opt = restored["params"], restored["opt"]
         print(f"resumed from checkpoint at step {start}")
 
-    def to_batch(b):
-        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
-
     t0 = time.time()
     for step in range(start, args.steps):
-        params, opt, m = train_step(params, opt, to_batch(data.at(step)))
+        params, opt, m = train_step(params, opt,
+                                    lm_batch(cfg, data.at(step), device))
         if step % 10 == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {float(m['loss']):.4f} "
                   f"lr {float(m['lr']):.2e} "

@@ -1,8 +1,8 @@
 """Model building blocks: norms, RoPE, attention, MLP, MoE, Mamba2 SSD.
 
-Port of `repro/models/layers.py` but its cross attention (encdec, ROADMAP
-Queue 1 item 10). Everything is functional: ``init_*`` returns a params
-dict of tensors, ``*_fwd`` maps (params, activations) -> activations.
+Port of `repro/models/layers.py`. Everything is functional: ``init_*``
+returns a params dict of tensors, ``*_fwd`` maps (params, activations)
+-> activations.
 Params are stored bf16 (the MoE router and the SSD's ``A_log``, ``D``
 and ``dt_bias`` f32, as in JAX) and activations run in the params'
 dtype (bf16; f32 for upcast weights), which plays JAX's ``CDTYPE``;
@@ -19,10 +19,13 @@ They run as true f32 only while TF32 is off
 port keeps). The projections (``x @ wq``, the MLP, the SSD's in and out
 projections) are bf16 x bf16 -> bf16 in JAX and stay bf16 matmuls here.
 
-Attention comes in two entry points:
+Attention comes in three entry points:
   * ``flash_attention``   prefill: two-level chunked running-max softmax
                           (q chunks over kv chunks), the JAX tiling.
   * ``decode_attention``  one new token against a (B, S, KV, Dh) cache.
+  * ``cross_attention_fwd``  enc-dec (whisper): full (non-causal)
+                          attention against the encoder's K/V
+                          (``cross_kv``).
 
 JAX's ``constrain``, ``_ambient_mesh`` and ``_seqpar_flash`` only lay
 arrays out over a device mesh; one card has no counterpart to them.
@@ -33,6 +36,7 @@ Queue 1 item 10, step 5).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -72,6 +76,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -216,20 +229,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  positions: torch.Tensor):
-    """Full-sequence causal attention (prefill) in ``x``'s dtype, the
-    compute dtype. Returns (out, (k, v))."""
+                  positions: torch.Tensor, causal: bool = True,
+                  use_rope: bool = True):
+    """Full-sequence attention (train / prefill) in ``x``'s dtype, the
+    compute dtype: causal, with RoPE, by default; the whisper encoder
+    runs it bidirectional and without RoPE, its decoder without RoPE.
+    Returns (out, (k, v))."""
     q, k, v = _qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True, cdtype=x.dtype)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal, cdtype=x.dtype)
     B, S = x.shape[0], x.shape[1]
     return o.reshape(B, S, cfg.q_dim()) @ p["wo"], (k, v)
 
 
 def attention_decode_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                          k_cache: torch.Tensor, v_cache: torch.Tensor,
-                         pos: torch.Tensor):
+                         pos: torch.Tensor, use_rope: bool = True):
     """One-token attention step in ``x``'s dtype. x: (B, 1, D); pos: 0-d
     int tensor.
 
@@ -238,15 +255,41 @@ def attention_decode_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     semantics, no copy of the cache). Returns (out, (k_cache, v_cache)).
     """
     q, k, v = _qkv(p, x, cfg)
-    ppos = pos.reshape(1, 1).expand(x.shape[0], 1)
-    q = apply_rope(q, ppos, cfg.rope_theta)
-    k = apply_rope(k, ppos, cfg.rope_theta)
+    if use_rope:
+        ppos = pos.reshape(1, 1).expand(x.shape[0], 1)
+        q = apply_rope(q, ppos, cfg.rope_theta)
+        k = apply_rope(k, ppos, cfg.rope_theta)
     at = pos.reshape(1).long()
     k_cache.index_copy_(1, at, k.to(k_cache.dtype))
     v_cache.index_copy_(1, at, v.to(v_cache.dtype))
     o = decode_attention(q, k_cache, v_cache, pos, cdtype=x.dtype)
     out = o.reshape(x.shape[0], 1, cfg.q_dim()) @ p["wo"]
     return out, (k_cache, v_cache)
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    return init_attention(gen, dataclasses.replace(cfg, attn_bias=False))
+
+
+def cross_attention_fwd(p: Params, x: torch.Tensor,
+                        enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                        cfg: ModelConfig) -> torch.Tensor:
+    """Decoder-side cross attention against precomputed encoder K/V, in
+    ``x``'s dtype."""
+    B, S = x.shape[0], x.shape[1]
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k, v = enc_kv
+    o = flash_attention(q, k, v, causal=False, cdtype=x.dtype)
+    return o.reshape(B, S, cfg.q_dim()) @ p["wo"]
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder's K/V for the cross attention: (B, S_enc, KV, Dh)
+    each."""
+    B, S = enc_out.shape[0], enc_out.shape[1]
+    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
 
 
 # --------------------------------------------------------------------------

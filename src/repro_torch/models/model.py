@@ -1,5 +1,5 @@
-"""The decoder of the model zoo: init, training loss, prefill and decode,
-for the dense, moe, ssm and hybrid families.
+"""The model zoo: init, training loss, prefill and decode, for all six
+families.
 
 Port of `repro/models/model.py`. Layers are stacked per *period
 position*, with a leading ``n_periods`` dimension, as in JAX, so a JAX
@@ -15,6 +15,9 @@ positions within each.
   moe(alt)   2       [attn + mlp, attn + moe]
   ssm        1       [mamba]
   hybrid     8       [attn|mamba at t==0|t>0; moe on odd t]   (jamba)
+  encdec     1       encoder [bidir attn + mlp], decoder
+                     [self attn + cross attn + mlp]           (whisper)
+  vlm        1       dense decoder + patch-embedding prefix   (internvl2)
 
 ``backbone_full(..., remat=True)`` (training) runs each period under
 `torch.utils.checkpoint.checkpoint` (non-reentrant): its activations are
@@ -22,15 +25,19 @@ recomputed in the backward pass instead of kept. JAX's remat policy
 (``dots_with_no_batch_dims_saveable``) only chooses what is kept, so
 remat on and off give the same bits. Serving runs without it.
 
-The encdec and vlm families are refused with a `NotImplementedError`
-where parameters, caches or a forward pass are built (ROADMAP Queue 1
-item 10); nothing is computed half-way.
+The encdec family takes precomputed frame embeddings (``batch["frames"]``,
+(B, n_ctx, d_frontend)) through its encoder; its decoder adds sinusoidal
+positions and runs without RoPE. The vlm family prefixes precomputed
+patch embeddings (``batch["patches"]``, (B, n_ctx, d_model)) to the
+tokens, with positions over the whole sequence, and strips the prefix
+before the loss.
 
 Entry points: init_params / train_loss / prefill / make_decode_cache /
 decode_step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
@@ -41,18 +48,6 @@ from repro_torch.kernels._build import resolve_device
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
-
-#: the families the port's model runs
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def require_ported(family: str) -> None:
-    """Raise for a model family the port does not run yet."""
-    if family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the port runs the {', '.join(PORTED_FAMILIES)} families; "
-            f"family={family!r} waits for ROADMAP Queue 1 item 10")
-
 
 # --------------------------------------------------------------------------
 # period structure
@@ -97,6 +92,9 @@ def _init_position(gen: torch.Generator, cfg: ModelConfig, t: int) -> Params:
         p["attn"] = L.init_attention(gen, cfg)
     else:
         p["mamba"] = L.init_mamba(gen, d, cfg.ssm)
+    if cfg.family == "encdec":
+        p["ln_x"] = ones.clone()
+        p["xattn"] = L.init_cross_attention(gen, cfg)
     if pos_has_ffn(cfg, t):
         p["ln2"] = ones.clone()
         if pos_is_moe(cfg, t):
@@ -123,12 +121,25 @@ def _init_stacked(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Params]:
             for t in range(period_len(cfg))}
 
 
+def _init_encoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Whisper-style encoder stack (bidirectional, sinusoidal positions),
+    stacked over its layers, without attention biases."""
+    enc_cfg = dataclasses.replace(cfg, attn_bias=False)
+    d = cfg.d_model
+
+    def one():
+        ones = torch.ones((d,), dtype=L.PDTYPE, device=gen.device)
+        return {"ln1": ones, "attn": L.init_attention(gen, enc_cfg),
+                "ln2": ones.clone(), "mlp": L.init_mlp(gen, d, cfg.d_ff)}
+
+    return _stack([one() for _ in range(cfg.encoder.n_layers)])
+
+
 def init_params(seed: int, cfg: ModelConfig, device="cuda") -> Params:
     """Random weights from ``seed`` on ``device``: the JAX package's tree
     and distributions (N(0, 1) scaled by fan-in^-0.5, bf16; the router
     and the SSD's decay leaves f32), drawn from one `torch.Generator` on
     the device (so not JAX's numbers)."""
-    require_ported(cfg.family)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -140,6 +151,10 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda") -> Params:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, d, v)
+    if cfg.family == "encdec":
+        p["encoder"] = _init_encoder(gen, cfg)
+        if cfg.encoder.d_frontend != d:
+            p["enc_in"] = L.dense_init(gen, cfg.encoder.d_frontend, d)
     return p
 
 
@@ -151,6 +166,39 @@ def _periods(tree, n: int):
         parts = {k: _periods(x, n) for k, x in tree.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
     return torch.unbind(tree)
+
+
+# --------------------------------------------------------------------------
+# sinusoidal positions (whisper)
+# --------------------------------------------------------------------------
+
+def _sinusoid_div(d: int, device) -> torch.Tensor:
+    step = -(torch.log(torch.tensor(1e4, device=device)) / d)
+    return torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=device) * step)
+
+
+def sinusoid(S: int, d: int, dtype: torch.dtype = L.CDTYPE,
+             device="cpu") -> torch.Tensor:
+    """(S, d) sinusoidal positions (sin at even, cos at odd features),
+    computed in f32 and rounded to ``dtype``."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    ang = pos * _sinusoid_div(d, device)
+    pe = torch.zeros((S, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe.to(dtype)
+
+
+def sinusoid_at(pos: torch.Tensor, d: int,
+                dtype: torch.dtype = L.CDTYPE) -> torch.Tensor:
+    """(d,) `sinusoid`'s row at the 0-d position ``pos`` (a tensor, so a
+    decode step reads it on the device)."""
+    ang = pos.float() * _sinusoid_div(d, pos.device)
+    pe = torch.zeros((d,), dtype=torch.float32, device=pos.device)
+    pe[0::2] = torch.sin(ang)
+    pe[1::2] = torch.cos(ang)
+    return pe.to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -171,15 +219,25 @@ def _ffn(p: Params, x, cfg: ModelConfig, t: int):
     return x, aux
 
 
+def _cross(p: Params, x, enc_out, cfg: ModelConfig):
+    """The encdec decoder's cross attention on ``x`` against the
+    encoder's output (its K/V taken from ``enc_out`` on each call, as
+    JAX takes them)."""
+    return L.cross_attention_fwd(
+        p["xattn"], L.rms_norm(x, p["ln_x"], cfg.norm_eps),
+        L.cross_kv(p["xattn"], enc_out, cfg), cfg)
+
+
 def _layer_full(p: Params, x, cfg: ModelConfig, t: int, *, positions,
-                want_cache: bool):
+                enc_out, want_cache: bool):
     """One layer at period-position t, full sequence. Returns (x, aux,
     cache entry): ``{"kv": (k, v)}`` or ``{"ssm": {"ssm", "conv"}}`` with
     ``want_cache``, else ``{}``."""
     cache = {}
     h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if pos_is_attn(cfg, t):
-        h, kv = L.attention_fwd(p["attn"], h_in, cfg, positions=positions)
+        h, kv = L.attention_fwd(p["attn"], h_in, cfg, positions=positions,
+                                use_rope=cfg.family != "encdec")
         if want_cache:
             cache["kv"] = kv
     else:
@@ -187,11 +245,14 @@ def _layer_full(p: Params, x, cfg: ModelConfig, t: int, *, positions,
                         return_state=want_cache)
         if want_cache:
             h, cache["ssm"] = h
-    x, aux = _ffn(p, x + h, cfg, t)
+    x = x + h
+    if cfg.family == "encdec":
+        x = x + _cross(p, x, enc_out, cfg)
+    x, aux = _ffn(p, x, cfg, t)
     return x, aux, cache
 
 
-def _period_full(pp: Params, x, cfg: ModelConfig, *, positions,
+def _period_full(pp: Params, x, cfg: ModelConfig, *, positions, enc_out,
                  want_cache: bool):
     """One period's positions in turn: (x, aux summed in f32, {t: cache
     entry})."""
@@ -199,7 +260,7 @@ def _period_full(pp: Params, x, cfg: ModelConfig, *, positions,
     caches = {}
     for t in range(period_len(cfg)):
         x, a, c = _layer_full(pp[str(t)], x, cfg, t, positions=positions,
-                              want_cache=want_cache)
+                              enc_out=enc_out, want_cache=want_cache)
         aux = aux + a
         if c:
             caches[str(t)] = c
@@ -212,39 +273,67 @@ def _stack_caches(per_period):
 
 
 def backbone_full(params: Params, x, cfg: ModelConfig, *, positions,
-                  want_cache: bool = False, remat: bool = True):
+                  enc_out=None, want_cache: bool = False,
+                  remat: bool = True):
     """Run the stacked blocks over a full sequence, period by period.
     Returns (x, aux, caches): aux is the periods' MoE aux losses summed
     in f32, in JAX's order; with ``want_cache``, ``caches[t]`` is
     position t's entry (``"kv"``: (k, v) of (n_periods, B, S, KV, Dh);
     ``"ssm"``: the SSM and conv states) stacked over the periods.
-    ``remat`` recomputes each period's activations in the backward pass
-    (it changes no value)."""
-    require_ported(cfg.family)
+    ``enc_out`` is the encdec encoder's output. ``remat`` recomputes
+    each period's activations in the backward pass (it changes no
+    value)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kept = []
     for pp in _periods(params["blocks"], n_periods(cfg)):
         if remat:
             x, a, c = checkpoint(_period_full, pp, x, cfg,
-                                 positions=positions, want_cache=want_cache,
-                                 use_reentrant=False)
+                                 positions=positions, enc_out=enc_out,
+                                 want_cache=want_cache, use_reentrant=False)
         else:
             x, a, c = _period_full(pp, x, cfg, positions=positions,
-                                   want_cache=want_cache)
+                                   enc_out=enc_out, want_cache=want_cache)
         aux = aux + a
         if want_cache:
             kept.append(c)
     return x, aux, (_stack_caches(kept) if want_cache else {})
 
 
+def encode(params: Params, frames, cfg: ModelConfig):
+    """Whisper encoder: precomputed frame embeddings (B, n_ctx,
+    d_frontend) -> context (B, n_ctx, d_model), in the parameters'
+    dtype."""
+    x = frames.to(params["embed"].dtype)
+    if "enc_in" in params:
+        x = x @ params["enc_in"]
+    S = x.shape[1]
+    x = x + sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
+    positions = torch.arange(S, device=x.device)[None]
+    for p in _periods(params["encoder"], cfg.encoder.n_layers):
+        h, _ = L.attention_fwd(
+            p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+            positions=positions, causal=False, use_rope=False)
+        x = x + h
+        x = x + L.mlp_fwd(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x
+
+
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig):
-    """tokens -> (x, positions). The activations take the parameters'
-    dtype: bf16, JAX's ``PDTYPE`` and ``CDTYPE``; f32 for upcast weights."""
+    """tokens (+ modality prefix) -> (x, positions, enc_out). The
+    activations take the parameters' dtype: bf16, JAX's ``PDTYPE`` and
+    ``CDTYPE``; f32 for upcast weights."""
     tokens = batch["tokens"]
     x = params["embed"][tokens]
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = encode(params, batch["frames"], cfg)
+        x = x + sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    if cfg.family == "vlm":
+        # precomputed patch embeddings prefixed to the token sequence
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    return x, positions
+    return x, positions, enc_out
 
 
 def logits_fn(params: Params, x, cfg: ModelConfig):
@@ -262,11 +351,13 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     The gold logit is taken as a masked sum over the vocabulary (one
     nonzero term, so exact) rather than a gather, whose backward on the
     card scatters with atomics: this backward is a ``where``, and two
-    runs of a step give the same bits."""
-    require_ported(cfg.family)
-    x, positions = embed_inputs(params, batch, cfg)
+    runs of a step give the same bits. The vlm's patch prefix is
+    stripped before the loss."""
+    x, positions, enc_out = embed_inputs(params, batch, cfg)
     x, aux, _ = backbone_full(params, x, cfg, positions=positions,
-                              remat=remat)
+                              enc_out=enc_out, remat=remat)
+    if cfg.family == "vlm":
+        x = x[:, batch["patches"].shape[1]:]
     logits = logits_fn(params, x, cfg)
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -290,13 +381,15 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     The cache is `make_decode_cache`'s in the activations' dtype (the
     SSM states f32): the attention positions' K/V hold the prompt's rows
     and the rest is zero, as JAX pads them; the Mamba positions hold the
-    prompt's SSM and conv states.
+    prompt's SSM and conv states; the encdec cache holds the encoder's
+    output. The vlm's prompt is its patches and tokens, so ``pos`` and
+    the K/V rows count the patches too.
     """
-    require_ported(cfg.family)
-    x, positions = embed_inputs(params, batch, cfg)
+    x, positions, enc_out = embed_inputs(params, batch, cfg)
     S = x.shape[1]
     x, _, caches = backbone_full(params, x, cfg, positions=positions,
-                                 want_cache=True, remat=False)
+                                 enc_out=enc_out, want_cache=True,
+                                 remat=False)
     logits = logits_fn(params, x[:, -1:], cfg)
     cache = make_decode_cache(cfg, batch=x.shape[0], cache_len=cache_len,
                               dtype=x.dtype, device=x.device)
@@ -311,6 +404,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ent["ssm"].copy_(c["ssm"]["ssm"])
             for part in ("x", "bc"):
                 ent["conv"][part].copy_(c["ssm"]["conv"][part])
+    if enc_out is not None:
+        cache["enc_out"].copy_(enc_out)
     return logits, cache
 
 
@@ -321,8 +416,8 @@ def make_decode_cache(cfg: ModelConfig, *, batch: int, cache_len: int,
     of (n_periods, batch, cache_len, KV, Dh) in ``dtype``; a Mamba
     position ``"ssm"`` (n_periods, batch, nh, head_dim, d_state) in f32
     and ``"conv": {"x", "bc"}``, the last d_conv - 1 inputs of its convs,
-    in ``dtype``."""
-    require_ported(cfg.family)
+    in ``dtype``. The encdec cache also holds ``"enc_out"`` (batch,
+    n_ctx, d_model) in ``dtype``."""
     device = resolve_device(device)
     np_ = n_periods(cfg)
 
@@ -344,8 +439,11 @@ def make_decode_cache(cfg: ModelConfig, *, batch: int, cache_len: int,
                              dt=torch.float32),
                 "conv": {"x": zeros(np_, batch, s.d_conv - 1, d_in),
                          "bc": zeros(np_, batch, s.d_conv - 1, 2 * gn)}}
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "blocks": blocks}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
+             "blocks": blocks}
+    if cfg.family == "encdec":
+        cache["enc_out"] = zeros(batch, cfg.encoder.n_ctx, cfg.d_model)
+    return cache
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
@@ -355,11 +453,14 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
     The cache is donated, as JAX's decode step donates it: its K/V rows,
     SSM states and conv states are written into its tensors in place and
     belong to the returned cache, whose ``pos`` is a new tensor one
-    higher. Do not reuse the old one.
+    higher. Do not reuse the old one. The encdec decoder adds the
+    sinusoid's row at ``pos`` and attends to the cache's ``enc_out``.
     """
-    require_ported(cfg.family)
     x = params["embed"][token]
     pos = cache["pos"]
+    if cfg.family == "encdec":
+        x = x + sinusoid_at(pos, cfg.d_model, x.dtype)[None, None]
+    enc_out = cache.get("enc_out")
     blocks = cache["blocks"]
     for i, pp in enumerate(_periods(params["blocks"], n_periods(cfg))):
         for t in range(period_len(cfg)):
@@ -368,7 +469,8 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
             if pos_is_attn(cfg, t):
                 h, _ = L.attention_decode_fwd(
                     p["attn"], h_in, cfg, k_cache=ent["k"][i],
-                    v_cache=ent["v"][i], pos=pos)
+                    v_cache=ent["v"][i], pos=pos,
+                    use_rope=cfg.family != "encdec")
             else:
                 conv = ent["conv"]
                 h, st = L.mamba_decode_fwd(
@@ -378,6 +480,9 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
                 ent["ssm"][i].copy_(st["ssm"])
                 conv["x"][i].copy_(st["conv"]["x"])
                 conv["bc"][i].copy_(st["conv"]["bc"])
-            x, _ = _ffn(p, x + h, cfg, t)
+            x = x + h
+            if cfg.family == "encdec":
+                x = x + _cross(p, x, enc_out, cfg)
+            x, _ = _ffn(p, x, cfg, t)
     logits = logits_fn(params, x, cfg)
     return logits, dict(cache, pos=pos + 1)

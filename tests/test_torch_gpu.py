@@ -1280,3 +1280,68 @@ def test_ssm_train_step_at_chunk_128_has_finite_gradients(cuda):
     _, _, metrics = _train_steps_on(cfg, cuda, (2, 128))
     for m in metrics:
         assert np.isfinite(m["grad_norm"]) and np.isfinite(m["loss"]), m
+
+
+# -- the encdec and vlm families and the RCV1 fit on the card -----------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
+def test_encdec_and_vlm_models_on_card_match_cpu(cuda, arch):
+    """The reduced whisper-tiny (encdec) and internvl2-76b (vlm): weights
+    made on the CPU and copied to the card, normal bf16 frames or patches
+    from a numpy seed, the cache sized as the serve CLI sizes it;
+    prefill and decode logits and whisper's cached ``enc_out`` within
+    6e-2 of the CPU's (bf16 activations)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import cache_len
+    from repro_torch.models import model as M
+    from repro_torch.train import step as tstep
+    cfg = configs.get_reduced(arch)
+    params = M.init_params(1, cfg, "cpu")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 13)))
+    e = cfg.encoder
+    shape = ((2, e.n_ctx, e.d_frontend) if cfg.family == "encdec"
+             else (2, e.n_ctx, cfg.d_model))
+    name = "frames" if cfg.family == "encdec" else "patches"
+    extra = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        torch.bfloat16)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda))):
+        t = toks.to(dev)
+        lp, cache = tstep.make_prefill_step(cfg, cache_len=cache_len(
+            cfg, 12, 4))(p, {"tokens": t[:, :-1], name: extra.to(dev)})
+        enc = cache["enc_out"].cpu() if "enc_out" in cache else None
+        ld, _ = tstep.make_decode_step(cfg)(p, t[:, -1:], cache)
+        out[dev] = (lp.cpu(), ld.cpu()) + ((enc,) if enc is not None
+                                           else ())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=6e-2, atol=6e-2)
+
+
+@pytest.mark.gpu
+def test_rcv1_fit_on_card_runs_the_kernels(cuda):
+    """The paper's RCV1 algorithm (tb, hamerly2, rho = inf) at k = 8 on
+    3,000 `rcv1_like` rows at d = 256 on the card: kernels 1-3 launched,
+    the same bits twice, the final validation MSE within 1e-3 of the CPU
+    fit's (the plain versions)."""
+    import math
+
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.data.synthetic import rcv1_like
+    X = rcv1_like(3300, dim=256, seed=0)
+    X, Xv = X[:3000], X[3000:]
+    cfg = FitConfig(k=8, b0=256, algorithm="tb", rho=math.inf,
+                    bounds="hamerly2", seed=0)
+    ops.reset_launch_counts()
+    km = NestedKMeans(cfg, device=cuda).fit(X, X_val=Xv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in ("assign_top2", "cluster_sum", "fused_nested_round"):
+        assert counts[name] > 0, counts
+    again = NestedKMeans(cfg, device=cuda).fit(X, X_val=Xv)
+    np.testing.assert_array_equal(again.cluster_centers_,
+                                  km.cluster_centers_)
+    np.testing.assert_array_equal(again.labels_, km.labels_)
+    cpu = NestedKMeans(cfg, device="cpu").fit(X, X_val=Xv)
+    assert abs(km.final_mse_ - cpu.final_mse_) <= 1e-3 * cpu.final_mse_

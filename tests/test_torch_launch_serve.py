@@ -17,7 +17,8 @@
   1e-5), its local service, and the refusal of a service over a sharded
   estimator of more than one rank.
 * `main` as a subprocess with ``--device cpu``, and in-process for its
-  flags.
+  flags and for the encdec (whisper-tiny) and vlm (internvl2-76b)
+  models beside JAX's CLI run in the same process.
 
 Every join and wait is bounded (the spawn's 120 s, the subprocess's
 timeout, a 20 s deadline on each wait).
@@ -313,3 +314,78 @@ def test_adopted_codebook_keeps_the_sharded_fit(one_rank_group, table):
     assert dataclasses.replace(km.config, backend="mesh") == \
         km.outcome_.config
     assert km.stats_.C.device.type == "cpu" and km.n_rounds_ > 0
+
+
+def _prefill_recorder(module, seen: list, jitted: bool = False):
+    """Wrap ``module.tstep.make_prefill_step`` so that ``seen`` gets each
+    call's ``cache_len``, the batch, and the returned cache's ``pos`` and
+    first K block as the prefill left them (the decode steps then write
+    into the port's cache in place). ``jitted``: JAX's CLI jits the step,
+    so these come out of the trace through a callback, as numpy."""
+    real = module.tstep.make_prefill_step
+
+    def make(cfg, *, cache_len):
+        step = real(cfg, cache_len=cache_len)
+
+        def run(params, batch):
+            logits, cache = step(params, batch)
+            if jitted:
+                jax.debug.callback(lambda b, pos, k: seen.append(
+                    {"cache_len": cache_len, "batch": b, "pos": int(pos),
+                     "k": k}), batch, cache["pos"], cache["blocks"]["0"]["k"])
+            else:
+                seen.append({"cache_len": cache_len, "batch": batch,
+                             "pos": int(cache["pos"]),
+                             "k": cache["blocks"]["0"]["k"].clone()})
+            return logits, cache
+        return run
+    return make
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
+def test_cli_serves_encdec_and_vlm_as_jax(arch, monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve --arch ARCH --device cpu --gen
+    4`` (reduced, batch 4, prompt 32) in this process beside JAX's CLI:
+    both print JAX's lines; both prefill with JAX's zero bf16 frames
+    (whisper) or patches (internvl2); the cache is sized prompt + gen,
+    and for the vlm its 8 patches before them (JAX's ``P + gen + n_ctx``):
+    44 positions, 40 of them (prefix and prompt) filled by the
+    prefill."""
+    from repro.launch import serve as jserve
+    jseen, seen = [], []
+    monkeypatch.setattr(jserve.tstep, "make_prefill_step",
+                        _prefill_recorder(jserve, jseen, jitted=True))
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch,
+                                      "--reduced", "--gen", "4"])
+    jserve.main()
+    jout = capsys.readouterr().out
+    monkeypatch.setattr(serve.tstep, "make_prefill_step",
+                        _prefill_recorder(serve, seen))
+    serve.main(["--arch", arch, "--device", "cpu", "--gen", "4"])
+    out = capsys.readouterr().out
+    cfg = configs.get_reduced(arch)
+    prefix = cfg.encoder.n_ctx if cfg.family == "vlm" else 0
+    line = (rf"{arch}: prefill 4x32 in [\d.]+ms; 3 decode steps in "
+            rf"[\d.]+ms \(\d+ tok/s\)")
+    assert re.search(line + r"\n", jout), jout
+    assert re.search(line + r" on cpu\n", out), out
+    for text in (jout, out):
+        ids = json.loads(re.search(
+            r"generated token ids \(row 0\): (\[.*\])", text).group(1))
+        assert len(ids) == 4 and all(0 <= i < cfg.vocab for i in ids)
+    assert len(seen) == len(jseen) == 1
+    (got,), (want,) = seen, jseen
+    assert got["cache_len"] == want["cache_len"] == 32 + 4 + prefix
+    k = got["k"]
+    assert tuple(k.shape) == want["k"].shape
+    assert k.shape[2] == got["cache_len"]
+    assert got["pos"] == want["pos"] == 32 + prefix
+    assert bool(k[:, :, 32 + prefix - 1].any())
+    assert not bool(k[:, :, 32 + prefix:].any())
+    assert sorted(got["batch"]) == sorted(want["batch"])
+    stub = "frames" if cfg.family == "encdec" else "patches"
+    assert tuple(got["batch"][stub].shape) == want["batch"][stub].shape
+    assert got["batch"][stub].dtype == torch.bfloat16
+    assert str(want["batch"][stub].dtype) == "bfloat16"
+    assert not bool(got["batch"][stub].any())
+    assert not bool(np.asarray(want["batch"][stub]).any())

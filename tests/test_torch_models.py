@@ -38,8 +38,6 @@ CPU = "cpu"
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=6e-2, atol=6e-2)
 DENSE = ["tinyllama-1.1b", "llama3.2-3b", "codeqwen1.5-7b", "qwen1.5-32b"]
-REFUSED = [a for a in jconfigs.list_archs()
-           if jconfigs.get_config(a).family in ("encdec", "vlm")]
 
 
 def _bf16(x) -> torch.Tensor:
@@ -291,32 +289,6 @@ def test_decode_matches_full_forward(arch):
     np.testing.assert_allclose(_np(k_before[:, :, :17]),
                                _np(full["blocks"]["0"]["k"][:, :, :17]),
                                **BF16)
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_are_refused(arch):
-    """encdec and vlm raise naming ROADMAP Queue 1 item 10 where weights,
-    caches or a forward pass are built (tests/test_torch_moe.py and
-    tests/test_torch_ssm.py run moe, ssm and hybrid)."""
-    cfg = configs.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TM.init_params(0, cfg, CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TM.make_decode_cache(cfg, batch=1, cache_len=4,
-                             dtype=torch.bfloat16, device=CPU)
-    dense = TM.init_params(0, configs.get_reduced("tinyllama-1.1b"), CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TM.prefill(dense, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                   cfg, cache_len=4)
-    shapes = jax.eval_shape(lambda: JM.init_params(
-        jax.random.PRNGKey(0), jconfigs.get_reduced(arch)))
-    tree = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
-    if cfg.family == "vlm":
-        # a dense decoder's tree: carried, then refused where it computes
-        params_from_numpy(tree, CPU)
-    else:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            params_from_numpy(tree, CPU)
 
 
 def test_device_defaults_to_the_card():

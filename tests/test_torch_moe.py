@@ -171,8 +171,6 @@ def test_param_tree_matches_jax_and_converts_bit_for_bit(arch):
 def test_period_structure_matches_jax():
     for arch in jconfigs.list_archs():
         jcfg = jconfigs.get_config(arch)
-        if jcfg.family not in TM.PORTED_FAMILIES:
-            continue
         cfg = configs.get_config(arch)
         assert TM.period_len(cfg) == JM.period_len(jcfg)
         assert TM.n_periods(cfg) == JM.n_periods(jcfg)

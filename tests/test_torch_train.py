@@ -548,7 +548,72 @@ def test_train_cli_prints_jax_lines_and_codebook(tmp_path):
     assert int(resumed[1].count) == 4
 
 
-def test_train_cli_refuses_the_other_families():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlaunch.main(["--arch", "whisper-tiny", "--reduced", "--steps", "1",
-                      "--device", "cpu"])
+def _jax_cli_batches(monkeypatch, capsys, argv):
+    """JAX's train CLI run in this process with ``argv``, its step
+    replaced by one that records the batch it is given (as numpy) and
+    returns zero metrics: (its stdout lines, the batches)."""
+    from repro.launch import train as jlaunch
+    seen = []
+
+    def make_train_step(cfg, **kw):
+        def step(params, opt, batch):
+            jax.debug.callback(
+                lambda b: seen.append(jax.tree.map(np.asarray, b)), batch)
+            zero = jnp.zeros((), jnp.float32)
+            return params, opt, {"loss": zero, "lr": zero,
+                                 "grad_norm": zero}
+        return step
+
+    monkeypatch.setattr(jlaunch.tstep, "make_train_step", make_train_step)
+    monkeypatch.setattr(sys, "argv", ["train", *argv])
+    jlaunch.main()
+    return capsys.readouterr().out.splitlines(), seen
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
+def test_train_cli_runs_encdec_and_vlm_with_jax_stubs(arch, monkeypatch,
+                                                       capsys):
+    """``python -m repro_torch.launch.train --arch ARCH --reduced --steps
+    2 --device cpu`` in this process, with JAX's defaults (batch 8, seq
+    128, n_micro 2): JAX's lines (its note on the modality stubs, the
+    parameter count, the step lines' format), and each step's batch is
+    the one JAX's CLI makes: zero bf16 frames (whisper) or patches
+    (internvl2), and the vlm's tokens and labels without their first
+    n_ctx = 8 columns, since seq 128 > 8 (JAX's ``to_batch``)."""
+    argv = ["--arch", arch, "--reduced", "--steps", "2"]
+    jlines, jbatches = _jax_cli_batches(monkeypatch, capsys, argv)
+    seen = []
+    real = tstep.make_train_step
+
+    def recording(cfg, **kw):
+        step = real(cfg, **kw)
+
+        def run(params, opt, batch):
+            seen.append({k: v.clone() for k, v in batch.items()})
+            return step(params, opt, batch)
+        return run
+
+    monkeypatch.setattr(tlaunch.tstep, "make_train_step", recording)
+    tlaunch.main([*argv, "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    cfg = configs.get_reduced(arch)
+    assert lines[:2] == jlines[:2], (lines, jlines)
+    assert lines[0].startswith(f"note: {arch} needs modality inputs")
+    step_re = (r"step +(\d+) loss (\d+\.\d{4}) lr (\d\.\d\de[-+]\d\d) "
+               r"gnorm (\d+\.\d{3}) \((\d+\.\d)s\)")
+    for got, want in zip(lines[2:], jlines[2:]):
+        assert re.fullmatch(step_re, got) and re.fullmatch(step_re, want)
+    assert len(lines) == len(jlines) == 4
+    assert float(re.fullmatch(step_re, lines[2])[2]) > 0
+    seq = 128 - (cfg.encoder.n_ctx if cfg.family == "vlm" else 0)
+    assert len(seen) == len(jbatches) == 2
+    for got, want in zip(seen, jbatches):
+        assert sorted(got) == sorted(want)
+        assert tuple(got["tokens"].shape) == (8, seq)
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(got[k].numpy(), want[k])
+        stub = "frames" if cfg.family == "encdec" else "patches"
+        assert got[stub].dtype == torch.bfloat16
+        assert str(want[stub].dtype) == "bfloat16"
+        assert tuple(got[stub].shape) == want[stub].shape
+        assert not bool(got[stub].any()) and not want[stub].any()
