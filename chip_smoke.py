@@ -371,6 +371,22 @@ Phases (each raises on failure, so any fault exits non-zero):
      3 steps twice bit-equal (the first run's state in host memory),
      every loss finite; the states reckoned before the run. Kernels 1-3
      must be launched in the phase.
+  18. sharded training (`make_train_step(cfg, mesh=...)`, the params and
+     moments laid out by `sharding.param_specs`, each batch by
+     `batch_specs`; batch 8, seq 128, 2 microbatches, seed 0): (a)
+     granite-moe-1b-a400m at full width on a one-rank NCCL (1, 1) mesh,
+     3 steps: every param, moment, the count and the losses bit-equal to
+     the local step's; (b) the same on 2 spawned gloo ranks sharing the
+     card, ("data", "model") = (1, 2), expert-parallel + TP: losses within
+     6e-2 of (a)'s, two runs bit-equal; (c) whisper-tiny at full width on
+     4 gloo ranks, (1, 4): context-parallel decoder attention, the
+     encoder's attention whole on each rank, TP MLPs; its f32 arm within
+     1e-5 of its one-rank step, bf16 within 6e-2; (d) tinyllama-1.1b cut
+     to 4 layers on (2, 2), f32, 2 steps: FSDP + TP + data parallelism,
+     within 1e-5 of its one-rank step, two runs bit-equal. Each rank logs
+     ms a step, tokens/s, peak memory and the collectives' share of a
+     second, timed run (each collective drained before and after). No
+     kernel of this repository is on this path.
 
 The last two lines are a JSON object of the kernels (each with its
 main path's ``launches`` and phases 13-17's ``launches_phase13`` ...
@@ -4902,6 +4918,275 @@ def encdec_vlm_phase(smi: str) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+# ---------------------------------------------------------------- phase 18
+
+#: phase 18: the sharded train step. (a) granite-moe at full width on a
+#: one-rank NCCL (1, 1) mesh against the local step, `SHARD_STEPS` steps;
+#: (b) granite on 2 gloo ranks sharing the card, (1, 2): EP + TP; (c)
+#: whisper-tiny at full width on 4 gloo ranks, (1, 4): context-parallel
+#: decoder attention, the bidirectional encoder's attention whole on every
+#: rank, TP MLPs; (d) tinyllama-1.1b cut to `SHARD_D_LAYERS` layers on
+#: (2, 2): FSDP + TP + data parallelism, `SHARD_D_STEPS` steps
+SHARD_STEPS, SHARD_D_STEPS, SHARD_D_LAYERS = 3, 2, 4
+SHARD_JOIN_S = 600.0
+SHARD_F32_TOL, SHARD_BF16_TOL = 1e-5, 6e-2
+SHARD_ARCHS = {"b": MOE_ARCH, "c": ENCDEC_ARCH, "d": LM_ARCH}
+SHARD_MESHES = {"b": (1, 2), "c": (1, 4), "d": (2, 2)}
+
+
+def _shard_config(part: str):
+    cfg = _family_config(SHARD_ARCHS[part])
+    return _cut(cfg, SHARD_D_LAYERS) if part == "d" else cfg
+
+
+def _spent(timed) -> float:
+    return 0.0 if timed is None else sum(v[0] for v in timed.spent.values())
+
+
+def _shard_run(cfg, steps: int, *, mesh=None, f32=False, walls=None,
+               timed=None):
+    """``steps`` train steps of the train CLI's batch (`lm_batch` on
+    `LMBatches` from `LM_SEED`, normal frame stubs for whisper) and
+    optimizer from `_train_state`'s weights, upcast in the f32 arm: the
+    local step, or the sharded step on ``mesh`` (the params laid out by
+    `param_specs`, each step's batch by `batch_specs`). Returns (every
+    param, moment and the count, then the losses: this rank's blocks,
+    whole on a one-rank mesh; the seconds ``timed``, a
+    `_TimedCollectives`, spent inside the steps)."""
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.launch.input_specs import abstract_params
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    params = M.init_params(LM_SEED, cfg, DEV)
+    if f32:
+        _upcast_in_place(params)
+    specs = None
+    if mesh is not None:
+        specs = S.param_specs(cfg, mesh, abstract_params(cfg))
+        params = S.shard_tree(params, specs, mesh)
+        torch.cuda.empty_cache()
+    opt = adamw.init(params)
+    step = tstep.make_train_step(
+        cfg, n_micro=TRAIN_MICRO, mesh=mesh, device=DEV,
+        opt_cfg=adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                                  decay_steps=100))
+    data = LMBatches(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     seed=LM_SEED)
+    extra = (_modality_inputs(cfg, TRAIN_BATCH)
+             if cfg.family in ("encdec", "vlm") else {})
+    losses, coll = [], 0.0
+    for s in range(steps):
+        batch = dict(lm_batch(cfg, data.at(s), DEV), **extra)
+        if f32:
+            batch = {k: v.float() if v.is_floating_point() else v
+                     for k, v in batch.items()}
+        if mesh is not None:
+            batch = S.shard_tree(batch, S.batch_specs(cfg, mesh, batch),
+                                 mesh)
+        torch.cuda.synchronize()
+        c0, t0 = _spent(timed), time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        if walls is not None:
+            walls.append(time.perf_counter() - t0)
+        coll += _spent(timed) - c0
+        losses.append(m["loss"])
+    return _state_leaves(params, opt) + losses, coll
+
+
+def shard_rank(rank: int, world: int, root: str, addr: str) -> None:
+    """One spawned rank of phase 18's (b), or of (c) and (d): a gloo
+    group whose ranks all compute on the one card. Each run: its losses,
+    each step's wall, the peak memory and the time in collectives (a
+    second run timed with `_TimedCollectives`; two runs must repeat the
+    bits of the rank's blocks); writes ``rank<r>_<part>.npz`` under
+    ``root``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    if not torch.cuda.is_available():
+        raise Failure(f"rank {rank} sees no CUDA device")
+    dist.init_process_group("gloo", init_method=addr, world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        for part in (("b",) if world == 2 else ("c", "d")):
+            cfg = _shard_config(part)
+            mesh = make_host_mesh(SHARD_MESHES[part], ("data", "model"))
+            steps = SHARD_D_STEPS if part == "d" else SHARD_STEPS
+            arms = {"b": (False, False), "c": (True, False),
+                    "d": (True, True)}[part]
+            out = {}
+            for i, f32 in enumerate(arms):
+                walls = []
+                torch.cuda.reset_peak_memory_stats()
+                if i == len(arms) - 1:
+                    with _TimedCollectives() as timed:
+                        got, coll = _shard_run(cfg, steps, mesh=mesh,
+                                               f32=f32, walls=walls,
+                                               timed=timed)
+                    out["coll_s"] = np.float64(coll)
+                    out["coll_n"] = np.int64(sum(
+                        v[1] for v in timed.spent.values()))
+                    out["timed_walls"] = np.array(walls)
+                else:
+                    got, _ = _shard_run(cfg, steps, mesh=mesh, f32=f32,
+                                        walls=walls)
+                    out["walls"] = np.array(walls)
+                out["peak"] = np.float64(torch.cuda.max_memory_allocated()
+                                         / 2 ** 30)
+                out[f"losses{i}"] = np.array([float(x)
+                                              for x in got[-steps:]])
+                if part in ("b", "d"):
+                    if i == 0:
+                        first = got
+                    else:
+                        out["same"] = np.array(all(
+                            torch.equal(a, b) for a, b in zip(first, got)))
+                        del first
+                del got
+                torch.cuda.empty_cache()
+            np.savez(os.path.join(root, f"rank{rank}_{part}.npz"), **out)
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_report(root: str, part: str, world: int, steps: int) -> list:
+    """Logs each rank's ms a step, tokens/s, peak and the collectives'
+    share of the timed run; returns the ranks' records."""
+    ranks = [dict(np.load(os.path.join(root, f"rank{r}_{part}.npz")))
+             for r in range(world)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = [float(np.median(r["walls"][1:] if "walls" in r
+                          else r["timed_walls"][1:])) * 1e3 for r in ranks]
+    share = [float(r["coll_s"]) / float(r["timed_walls"].sum())
+             for r in ranks]
+    log(f"        ms a step by rank (median of steps 1-{steps - 1}) "
+        f"{[round(x, 3) for x in ms]}; {tokens / max(ms) * 1e3:.0f} "
+        f"tokens/s; peak by rank "
+        f"{[round(float(r['peak']), 2) for r in ranks]} GiB; collectives "
+        f"{[int(r['coll_n']) for r in ranks]} calls, "
+        f"{[round(x * 100, 1) for x in share]} % of the timed run's "
+        f"steps (each drained before and after; that run's ms a step "
+        f"{[round(float(np.median(r['timed_walls'][1:])) * 1e3, 3) for r in ranks]})")
+    return ranks
+
+
+def sharded_train_phase(smi: str) -> None:
+    """Phase 18: the sharded train step (`make_train_step(...,
+    mesh=...)`) on one NCCL rank and on 2 and 4 gloo ranks sharing the
+    card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    log(f"[18] sharded training: {MOE_ARCH} on a one-rank NCCL (1, 1) mesh "
+        f"and on 2 gloo ranks (1, 2), {ENCDEC_ARCH} on 4 gloo ranks (1, 4), "
+        f"{LM_ARCH} cut to {SHARD_D_LAYERS} layers on (2, 2); batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ} in {TRAIN_MICRO} microbatches "
+        f"({smi})")
+    cfg = _shard_config("b")
+    walls = []
+    local, _ = _shard_run(cfg, SHARD_STEPS, walls=walls)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{_free_port()}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        need(dist.get_backend() == backend, "the one-rank group is not "
+             f"{backend}")
+        torch.cuda.reset_peak_memory_stats()
+        swalls = []
+        sharded, _ = _shard_run(cfg, SHARD_STEPS, mesh=mesh, walls=swalls)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        dist.destroy_process_group()
+    same = [bool(torch.equal(a, b)) for a, b in zip(local, sharded)]
+    a_losses = [float(x) for x in sharded[-SHARD_STEPS:]]
+    ms = float(np.median(swalls[1:])) * 1e3
+    log(f"    (a) {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}) "
+        f"on one NCCL rank: {ms:.3f} ms a step (the local step "
+        f"{float(np.median(walls[1:])) * 1e3:.3f}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB; losses {a_losses}; every param, moment, the count "
+        f"and the losses bit-equal to the local step's: {all(same)} "
+        f"({sum(same)} of {len(same)})")
+    need(all(same), "(a): the one-rank sharded step differs from the local "
+         "step")
+    del local, sharded
+    torch.cuda.empty_cache()
+
+    # the one-rank references of (c) and (d)
+    refs = {}
+    for part, arms in (("c", (True, False)), ("d", (True,))):
+        steps = SHARD_D_STEPS if part == "d" else SHARD_STEPS
+        for f32 in arms:
+            got, _ = _shard_run(_shard_config(part), steps, f32=f32)
+            refs[part, f32] = [float(x) for x in got[-steps:]]
+            del got
+            torch.cuda.empty_cache()
+
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        for world, parts in ((2, ("b",)), (4, ("c", "d"))):
+            t1 = time.perf_counter()
+            _spawn_ranks(root, shard_rank, world, SHARD_JOIN_S)
+            log(f"    {world} spawned gloo ranks took "
+                f"{time.perf_counter() - t1:.1f} s")
+            for part in parts:
+                cfg = _shard_config(part)
+                steps = SHARD_D_STEPS if part == "d" else SHARD_STEPS
+                log(f"    ({part}) {cfg.arch_id} ({cfg.n_layers} layers) on "
+                    f"{world} gloo ranks, ('data', 'model') = "
+                    f"{SHARD_MESHES[part]}:")
+                ranks = _shard_report(root, part, world, steps)
+                for r in ranks:
+                    need(np.array_equal(r["losses0"], ranks[0]["losses0"]),
+                         f"({part}): the ranks' losses differ")
+                got = [float(x) for x in ranks[0]["losses0"]]
+                if part == "b":
+                    gap = max(abs(a - b) for a, b in zip(got, a_losses))
+                    log(f"        losses {got}; (a)'s {a_losses}: largest "
+                        f"gap {gap:.3e} (tolerance {SHARD_BF16_TOL})")
+                    need(gap <= SHARD_BF16_TOL, "(b): the losses are not "
+                         "within tolerance of (a)'s")
+                else:
+                    gap = max(abs(a - b) for a, b in zip(got, refs[part,
+                                                                  True]))
+                    log(f"        f32 arm losses {got}; one rank's "
+                        f"{refs[part, True]}: largest gap {gap:.3e} "
+                        f"(tolerance {SHARD_F32_TOL})")
+                    need(gap <= SHARD_F32_TOL, f"({part}): the f32 arm is "
+                         f"not within tolerance of its one-rank step")
+                if part == "c":
+                    got = [float(x) for x in ranks[0]["losses1"]]
+                    gap = max(abs(a - b) for a, b in zip(got, refs["c",
+                                                                  False]))
+                    log(f"        bf16 arm losses {got}; one rank's "
+                        f"{refs['c', False]}: largest gap {gap:.3e} "
+                        f"(tolerance {SHARD_BF16_TOL})")
+                    need(gap <= SHARD_BF16_TOL, "(c): the bf16 arm is not "
+                         "within tolerance of its one-rank step")
+                if part in ("b", "d"):
+                    same = [bool(r["same"]) for r in ranks]
+                    log(f"        two runs: every block of every param and "
+                        f"moment, the count and the losses bit-equal on "
+                        f"every rank: {all(same)}")
+                    need(all(same), f"({part}): two runs of the sharded "
+                         f"steps differ")
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"    phase 18 took {time.perf_counter() - t0:.1f} s")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4945,6 +5230,7 @@ def main() -> int:
     families = families_phase(dev["smi"])
     rcv1 = rcv1_phase(dev["smi"])
     encdec = encdec_vlm_phase(dev["smi"])
+    sharded_train_phase(dev["smi"])
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])

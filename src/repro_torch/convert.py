@@ -9,7 +9,9 @@ carries a whole JAX `FitOutcome` over, so that a serving process can
 `adopt` a codebook the JAX package fitted. `params_from_numpy` carries a
 model's parameter tree over (every family), so that both packages
 compute with the same weights, and `opt_state_from_numpy` its AdamW
-state, so that a training run carries across. Only attribute access and the
+state, so that a training run carries across (on a mesh,
+`repro_torch.models.sharding.shard_tree` then lays each tree out as the
+rank's blocks, and `gather_tree` puts them back). Only attribute access and the
 records' `to_dict` forms are used, so this module imports nothing of the
 JAX package.
 

@@ -201,3 +201,166 @@ def ppermute_ring(t: torch.Tensor, mesh: Optional[object],
             input_split_sizes=[n * (r == (i + 1) % m) for r in range(m)],
             group=group)
     return recv
+
+
+# --------------------------------------------------------------------------
+# differentiable forms, for the sharded model (repro_torch.models.layers)
+# --------------------------------------------------------------------------
+#
+# Inside JAX's ``shard_map`` and under GSPMD each collective has a
+# transpose; here each is a `torch.autograd.Function` whose backward is
+# that transpose, run by every rank in the same order (the backward's
+# order is the graph's). Over a dim of one rank each returns its input
+# itself, so a one-rank mesh runs exactly the single-device ops.
+
+def _movedim_op(op, t: torch.Tensor, dim: int) -> torch.Tensor:
+    return op(t.movedim(dim, 0).contiguous()).movedim(0, dim).contiguous()
+
+
+def gather_along(t: torch.Tensor, mesh, axes: Sequence[str],
+                 dim: int) -> torch.Tensor:
+    """`gather_rows` along ``dim``: the blocks of every rank of the named
+    dims put together there, row-major over ``axes``. 16-bit floats
+    travel as f32 (exact; gloo gathers no 16-bit type)."""
+    wire = (torch.float32 if t.dtype in (torch.bfloat16, torch.float16)
+            else t.dtype)
+    return _movedim_op(lambda u: gather_rows(u, mesh, axes),
+                       t.to(wire), dim).to(t.dtype)
+
+
+def _gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    return gather_along(t, mesh, (axis,), dim)
+
+
+def _scatter_sum(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    # summed in f32, as `psum` sums
+    out = _movedim_op(lambda u: psum_scatter(u, mesh, axis), t.float(), dim)
+    return out.to(t.dtype)
+
+
+def _own(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    m = axis_size(mesh, axis)
+    n = t.shape[dim] // m
+    return t.narrow(dim, axis_index(mesh, axis) * n, n).contiguous()
+
+
+class _SumFwd(torch.autograd.Function):
+    """psum forward; the cotangent passes unchanged (each rank's share of
+    a sum that every rank then uses whole)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return psum([t], mesh, [axis])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBwd(torch.autograd.Function):
+    """Identity forward; psum of the cotangent (a whole value entering a
+    region where each rank computes a share)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum([g], ctx.mesh, [ctx.axis])[0], None, None
+
+
+class _SumBoth(torch.autograd.Function):
+    """psum forward and backward: a sum whose result each rank uses for
+    its own share."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return psum([t], mesh, [axis])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum([g], ctx.mesh, [ctx.axis])[0], None, None
+
+
+class _GatherScatter(torch.autograd.Function):
+    """All-gather along ``dim`` forward; the cotangent summed over the
+    ranks and scattered back along ``dim`` (FSDP's weight gather)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block along ``dim`` forward; the blocks' cotangents
+    all-gathered back (a whole value split over the ranks)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _Unsplit(torch.autograd.Function):
+    """All-gather along ``dim`` forward; this rank's block of the
+    cotangent back (blocks put together into a value every rank uses
+    whole)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def _one(mesh, axis) -> bool:
+    return mesh is None or axis_size(mesh, axis) == 1
+
+
+def sum_over(t, mesh, axis: str):
+    """``t`` summed over the named dim (f32 on the wire); its cotangent
+    passes through unchanged."""
+    return t if _one(mesh, axis) else _SumFwd.apply(t, mesh, axis)
+
+
+def sum_grad_over(t, mesh, axis: str):
+    """``t`` itself; its cotangent summed over the named dim."""
+    return t if _one(mesh, axis) else _SumBwd.apply(t, mesh, axis)
+
+
+def sum_both_over(t, mesh, axis: str):
+    """``t`` summed over the named dim, and its cotangent too."""
+    return t if _one(mesh, axis) else _SumBoth.apply(t, mesh, axis)
+
+
+def gather_over(t, mesh, axis: str, dim: int):
+    """The blocks of every rank along the named dim put together along
+    ``dim``; the cotangent reduce-scattered back (f32 sums)."""
+    return t if _one(mesh, axis) else _GatherScatter.apply(t, mesh, axis, dim)
+
+
+def split_over(t, mesh, axis: str, dim: int):
+    """This rank's block of ``t`` along ``dim``; the cotangent
+    all-gathered."""
+    return t if _one(mesh, axis) else _Split.apply(t, mesh, axis, dim)
+
+
+def unsplit_over(t, mesh, axis: str, dim: int):
+    """The blocks of every rank put together along ``dim``; the
+    cotangent's own block back."""
+    return t if _one(mesh, axis) else _Unsplit.apply(t, mesh, axis, dim)

@@ -1,1 +1,2 @@
-"""Launchers of the port (`repro.launch`): meshes and the serve CLI."""
+"""Launchers of the port (`repro.launch`): meshes, the input stand-ins
+of the sharding rules, and the serve and train CLIs."""

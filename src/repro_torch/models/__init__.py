@@ -1,2 +1,2 @@
 """The model zoo of the port (`repro.models`): the dense, moe, ssm,
-hybrid, encdec and vlm families."""
+hybrid, encdec and vlm families, and their sharding rules."""

@@ -27,15 +27,27 @@ Attention comes in three entry points:
                           attention against the encoder's K/V
                           (``cross_kv``).
 
-JAX's ``constrain``, ``_ambient_mesh`` and ``_seqpar_flash`` only lay
-arrays out over a device mesh; one card has no counterpart to them.
-Without a mesh JAX's `moe_fwd` runs its single-device dispatch
-(``_moe_fwd_dense``), and so does the port's; the expert-parallel
-dispatch (``_moe_fwd_ep``) waits for the sharded train step (ROADMAP
-Queue 1 item 10, step 5).
+Under a device mesh (`use_mesh`, JAX's ``jax.set_mesh``) the same
+layers run sharded, one rank a process: each rank holds its block of
+every weight as `repro_torch.models.sharding.param_specs` lays it out,
+`gathered` all-gathers the FSDP dim of a period's weights as it runs,
+and the activations are the rank's blocks in the layout JAX's
+`constrain` calls name. Where a layer's heads, features or experts
+divide the "model" dim it computes its block of them: the input enters
+through `collectives.sum_grad_over` (its gradient summed over "model"),
+the row-parallel product's share (`Partial`) is summed at the next
+constraint, and everything else is computed whole on every rank of
+"model", so those ranks hold the same values and gradients. Context
+parallelism (`_seqpar_flash`) and the expert-parallel dispatch
+(`_moe_fwd_ep`) are JAX's ``shard_map`` bodies, run on each rank's
+blocks with the collectives of `repro_torch.core.collectives`. Without a
+mesh `constrain` is the identity and every layer runs its single-device
+ops.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -44,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
+from repro_torch.core import collectives as C
 
 Params = Dict[str, Any]
 PDTYPE = torch.bfloat16   # parameter storage dtype
@@ -55,6 +68,171 @@ def _f32_of(x: torch.Tensor, cdtype: torch.dtype) -> torch.Tensor:
     of the f32 products that JAX takes with
     ``preferred_element_type=float32``."""
     return x.to(cdtype).float()
+
+
+# --------------------------------------------------------------------------
+# the ambient mesh and activation sharding constraints
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Ambient:
+    mesh: Any                       # a DeviceMesh
+    specs: Dict[str, tuple]         # param path -> its spec
+
+
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_ambient_mesh", default=None)
+
+
+def ambient() -> Optional[_Ambient]:
+    """The mesh (and the params' specs) the layers run under here."""
+    return _AMBIENT.get()
+
+
+@contextlib.contextmanager
+def restored(amb: Optional[_Ambient]):
+    """Run under ``amb``, an `ambient()` value taken elsewhere: the
+    recompute of a checkpointed period in the backward pass runs on
+    autograd's thread, which does not see the caller's context."""
+    tok = _AMBIENT.set(amb)
+    try:
+        yield
+    finally:
+        _AMBIENT.reset(tok)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, param_specs=None):
+    """Run the layers under ``mesh`` (a `DeviceMesh` whose dims carry
+    JAX's axis names): JAX's ``jax.set_mesh``. ``param_specs`` is the
+    params' spec tree (`sharding.param_specs`), by which each rank holds
+    its blocks; a JAX array carries its sharding, a torch tensor does
+    not, so the layout rides here. Without it the params are whole on
+    every rank. ``mesh=None`` is the single-device run."""
+    from repro_torch.models.sharding import _path_str, tree_map_with_path
+    specs: Dict[str, tuple] = {}
+    if param_specs is not None:
+        tree_map_with_path(
+            lambda path, spec: specs.__setitem__(_path_str(path), spec),
+            param_specs)
+    with restored(None if mesh is None else _Ambient(mesh, specs)):
+        yield mesh
+
+
+def _ambient_mesh():
+    """The mesh visible here, or None."""
+    amb = _AMBIENT.get()
+    return None if amb is None else amb.mesh
+
+
+def _mesh_axes() -> tuple:
+    mesh = _ambient_mesh()
+    return tuple(mesh.mesh_dim_names) if mesh is not None else ()
+
+
+def dp_axes() -> tuple:
+    return tuple(a for a in _mesh_axes() if a != "model")
+
+
+def _size(axis: str) -> int:
+    """Ranks along the ambient mesh's named dim (1 where it has none)."""
+    return (C.axis_size(_ambient_mesh(), axis) if axis in _mesh_axes()
+            else 1)
+
+
+def _dp_total() -> int:
+    return math.prod(_size(a) for a in dp_axes())
+
+
+class Partial:
+    """This rank's share of a sum over "model": a product whose
+    contracted dim the rank holds one block of. It stays pending, as
+    GSPMD leaves it, until a constraint names the layout (`constrain`)."""
+    __slots__ = ("value",)
+
+    def __init__(self, value: torch.Tensor):
+        self.value = value
+
+
+def constrain(x, *spec):
+    """JAX's ``with_sharding_constraint`` against the ambient mesh.
+
+    spec entries: "dp" -> the data axes, "tp" -> "model" (dropped where
+    the dim does not divide), None -> unsharded. No mesh set -> identity,
+    so reduced-config tests run unchanged on one device. Under a mesh the
+    layers compute each activation as the rank's block in the layout its
+    constraint names (batch rows over the data axes, a "tp" dim's block
+    where the layer's weights hold blocks of it, JAX's divisibility drops
+    being the weights' own: `sharding.param_specs`), so a block passes
+    unchanged; a `Partial` is summed over "model" in f32, its gradient
+    passed back to each share.
+    """
+    if isinstance(x, Partial):
+        if "tp" in spec:
+            raise NotImplementedError(
+                "a pending sum constrained to a \"tp\" dim "
+                "(reduce-scatter) is not ported")
+        return C.sum_over(x.value, _ambient_mesh(), "model")
+    return x
+
+
+def _row_product(h: torch.Tensor, w: torch.Tensor, sharded: bool):
+    """``h @ w``; a `Partial` where ``w``'s rows are this rank's block of
+    the contracted dim (and ``h``'s columns the matching block)."""
+    y = h @ w
+    return Partial(y) if sharded else y
+
+
+def _enter(x: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """``x``, whole on every rank of "model", as the input of blocks
+    computed per rank: its gradient is summed over "model"."""
+    return C.sum_grad_over(x, _ambient_mesh(), "model") if sharded else x
+
+
+class Local(dict):
+    """A params dict of a rank's compute blocks under a mesh (`gathered`):
+    ``tp`` names its leaves that hold a block over "model"."""
+    tp: frozenset = frozenset()
+
+
+def _tp(p: Params, name: str) -> bool:
+    """Does ``p[name]`` hold this rank's block over "model"?"""
+    return name in getattr(p, "tp", ())
+
+
+def gathered(tree: Params, prefix: str, *, stacked: bool = False):
+    """The compute weights of a params subtree at ``prefix`` (its
+    dot-joined path) under the ambient mesh: every leaf sharded over
+    "data" (FSDP) all-gathered there, its gradient reduce-scattered back
+    (`collectives.gather_over`); a leaf over "model" stays this rank's
+    block and is named in its dict's ``tp``. ``stacked``: one period's
+    (or encoder layer's) slice of leaves stacked over periods, whose
+    specs lead with the period dim. Without a mesh, or with params whole
+    on every rank, ``tree`` itself."""
+    amb = _AMBIENT.get()
+    if amb is None or not amb.specs:
+        return tree
+    tp_on = _size("model") > 1
+
+    def walk(node, path):
+        out, tp = Local(), set()
+        for k, v in node.items():
+            at = f"{path}.{k}" if path else k
+            if isinstance(v, dict):
+                out[k] = walk(v, at)
+                continue
+            spec = amb.specs[at][1:] if stacked else amb.specs[at]
+            for d, entry in enumerate(spec):
+                axes = (entry,) if isinstance(entry, str) else (entry or ())
+                if "data" in axes:
+                    v = C.gather_over(v, amb.mesh, "data", d)
+                if "model" in axes and tp_on:
+                    tp.add(k)
+            out[k] = v
+        out.tp = frozenset(tp)
+        return out
+
+    return walk(tree, prefix)
 
 
 # --------------------------------------------------------------------------
@@ -134,10 +312,25 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, S = x.shape[0], x.shape[1]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    # heads: all of them, or this rank's block under a mesh
+    q = constrain(q.reshape(B, S, -1, cfg.head_dim), "dp", None, "tp", None)
+    k = constrain(k.reshape(B, S, -1, cfg.head_dim), "dp", None, "tp", None)
+    v = constrain(v.reshape(B, S, -1, cfg.head_dim), "dp", None, "tp", None)
     return q, k, v
+
+
+def _heads_sharded(p: Params, cfg: ModelConfig) -> bool:
+    """Are ``p``'s projections this rank's block of the heads? Each
+    rank's query heads then need their own K/V heads."""
+    if not _tp(p, "wq"):
+        return False
+    tp = _size("model")
+    if cfg.n_kv_heads % tp:
+        raise NotImplementedError(
+            f"attention with {cfg.n_kv_heads} K/V heads over a model dim "
+            f"of {tp}: grouped K/V heads that do not divide it are not "
+            f"ported")
+    return True
 
 
 def _pick_chunk(S: int, target: int) -> int:
@@ -228,20 +421,56 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
+def _seqpar_flash(q, k, v, *, causal, q_chunk, kv_chunk, mesh, cdtype):
+    """Context-parallel attention for archs whose head count doesn't
+    divide the model axis (llama3.2: 24 heads, whisper: 6, qwen1.5: 40):
+    q is sharded over "model" on the SEQUENCE dim (full heads per shard),
+    k/v whole on every rank of it; each rank runs flash over its q rows
+    with the global causal offset ``rank * S_loc``, and the rows are put
+    back together. JAX's ``shard_map`` body (`repro/models/layers.py`
+    ``_seqpar_flash``); k/v enter as f32, so their gradient's sum over
+    "model" is an f32 all-reduce, as in JAX."""
+    S_loc = q.shape[1] // C.axis_size(mesh, "model")
+    qL = C.split_over(q, mesh, "model", 1)
+    kF = C.sum_grad_over(k.float(), mesh, "model")
+    vF = C.sum_grad_over(v.float(), mesh, "model")
+    o = flash_attention(qL, kF, vF, causal=causal,
+                        q_chunk=min(q_chunk, S_loc), kv_chunk=kv_chunk,
+                        q_offset=C.axis_index(mesh, "model") * S_loc,
+                        cdtype=cdtype)
+    return C.unsplit_over(o, mesh, "model", 1)
+
+
 def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions: torch.Tensor, causal: bool = True,
-                  use_rope: bool = True):
+                  use_rope: bool = True, q_chunk: int = 512,
+                  kv_chunk: int = 1024):
     """Full-sequence attention (train / prefill) in ``x``'s dtype, the
     compute dtype: causal, with RoPE, by default; the whisper encoder
     runs it bidirectional and without RoPE, its decoder without RoPE.
-    Returns (out, (k, v))."""
-    q, k, v = _qkv(p, x, cfg)
+    Returns (out, (k, v)): under a mesh k and v are this rank's heads.
+
+    Under a mesh whose "model" dim does not divide the heads of a causal
+    attention but divides its sequence, the attention is context-parallel
+    (`_seqpar_flash`), as in JAX."""
+    sharded = _heads_sharded(p, cfg)
+    q, k, v = _qkv(p, _enter(x, sharded), cfg)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=causal, cdtype=x.dtype)
+    mesh = _ambient_mesh()
+    tp = _size("model")
+    seqpar = (mesh is not None and "model" in _mesh_axes()
+              and cfg.n_heads % tp != 0 and q.shape[1] % tp == 0 and causal)
+    if seqpar:
+        o = _seqpar_flash(q, k, v, causal=causal, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk, mesh=mesh, cdtype=x.dtype)
+    else:
+        o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk, cdtype=x.dtype)
     B, S = x.shape[0], x.shape[1]
-    return o.reshape(B, S, cfg.q_dim()) @ p["wo"], (k, v)
+    out = _row_product(o.reshape(B, S, -1), p["wo"], sharded)
+    return constrain(out, "dp", None, None), (k, v)
 
 
 def attention_decode_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -275,20 +504,25 @@ def cross_attention_fwd(p: Params, x: torch.Tensor,
                         enc_kv: Tuple[torch.Tensor, torch.Tensor],
                         cfg: ModelConfig) -> torch.Tensor:
     """Decoder-side cross attention against precomputed encoder K/V, in
-    ``x``'s dtype."""
+    ``x``'s dtype. Under a mesh that shards the heads, ``enc_kv`` holds
+    this rank's heads (`cross_kv`), and the output's shares are summed
+    here (the residual stream's constraint)."""
     B, S = x.shape[0], x.shape[1]
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    sharded = _heads_sharded(p, cfg)
+    q = (_enter(x, sharded) @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
     k, v = enc_kv
     o = flash_attention(q, k, v, causal=False, cdtype=x.dtype)
-    return o.reshape(B, S, cfg.q_dim()) @ p["wo"]
+    out = _row_product(o.reshape(B, S, -1), p["wo"], sharded)
+    return constrain(out, "dp", None, None)
 
 
 def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig):
     """The encoder's K/V for the cross attention: (B, S_enc, KV, Dh)
-    each."""
+    each (this rank's KV heads where the mesh shards them)."""
     B, S = enc_out.shape[0], enc_out.shape[1]
-    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    e = _enter(enc_out, _heads_sharded(p, cfg))
+    k = (e @ p["wk"]).reshape(B, S, -1, cfg.head_dim)
+    v = (e @ p["wv"]).reshape(B, S, -1, cfg.head_dim)
     return k, v
 
 
@@ -303,9 +537,12 @@ def init_mlp(gen: torch.Generator, d: int, f: int) -> Params:
 
 
 def mlp_fwd(p: Params, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
-    h = g * (x @ p["w_up"])
-    return h @ p["w_down"]
+    sharded = _tp(p, "w_gate")
+    xin = _enter(x, sharded)
+    g = F.silu((xin @ p["w_gate"]).float()).to(x.dtype)
+    g = constrain(g, "dp", None, "tp")
+    h = g * constrain(xin @ p["w_up"], "dp", None, "tp")
+    return constrain(_row_product(h, p["w_down"], sharded), "dp", None, None)
 
 
 # --------------------------------------------------------------------------
@@ -327,6 +564,35 @@ def init_moe(gen: torch.Generator, d: int, moe: MoEConfig) -> Params:
             "w_down": estack(f, d)}
 
 
+def _router(p: Params, xt: torch.Tensor, moe: MoEConfig):
+    """(probs, top_p, top_e) of xt (T, D): the f32 router's softmax and
+    its top-k, the top-k probabilities renormalised."""
+    logits = xt.float() @ p["router"]                          # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, moe.top_k, dim=-1)        # (T, K)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    return probs, top_p, top_e
+
+
+def _slots(flat_e: torch.Tensor, e_lo: int, e_loc: int, E: int, cap: int):
+    """(valid, slot) of each (token, choice) for experts [e_lo, e_lo +
+    e_loc) of E: its rank within its expert in token-major order (an
+    exclusive cumsum of the one-hot) keeps it while below ``cap``;
+    ``slot`` is ``local expert * cap + rank`` where kept, ``e_loc * cap``
+    elsewhere. A choice of another rank's expert is never kept."""
+    loc, mine = flat_e - e_lo, None
+    if e_loc < E:
+        mine = (loc >= 0) & (loc < e_loc)
+        loc = torch.where(mine, loc, 0)
+    onehot = F.one_hot(loc, e_loc)                             # (T*K, e_loc)
+    if mine is not None:
+        onehot = onehot * mine[:, None]
+    rank = torch.sum((torch.cumsum(onehot, dim=0) - onehot) * onehot, dim=-1)
+    valid = rank < cap if mine is None else mine & (rank < cap)
+    slot = torch.where(valid, loc * cap + rank, e_loc * cap)
+    return valid, slot
+
+
 def moe_route(p: Params, xt: torch.Tensor, moe: MoEConfig):
     """The router of `moe_fwd` over xt (T, D): ``(probs, top_p, top_e,
     valid, slot, cap)``. ``top_p`` is the top-k probabilities
@@ -338,58 +604,115 @@ def moe_route(p: Params, xt: torch.Tensor, moe: MoEConfig):
     T = xt.shape[0]
     E, K = moe.n_experts, moe.top_k
     cap = int(moe.capacity_factor * T * K / E + 0.999)
-    logits = xt.float() @ p["router"]                          # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.topk(probs, K, dim=-1)                # (T, K)
-    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
-    flat_e = top_e.reshape(T * K)
-    onehot = F.one_hot(flat_e, E)                              # (T*K, E)
-    rank = torch.sum((torch.cumsum(onehot, dim=0) - onehot) * onehot, dim=-1)
-    valid = rank < cap
-    slot = torch.where(valid, flat_e * cap + rank, E * cap)
+    probs, top_p, top_e = _router(p, xt, moe)
+    valid, slot = _slots(top_e.reshape(T * K), 0, E, E, cap)
     return probs, top_p, top_e, valid, slot, cap
 
 
-def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity-based top-k MoE, JAX's single-device (GShard-style,
-    sort-free) dispatch. x: (B, S, D) -> (out in x's dtype, f32 aux).
+def _experts(p: Params, xt, top_p, valid, slot, e_loc: int, cap: int,
+             dtype):
+    """The combine (T, D) in f32 of the experts ``p`` holds (``e_loc`` of
+    them) over the kept (token, choice) rows.
 
-    The kept (token, choice) rows (`moe_route`) are written at their
-    unique slots of an (E * cap, D) buffer (an ``index_put`` with no
-    accumulation, whose backward is a gather); the dropped ones are
-    written as zeros into one extra row, ``E * cap``, which the combine's
-    gather reads for them (weight 0), so the gather's backward adds
-    exactly one term into every real slot. Two runs give the same bits
-    on the card. The aux loss is Switch's: ``E * sum(mean(probs) *
-    mean(onehot(top-1 expert)))``.
-    """
-    B, S, D = x.shape
-    T = B * S
-    E, K = moe.n_experts, moe.top_k
-    xt = x.reshape(T, D)
-    probs, top_p, top_e, valid, slot, cap = moe_route(p, xt, moe)
-
+    The kept rows are written at their unique slots of an (e_loc * cap,
+    D) buffer (an ``index_put`` with no accumulation, whose backward is a
+    gather); the dropped ones are written as zeros into one extra row,
+    ``e_loc * cap``, which the combine's gather reads for them (weight
+    0), so the gather's backward adds exactly one term into every real
+    slot. Two runs give the same bits on the card."""
+    T, D = xt.shape
+    K = top_p.shape[1]
     x_rep = torch.repeat_interleave(xt, K, dim=0)              # (T*K, D)
     w = torch.where(valid, top_p.reshape(T * K), 0.0)
-    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e_loc * cap + 1, D), dtype=dtype, device=xt.device)
     buf = buf.index_put((slot,), torch.where(valid[:, None], x_rep, 0.0))
-    buf = buf[:E * cap].reshape(E, cap, D)
+    buf = buf[:e_loc * cap].reshape(e_loc, cap, D)
 
     bf = buf.float()
     g = F.silu(torch.bmm(bf, p["w_gate"].float()))
     u = torch.bmm(bf, p["w_up"].float())
-    y = torch.bmm((g * u).to(x.dtype).float(), p["w_down"].float())
-    y = torch.cat([y.reshape(E * cap, D), y.new_zeros((1, D))])
+    y = torch.bmm((g * u).to(dtype).float(), p["w_down"].float())
+    y = torch.cat([y.reshape(e_loc * cap, D), y.new_zeros((1, D))])
 
     y_tok = y[slot]                                            # (T*K, D)
-    out = torch.sum((y_tok * w[:, None]).reshape(T, K, D), dim=1)
+    return torch.sum((y_tok * w[:, None]).reshape(T, K, D), dim=1)
 
-    # load-balance auxiliary loss (Switch-style)
+
+def _aux(probs: torch.Tensor, top_e: torch.Tensor, E: int) -> torch.Tensor:
+    """Switch's load-balance loss: ``E * sum(mean(probs) *
+    mean(onehot(top-1 expert)))``."""
     me = torch.mean(probs, dim=0)                              # (E,)
     ce = torch.mean(F.one_hot(top_e[:, 0], E).float(), dim=0)
-    aux = E * torch.sum(me * ce)
-    return out.reshape(B, S, D).to(x.dtype), aux
+    return E * torch.sum(me * ce)
+
+
+def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k MoE. x: (B, S, D) -> (out in x's dtype, f32
+    aux).
+
+    Under a mesh with a "model" dim and S > 1 this routes to
+    ``_moe_fwd_ep``, JAX's expert-parallel dispatch, where the experts
+    divide the dim (a rank's batch rows are always its share of the
+    global batch). Without a mesh JAX's single-device (GShard-style,
+    sort-free) dispatch runs: `moe_route`, then `_experts`.
+    """
+    mesh = _ambient_mesh()
+    if mesh is not None and "model" in _mesh_axes() and x.shape[1] > 1:
+        # S == 1 (decode) stays on the weight-stationary path, as in JAX
+        if moe.n_experts % _size("model") == 0:
+            return _moe_fwd_ep(p, x, moe, mesh)
+        if _dp_total() > 1:
+            raise NotImplementedError(
+                f"the dense MoE dispatch over tokens sharded over the data "
+                f"dims ({moe.n_experts} experts do not divide the model "
+                f"dim): its capacity is the global batch's")
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    probs, top_p, top_e, valid, slot, cap = moe_route(p, xt, moe)
+    out = _experts(p, xt, top_p, valid, slot, moe.n_experts, cap, x.dtype)
+    return (out.reshape(B, S, D).to(x.dtype),
+            _aux(probs, top_e, moe.n_experts))
+
+
+def _moe_fwd_ep(p: Params, x: torch.Tensor, moe: MoEConfig, mesh
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's expert-parallel dispatch (`repro/models/layers.py`
+    ``_moe_fwd_ep``), a ``shard_map`` body run by every (data, model)
+    rank on its blocks.
+
+    Each rank buckets ITS OWN data shard's tokens for ITS OWN ``E / tp``
+    experts entirely locally, with a local capacity (``cf * T_local * K /
+    E`` per expert, the per-shard capacity of EP systems): the router and
+    its top-k run whole on every rank of "model", the tokens and their
+    weights enter the rank's experts (`_enter`), and the combine's shares
+    are summed over "model" in f32. The expert stacks arrive FSDP-gathered
+    over "data" (`gathered`). The aux loss is averaged over the data
+    dims.
+    """
+    if not _tp(p, "w_gate") and _size("model") > 1:
+        raise NotImplementedError(
+            "the expert-parallel dispatch needs the expert stacks laid out "
+            "by param_specs (use_mesh's param_specs)")
+    B_loc, S, D = x.shape
+    T = B_loc * S
+    E, K = moe.n_experts, moe.top_k
+    e_loc = E // _size("model")
+    cap = int(moe.capacity_factor * T * K / E + 0.999)
+    xt = x.reshape(T, D)
+    probs, top_p, top_e = _router(p, xt, moe)
+    sharded = e_loc < E
+    valid, slot = _slots(top_e.reshape(T * K),
+                         C.axis_index(mesh, "model") * e_loc, e_loc, E, cap)
+    part = _experts(p, _enter(xt, sharded), _enter(top_p, sharded), valid,
+                    slot, e_loc, cap, x.dtype)
+    out = C.sum_over(part.float(), mesh, "model")
+    aux = _aux(probs, top_e, E)
+    for ax in dp_axes():
+        aux = C.sum_over(aux, mesh, ax)
+    if _dp_total() > 1:
+        aux = aux / _dp_total()
+    return out.reshape(B_loc, S, D).to(x.dtype), aux
 
 
 # --------------------------------------------------------------------------
@@ -454,27 +777,60 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return _silu_as(y, x.dtype), xp[:, -(dconv - 1):]
 
 
+#: the Mamba leaves that hold a block of d_inner (or of its heads) over
+#: "model" when the mixer is sharded (`sharding._leaf_rule`)
+_MAMBA_TP = ("wz", "wx", "wdt", "conv_x", "A_log", "D", "dt_bias", "norm",
+             "out_proj")
+
+
+def _mamba_sharded(p: Params) -> bool:
+    """Is ``p``'s mixer this rank's block of the heads? All of its
+    d_inner leaves must then hold blocks."""
+    held = [_tp(p, n) for n in _MAMBA_TP]
+    if any(held) and not all(held):
+        raise NotImplementedError(
+            "a Mamba mixer whose d_inner leaves shard over the model dim "
+            "but not all of them (its heads do not divide it) is not "
+            "ported")
+    return all(held)
+
+
 def _ssd_proj(p: Params, u: torch.Tensor, ssm: SSMConfig, d: int,
               conv_state: Optional[Dict[str, torch.Tensor]]):
-    """Project u -> (z, x, B, C, dt) and run the causal convs."""
+    """Project u -> (z, x, B, C, dt) and run the causal convs. Under a
+    mesh that shards the mixer, z, x and dt are this rank's heads; B and
+    C, shared by all heads, are computed whole and enter the heads'
+    blocks (their gradient summed over "model")."""
     d_in = ssm.expand * d
     nh = d_in // ssm.head_dim
     gn = ssm.n_groups * ssm.d_state
-    z = u @ p["wz"]
-    xr = u @ p["wx"]
+    sharded = _mamba_sharded(p)
+    uin = _enter(u, sharded)
+    z = constrain(uin @ p["wz"], "dp", None, "tp")
+    xr = constrain(uin @ p["wx"], "dp", None, "tp")
     bc = torch.cat([u @ p["wB"], u @ p["wC"]], dim=-1)
-    dt = u @ p["wdt"]
+    dt = constrain(uin @ p["wdt"], "dp", None, "tp")
     cs_x = None if conv_state is None else conv_state["x"]
     cs_bc = None if conv_state is None else conv_state["bc"]
     xr, ns_x = _causal_conv(xr, p["conv_x"], cs_x)
     bc, ns_bc = _causal_conv(bc, p["conv_bc"], cs_bc)
-    Bm, Cm = torch.chunk(bc, 2, dim=-1)
+    Bm, Cm = torch.chunk(_enter(bc, sharded), 2, dim=-1)
     return z, xr, Bm, Cm, dt, d_in, nh, gn, {"x": ns_x, "bc": ns_bc}
 
 
-def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``rms_norm(y * silu(z))`` in y's dtype (JAX's gated norm)."""
-    return rms_norm(y * _silu_as(z, y.dtype), p["norm"], 1e-5)
+def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor,
+               d_in: Optional[int] = None) -> torch.Tensor:
+    """``rms_norm(y * silu(z))`` in y's dtype (JAX's gated norm). Given
+    ``d_in``, y holds this rank's block of d_inner: its mean square is
+    the sum over "model" of the blocks' sums of squares over ``d_in``."""
+    v = y * _silu_as(z, y.dtype)
+    if d_in is None:
+        return rms_norm(v, p["norm"], 1e-5)
+    vf = v.float()
+    ss = C.sum_both_over(torch.sum(vf * vf, dim=-1, keepdim=True),
+                         _ambient_mesh(), "model")
+    out = vf * torch.rsqrt(ss / d_in + 1e-5) * p["norm"].float()
+    return out.to(v.dtype)
 
 
 def mamba_fwd(p: Params, u: torch.Tensor, ssm: SSMConfig, d: int, *,
@@ -511,6 +867,12 @@ def mamba_fwd(p: Params, u: torch.Tensor, ssm: SSMConfig, d: int, *,
     hd, N, G = ssm.head_dim, ssm.d_state, ssm.n_groups
     cd = u.dtype
     hpg = nh // G
+    sharded = _mamba_sharded(p)
+    # this rank's heads [h0, h0 + nh) under a mesh that shards the mixer
+    h0 = 0
+    if sharded:
+        nh = xs.shape[-1] // hd
+        h0 = C.axis_index(_ambient_mesh(), "model") * nh
 
     xh = xs.reshape(B, nc, Q, nh, hd)
     Bh = Bm.reshape(B, nc, Q, G, N)
@@ -532,6 +894,8 @@ def mamba_fwd(p: Params, u: torch.Tensor, ssm: SSMConfig, d: int, *,
         # intra-chunk dual form
         Bg = torch.repeat_interleave(Bh[:, c], hpg, dim=2)     # (B,Q,nh,N)
         Cg = torch.repeat_interleave(Ch[:, c], hpg, dim=2)
+        if sharded:
+            Bg, Cg = Bg[:, :, h0:h0 + nh], Cg[:, :, h0:h0 + nh]
         diff = seg[:, :, None, :] - seg[:, None, :, :]         # (B,Q,Q,nh)
         Lmat = torch.exp(torch.where(causal, diff, -math.inf))
         scores = torch.einsum("bqhn,bshn->bqsh", Cg.float(), Bg.float())
@@ -550,10 +914,11 @@ def mamba_fwd(p: Params, u: torch.Tensor, ssm: SSMConfig, d: int, *,
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(B, L, nh, hd)
     y = y + xh.reshape(B, L, nh, hd).float() * p["D"][None, None, :, None]
-    y = _gated_out(p, y.reshape(B, L, d_in).to(cd), z)
+    y = constrain(y.reshape(B, L, nh * hd).to(cd), "dp", None, "tp")
+    y = _gated_out(p, y, z, d_in if sharded else None)
     if pad:
         y = y[:, pad:]
-    out = y @ p["out_proj"]
+    out = constrain(_row_product(y, p["out_proj"], sharded), "dp", None, None)
     if return_state:
         return out, {"ssm": state, "conv": conv_out_state}
     return out

@@ -32,6 +32,13 @@ patch embeddings (``batch["patches"]``, (B, n_ctx, d_model)) to the
 tokens, with positions over the whole sequence, and strips the prefix
 before the loss.
 
+Under a device mesh (`layers.use_mesh`) `train_loss` runs sharded: each
+period's weights are gathered as it runs (`layers.gathered`), the
+residual stream is constrained where JAX constrains it, the embedding
+and the logits are vocab-parallel where the vocabulary divides the
+"model" dim, and the loss is the global batch's mean on every rank. The
+sharded prefill and decode are not ported (they raise under a mesh).
+
 Entry points: init_params / train_loss / prefill / make_decode_cache /
 decode_step.
 """
@@ -44,6 +51,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.kernels._build import resolve_device
 from repro_torch.models import layers as L
 
@@ -255,16 +263,25 @@ def _layer_full(p: Params, x, cfg: ModelConfig, t: int, *, positions,
 def _period_full(pp: Params, x, cfg: ModelConfig, *, positions, enc_out,
                  want_cache: bool):
     """One period's positions in turn: (x, aux summed in f32, {t: cache
-    entry})."""
+    entry}). Under a mesh the period's weights are gathered first."""
+    pp = L.gathered(pp, "blocks", stacked=True)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
     for t in range(period_len(cfg)):
         x, a, c = _layer_full(pp[str(t)], x, cfg, t, positions=positions,
                               enc_out=enc_out, want_cache=want_cache)
+        x = L.constrain(x, "dp", None, None)
         aux = aux + a
         if c:
             caches[str(t)] = c
     return x, aux, caches
+
+
+def _period_under(amb, pp: Params, x, cfg: ModelConfig, **kw):
+    """`_period_full` under the ambient ``amb`` (a checkpointed period's
+    recompute runs on autograd's thread)."""
+    with L.restored(amb):
+        return _period_full(pp, x, cfg, **kw)
 
 
 def _stack_caches(per_period):
@@ -287,7 +304,7 @@ def backbone_full(params: Params, x, cfg: ModelConfig, *, positions,
     kept = []
     for pp in _periods(params["blocks"], n_periods(cfg)):
         if remat:
-            x, a, c = checkpoint(_period_full, pp, x, cfg,
+            x, a, c = checkpoint(_period_under, L.ambient(), pp, x, cfg,
                                  positions=positions, enc_out=enc_out,
                                  want_cache=want_cache, use_reentrant=False)
         else:
@@ -305,11 +322,12 @@ def encode(params: Params, frames, cfg: ModelConfig):
     dtype."""
     x = frames.to(params["embed"].dtype)
     if "enc_in" in params:
-        x = x @ params["enc_in"]
+        x = x @ _top(params, "enc_in")[0]
     S = x.shape[1]
     x = x + sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
     positions = torch.arange(S, device=x.device)[None]
     for p in _periods(params["encoder"], cfg.encoder.n_layers):
+        p = L.gathered(p, "encoder", stacked=True)
         h, _ = L.attention_fwd(
             p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
             positions=positions, causal=False, use_rope=False)
@@ -318,13 +336,35 @@ def encode(params: Params, frames, cfg: ModelConfig):
     return x
 
 
+def _top(params: Params, name: str):
+    """(the compute weight of top-level leaf ``name``, whether it is this
+    rank's block over "model") under the ambient mesh (`L.gathered`)."""
+    p = L.gathered({name: params[name]}, "")
+    return p[name], L._tp(p, name)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, sharded: bool):
+    """``table[tokens]``; where ``table`` is this rank's block of the
+    vocabulary, its rows for the tokens in the block and zeros for the
+    rest, summed over "model" (one nonzero term a token: exact)."""
+    if not sharded:
+        return table[tokens]
+    mesh = L._ambient_mesh()
+    lo = C.axis_index(mesh, "model") * table.shape[0]
+    loc = tokens - lo
+    mine = (loc >= 0) & (loc < table.shape[0])
+    rows = table[torch.where(mine, loc, 0)]
+    return C.sum_over(torch.where(mine[..., None], rows, 0.0), mesh, "model")
+
+
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig):
     """tokens (+ modality prefix) -> (x, positions, enc_out). The
     activations take the parameters' dtype: bf16, JAX's ``PDTYPE`` and
     ``CDTYPE``; f32 for upcast weights."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    table, sharded = _top(params, "embed")
+    x = _embed(table, tokens, sharded)
     enc_out = None
     if cfg.family == "encdec":
         enc_out = encode(params, batch["frames"], cfg)
@@ -332,14 +372,45 @@ def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
     if cfg.family == "vlm":
         # precomputed patch embeddings prefixed to the token sequence
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    x = L.constrain(x, "dp", None, None)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     return x, positions, enc_out
 
 
+def _head(params: Params, cfg: ModelConfig):
+    """(the output projection (D, V), whether it is this rank's block of
+    the vocabulary)."""
+    if cfg.tie_embeddings:
+        w, sharded = _top(params, "embed")
+        return w.T, sharded
+    return _top(params, "lm_head")
+
+
 def logits_fn(params: Params, x, cfg: ModelConfig):
+    """f32 logits; under a mesh this rank's block of the vocabulary where
+    the output projection holds one."""
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w).float()
+    w, sharded = _head(params, cfg)
+    return L.constrain((L._enter(x, sharded) @ w).float(), "dp", None, "tp")
+
+
+def _xent_parts(logits, lab, sharded: bool):
+    """(logsumexp, gold logit) a position. Over a block of the
+    vocabulary they come from the blocks' maxima, sums of exponentials
+    and masked sums, summed over "model" (an explicit sharded
+    log-softmax: a rank holds only its (B, S, V / tp) block)."""
+    if not sharded:
+        logz = torch.logsumexp(logits, dim=-1)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        return logz, torch.where(vocab == lab[..., None], logits, 0.0).sum(-1)
+    mesh = L._ambient_mesh()
+    m = C.pmax(torch.amax(logits.detach(), dim=-1), mesh, "model")
+    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    logz = m + torch.log(C.sum_over(se, mesh, "model"))
+    lo = C.axis_index(mesh, "model") * logits.shape[-1]
+    vocab = lo + torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(vocab == lab[..., None], logits, 0.0).sum(-1)
+    return logz, C.sum_over(gold, mesh, "model")
 
 
 def train_loss(params: Params, batch: Dict[str, torch.Tensor],
@@ -362,11 +433,13 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     labels = batch["labels"]
     mask = (labels >= 0).float()
     lab = torch.clamp(labels, min=0)
-    logz = torch.logsumexp(logits, dim=-1)
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
-    gold = torch.where(vocab == lab[..., None], logits, 0.0).sum(-1)
+    logz, gold = _xent_parts(logits, lab, _head(params, cfg)[1])
     nll = (logz - gold) * mask
-    loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    total, count = torch.sum(nll), torch.sum(mask)
+    for ax in L.dp_axes():     # the global batch's mean on every rank
+        total = C.sum_over(total, L._ambient_mesh(), ax)
+        count = C.sum_over(count, L._ambient_mesh(), ax)
+    loss = total / torch.clamp(count, min=1.0)
     return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
@@ -385,6 +458,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     output. The vlm's prompt is its patches and tokens, so ``pos`` and
     the K/V rows count the patches too.
     """
+    _single_device("prefill")
     x, positions, enc_out = embed_inputs(params, batch, cfg)
     S = x.shape[1]
     x, _, caches = backbone_full(params, x, cfg, positions=positions,
@@ -407,6 +481,12 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if enc_out is not None:
         cache["enc_out"].copy_(enc_out)
     return logits, cache
+
+
+def _single_device(what: str) -> None:
+    if L._ambient_mesh() is not None:
+        raise NotImplementedError(f"the sharded {what} is not ported: call "
+                                  f"it outside use_mesh")
 
 
 def make_decode_cache(cfg: ModelConfig, *, batch: int, cache_len: int,
@@ -456,6 +536,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
     higher. Do not reuse the old one. The encdec decoder adds the
     sinusoid's row at ``pos`` and attends to the cache's ``enc_out``.
     """
+    _single_device("decode_step")
     x = params["embed"][token]
     pos = cache["pos"]
     if cfg.family == "encdec":

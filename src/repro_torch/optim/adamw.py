@@ -13,6 +13,12 @@ it was given, as JAX's jitted train step takes them donated
 (``donate_argnums=(0, 1)``): the returned trees hold the same tensors,
 and the old values are gone. Only one leaf's f32 temporaries live
 beside them.
+
+On a mesh (``specs`` and ``mesh`` given) each rank holds its block of
+every leaf, laid out by its spec, and the count whole. The update is
+elementwise, so each rank updates its blocks; the clip's global norm
+sums each leaf's squares over the ranks that hold its blocks, so every
+rank applies the same scale.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core import collectives as C
 from repro_torch.util.tree import tree_leaves, tree_map
 
 
@@ -69,20 +76,33 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, the leaves added
-    in JAX's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    in JAX's order. On a mesh ``tree`` holds this rank's blocks, laid out
+    by ``specs``: each leaf's sum of squares is summed over the axes that
+    shard it first, so every rank gets the same bits."""
+    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if mesh is not None:
+        from repro_torch.models.sharding import spec_axes
+        groups: dict = {}
+        for i, spec in enumerate(tree_leaves(specs)):
+            groups.setdefault(spec_axes(spec), []).append(i)
+        for axes, idx in groups.items():
+            whole = C.psum([torch.stack([sums[i] for i in idx])], mesh,
+                           axes)[0]
+            for j, i in enumerate(idx):
+                sums[i] = whole[j]
+    return torch.sqrt(sum(sums))
 
 
-def update(params, grads, state: AdamWState, cfg: AdamWConfig):
+def update(params, grads, state: AdamWState, cfg: AdamWConfig, *,
+           specs=None, mesh=None):
     """One AdamW step, in place (see the module's docstring). Returns
     (params, state, metrics), the metrics ``{"lr", "grad_norm"}`` as 0-d
-    tensors."""
+    tensors. On a mesh, ``specs`` lays out the rank's blocks."""
     count = state.count + 1
     lr = schedule(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     b1c = 1 - torch.pow(cfg.b1, count.float())

@@ -12,6 +12,18 @@ JAX's jitted step takes params and the optimizer state donated
 their tensors in place (`adamw.update`) and returns them, so one copy
 of each lives at a time, plus the f32 accumulators.
 
+With a ``mesh`` (a `DeviceMesh` with JAX's axis names, one rank a
+process) the step is JAX's sharded one, jitted with the params and the
+AdamW moments laid out by `sharding.param_specs` (FSDP over "data", TP
+over "model") and the batch by `sharding.batch_specs`: each rank passes
+its blocks and its rows, and the step runs `train_loss` under
+`layers.use_mesh`. Microbatch i is global rows [i * B / n_micro,
+(i + 1) * B / n_micro) of the batch, as JAX's `shard_batch` cuts it, each
+data rank taking its share of them; the gradients come back laid out as
+their params (the FSDP gather's backward reduce-scatters over "data",
+and a leaf whole over a data axis has its gradient summed over it after
+the microbatches).
+
 The serving steps, `make_prefill_step` and `make_decode_step`, run
 under `torch.inference_mode()`. The decode step takes the cache as JAX's
 jitted step takes it donated (``donate_argnums=(2,)``): the new K/V rows
@@ -25,6 +37,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
+from repro_torch.kernels._build import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.util.tree import tree_leaves, tree_map
@@ -41,13 +56,18 @@ def shard_batch(batch: Dict[str, torch.Tensor], n_micro: int):
 
 def make_train_step(cfg: ModelConfig, *, n_micro: int = 1,
                     opt_cfg: Optional[adamw.AdamWConfig] = None,
-                    remat: bool = True, accum_dtype=torch.float32):
+                    remat: bool = True, accum_dtype=torch.float32,
+                    mesh=None, device="cuda"):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "lr", "grad_norm"})``, the metrics 0-d tensors on the
     device. ``params`` and ``opt_state`` are updated in place and
     returned (donated). ``accum_dtype``: the gradient accumulators'
-    dtype, f32 by default, as in JAX."""
+    dtype, f32 by default, as in JAX. With a ``mesh`` the sharded step
+    (see the module's docstring), whose blocks must lie on ``device``."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    if mesh is not None:
+        return _sharded_train_step(cfg, mesh, n_micro, opt_cfg, remat,
+                                   accum_dtype, resolve_device(device))
 
     def train_step(params, opt_state: adamw.AdamWState,
                    batch: Dict[str, torch.Tensor]):
@@ -73,6 +93,67 @@ def make_train_step(cfg: ModelConfig, *, n_micro: int = 1,
         del acc
         params, opt_state, om = adamw.update(params, grads, opt_state,
                                              opt_cfg)
+        return params, opt_state, {"loss": loss_sum / n_micro, **om}
+
+    return train_step
+
+
+def _sharded_train_step(cfg: ModelConfig, mesh, n_micro: int,
+                        opt_cfg: adamw.AdamWConfig, remat: bool,
+                        accum_dtype, device: torch.device):
+    from repro_torch.launch.input_specs import abstract_params
+    from repro_torch.models import sharding as S
+    specs = S.param_specs(cfg, mesh, abstract_params(cfg))
+    dp = S.data_axes(mesh)
+    dp_total = S.axis_size(mesh, dp)
+    # the data axes over which a leaf's gradient is each rank's share
+    shares = [tuple(a for a in dp if a not in S.spec_axes(spec))
+              for spec in tree_leaves(specs)]
+
+    def train_step(params, opt_state: adamw.AdamWState,
+                   batch: Dict[str, torch.Tensor]):
+        for t in tree_leaves(params) + list(batch.values()):
+            if t.device.type != device.type:
+                raise ValueError(f"the sharded step runs on {device}, "
+                                 f"got a tensor on {t.device}")
+        # the global batch's rows, then each microbatch's share of them
+        whole = {k: C.gather_rows(v, mesh, dp) for k, v in batch.items()}
+        mbs = shard_batch(whole, n_micro)
+        b_mb = next(iter(mbs.values())).shape[1]
+        if b_mb % dp_total:
+            raise ValueError(f"a microbatch of {b_mb} rows does not divide "
+                             f"over the {dp_total} data ranks")
+        n = b_mb // dp_total
+        r = C.linear_index(mesh, dp)
+        mbs = {k: v[:, r * n:(r + 1) * n] for k, v in mbs.items()}
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
+                                             device=p.device), params)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        with L.use_mesh(mesh, specs):
+            for i in range(n_micro):
+                live = tree_map(lambda p: p.detach().requires_grad_(),
+                                params)
+                loss, _ = M.train_loss(
+                    live, {k: v[i] for k, v in mbs.items()}, cfg,
+                    remat=remat)
+                grads = torch.autograd.grad(loss, tree_leaves(live))
+                with torch.no_grad():
+                    for a, g in zip(tree_leaves(acc), grads):
+                        a.add_(g.to(a.dtype))
+                loss_sum = loss_sum + loss.detach()
+                del live, loss, grads
+        with torch.no_grad():
+            accs = tree_leaves(acc)
+            for axes in dict.fromkeys(shares):   # the same order on every rank
+                idx = [i for i, s in enumerate(shares) if s == axes]
+                summed = C.psum([accs[i] for i in idx], mesh, axes)
+                for i, t in zip(idx, summed):
+                    if t is not accs[i]:
+                        accs[i].copy_(t)
+            grads = tree_map(lambda g: g.float().div_(n_micro), acc)
+        del acc
+        params, opt_state, om = adamw.update(params, grads, opt_state,
+                                             opt_cfg, specs=specs, mesh=mesh)
         return params, opt_state, {"loss": loss_sum / n_micro, **om}
 
     return train_step

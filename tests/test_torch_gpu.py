@@ -1345,3 +1345,98 @@ def test_rcv1_fit_on_card_runs_the_kernels(cuda):
     np.testing.assert_array_equal(again.labels_, km.labels_)
     cpu = NestedKMeans(cfg, device="cpu").fit(X, X_val=Xv)
     assert abs(km.final_mse_ - cpu.final_mse_) <= 1e-3 * cpu.final_mse_
+
+
+def _sharded_steps_on(cfg, device, steps, mesh=None):
+    """``steps`` train steps (n_micro 2, batch 4 x 16 from numpy seed 0)
+    from `init_params(1)`: the local step, or the sharded step on
+    ``mesh``; returns every param, moment, the count and the losses."""
+    from repro_torch.launch.input_specs import abstract_params
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.util.tree import tree_leaves
+    params = M.init_params(1, cfg, device)
+    specs = None
+    if mesh is not None:
+        specs = S.param_specs(cfg, mesh, abstract_params(cfg))
+        params = S.shard_tree(params, specs, mesh)
+    opt = adamw.init(params)
+    step = tstep.make_train_step(cfg, n_micro=2, mesh=mesh, device=device)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 17))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    losses = []
+    for _ in range(steps):
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"])
+    return (tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
+            + [opt.count] + losses)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "granite-moe-1b-a400m",
+                                  "mamba2-2.7b"])
+def test_one_rank_nccl_sharded_step_equals_the_local_step(cuda, arch):
+    """3 steps of the sharded train step on a one-rank NCCL (1, 1) mesh:
+    every param, moment, the count and the losses bit-equal to the local
+    step's at --reduced size."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    cfg = configs.get_reduced(arch)
+    local = _sharded_steps_on(cfg, cuda, 3)
+    mesh = _one_rank_nccl()
+    try:
+        got = _sharded_steps_on(cfg, cuda, 3, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert len(got) == len(local)
+    assert all(torch.equal(a, b) for a, b in zip(got, local))
+
+
+@pytest.mark.gpu
+def test_ep_dispatch_on_one_rank_equals_the_dense_dispatch(cuda):
+    """granite's MoE layer (reduced, capacity factor 100: nothing
+    dropped) under a one-rank NCCL (1, 1) mesh runs the expert-parallel
+    dispatch; its output and aux loss equal the dense dispatch's on the
+    same tokens bit for bit (one rank holds every expert), and so do
+    their gradients."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = configs.get_reduced("granite-moe-1b-a400m")
+    moe = dataclasses.replace(cfg.moe, capacity_factor=100.0)
+    p = {k: v[0] for k, v in
+         M.init_params(1, cfg, cuda)["blocks"]["0"]["moe"].items()}
+    x = torch.randn(4, 16, cfg.d_model, generator=torch.Generator(
+        cuda).manual_seed(0), device=cuda).bfloat16()
+    T, K = 4 * 16, moe.top_k
+    assert bool(L.moe_route(p, x.reshape(T, -1), moe)[3].all())
+
+    def run():
+        xs = x.clone().requires_grad_()
+        out, aux = L.moe_fwd(p, xs, moe)
+        (gx,) = torch.autograd.grad(out.float().sum() + aux, xs)
+        return out, aux, gx
+
+    dense = run()
+    calls = []
+    orig = L._moe_fwd_ep
+    mesh = _one_rank_nccl()
+    try:
+        L._moe_fwd_ep = lambda *a: calls.append(1) or orig(*a)
+        with L.use_mesh(mesh):
+            ep = run()
+    finally:
+        L._moe_fwd_ep = orig
+        dist.destroy_process_group()
+    assert calls == [1]
+    for a, b in zip(ep, dense):
+        assert torch.equal(a, b)

@@ -7,8 +7,9 @@ rank joins the group through a `FileStore` file, builds the mesh, runs one
 case on its shard of the inputs the test wrote to ``inputs.npz`` (the
 round cases), or fits the whole of them through the mesh engines (the
 ``mesh`` case, whose parts the test names in ``inputs.npz``) or through
-the serve launcher's `build_codebook` (the ``codebook`` case), or sums
-int8-compressed gradients (the ``compress`` case), and writes
+the serve launcher's `build_codebook` (the ``codebook`` case), sums
+int8-compressed gradients (the ``compress`` case) or runs the sharded
+LM train step (the ``sharded_train`` case, `SHARDED_CELLS`), and writes
 its outputs to ``rank<r>.npz`` beside it. This module imports no JAX:
 only torch, numpy and the port. tests/jax_mesh_oracle.py reads the fit's
 config and the kill schedule from here.
@@ -550,9 +551,178 @@ def _compress(mesh, inp):
     return {"s": _np(s["g"]), "err": _np(err["g"])}
 
 
+# -- the sharded LM train step -------------------------------------------------
+
+#: cells of the sharded train step held against JAX's sharded step
+#: (tests/jax_sharding_oracle.py): name -> (arch, ("data", "model") mesh
+#: shape, arm, reduced-config overrides). The seqpar cell's 6 heads do
+#: not divide its 4-wide model dim, so its attention is context-parallel.
+SHARDED_CELLS = {
+    **{f"{fam}-{arm}": (arch, (2, 2), arm, {})
+       for fam, arch in (("dense", "tinyllama-1.1b"),
+                         ("moe", "granite-moe-1b-a400m"),
+                         ("ssm", "mamba2-2.7b"),
+                         ("hybrid", "jamba-v0.1-52b"),
+                         ("encdec", "whisper-tiny"),
+                         ("vlm", "internvl2-76b"))
+       for arm in ("f32", "bf16")},
+    "seqpar-f32": ("tinyllama-1.1b", (1, 4), "f32",
+                   {"n_heads": 6, "n_kv_heads": 2}),
+}
+SH_BATCH, SH_SEQ, SH_MICRO = 8, 16, 2
+#: AdamW's first step maps a gradient g to lr * g / (|g| + eps), whose
+#: slope at g = 0 is lr / eps: at the default eps 1e-8 an element whose
+#: gradient is ~1e-9 in both packages (their f32 sums agree to ~2e-6 of
+#: the leaf) lands up to ~1e-4 apart, which puts a param leaf past 1e-5
+#: relative (the reduced jamba's w_gate 1.005e-5, conv_bc 2.07e-5).
+#: eps 1e-6 keeps the update's slope within 1e6 and the comparison a
+#: test of the update.
+SH_OPT = dict(lr=3e-3, warmup_steps=2, decay_steps=20, eps=1e-6)
+SH_REMAT = False
+SH_AXES = ("data", "model")
+#: the EP layer cells: granite's first MoE layer on (2, 2) (the kept
+#: masks, against JAX's) and, at a capacity factor that drops nothing,
+#: on (1, 4) (against the dense dispatch)
+EP_ROWS, EP_NODROP_CF = 4, 100.0
+
+
+def sharded_config(arch: str, overrides: dict, cf=None):
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_reduced(arch), **overrides)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def _sh_params(inp, cell, arm):
+    """The cell's JAX weights (every leaf f32 in ``inputs.npz``, bf16
+    ones exact) in the port's dtypes, or f32 in the f32 arm."""
+    from repro_torch.launch.input_specs import abstract_params
+    from repro_torch.models.sharding import _path_str, tree_map_with_path
+    arch, _, _, over = SHARDED_CELLS[cell]
+    cfg = sharded_config(arch, over)
+    return cfg, tree_map_with_path(
+        lambda path, t: torch.from_numpy(
+            inp[f"w:{cell}:{_path_str(path)}"]).to(
+                torch.float32 if arm == "f32" else t.dtype),
+        abstract_params(cfg))
+
+
+def _sharded_train(_mesh, inp):
+    """One step of each cell named in ``inp["cells"]`` (n_micro
+    `SH_MICRO`, `SH_OPT`, zero moments) on its own mesh of this group:
+    the loss, the grad norm and the whole params and moments after it;
+    then the EP layer cells."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as S
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.util.tree import tree_leaves
+    out = {}
+    meshes = {}
+    for cell in json.loads(str(inp["cells"])):
+        arch, shape, arm, _ = SHARDED_CELLS[cell]
+        mesh = meshes.setdefault(shape, make_host_mesh(shape, SH_AXES))
+        cfg, params = _sh_params(inp, cell, arm)
+        batch = {k: torch.from_numpy(inp[f"b:{cell}:{k}"])
+                 for k in ("tokens", "labels", "frames", "patches")
+                 if f"b:{cell}:{k}" in inp}
+        for k in ("frames", "patches"):
+            if k in batch:
+                batch[k] = batch[k].to(params["embed"].dtype)
+        specs = S.param_specs(cfg, mesh, params)
+        local = S.shard_tree(params, specs, mesh)
+        rows = S.shard_tree(batch, S.batch_specs(cfg, mesh, batch), mesh)
+        step = tstep.make_train_step(cfg, n_micro=SH_MICRO, mesh=mesh,
+                                     opt_cfg=adamw.AdamWConfig(**SH_OPT),
+                                     remat=SH_REMAT, device="cpu")
+        local, opt, m = step(local, adamw.init(local), rows)
+        out[f"{cell}:loss"] = _np(m["loss"])
+        out[f"{cell}:grad_norm"] = _np(m["grad_norm"])
+        for what, tree in (("params", local), ("mu", opt.mu),
+                           ("nu", opt.nu)):
+            for i, t in enumerate(tree_leaves(S.gather_tree(tree, specs,
+                                                            mesh))):
+                out[f"{cell}:{what}:{i}"] = _np(t.float())
+    if "ep_x" in inp:
+        _ep_layers(inp, out, meshes, L, S)
+    if "placements" in inp:
+        _placements(out, S)
+    return out
+
+
+#: (mesh shape, axes, spec) cases of `sharding.placements`, each held
+#: against DTensor's own layout of the same placements
+PLACEMENT_CASES = (
+    ((2, 2, 1), ("pod", "data", "model"), (("pod", "data"), None)),
+    ((2, 2, 1), ("pod", "data", "model"), (None, ("data", "model"))),
+    ((2, 2), SH_AXES, ("model", "data")),
+    ((2, 2), SH_AXES, (("data", "model"), None)),
+    ((2, 2), SH_AXES, (None, "model")),
+)
+
+
+def _placements(out, S):
+    """For each `PLACEMENT_CASES` spec, whether DTensor lays an (8, 12)
+    tensor out over `sharding.placements` as `sharding.shard_tree` cuts
+    it, and puts the blocks back as `sharding.gather_tree` does."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    full = torch.arange(96, dtype=torch.float32).reshape(8, 12)
+    for i, (shape, axes, spec) in enumerate(PLACEMENT_CASES):
+        mesh = make_host_mesh(shape, axes)
+        pl = S.placements(spec, mesh)
+        mine = S.shard_tree({"t": full}, {"t": spec}, mesh)["t"]
+        theirs = distribute_tensor(full, mesh, pl, src_data_rank=None)
+        back = S.gather_tree({"t": mine}, {"t": spec}, mesh)["t"]
+        whole = DTensor.from_local(mine, mesh, pl).full_tensor()
+        out[f"placements:{i}"] = np.array(
+            [torch.equal(theirs.to_local(), mine), torch.equal(back, full),
+             torch.equal(whole, full)])
+
+
+def _ep_layers(inp, out, meshes, L, S):
+    """granite's first MoE layer (the weights of the ``moe-f32`` cell) on
+    ``ep_x``: on (2, 2) at the config's capacity factor, each rank's kept
+    mask (`layers._slots`' ``valid``) and the whole output; on (1, 4) at
+    `EP_NODROP_CF`, the EP output and aux."""
+    _, params = _sh_params(inp, "moe-f32", "f32")
+    x = torch.from_numpy(inp["ep_x"])
+    seen = []
+    orig = L._slots
+
+    def spy(*a):
+        valid, slot = orig(*a)
+        seen.append(valid)
+        return valid, slot
+
+    for shape, cf, tag in (((2, 2), None, "ep"),
+                           ((1, 4), EP_NODROP_CF, "ep_nodrop")):
+        mesh = meshes.setdefault(shape, make_host_mesh(shape, SH_AXES))
+        cfg = sharded_config("granite-moe-1b-a400m", {}, cf)
+        specs = S.param_specs(cfg, mesh, params)
+        local = S.shard_tree(params, specs, mesh)
+        xs = S.shard_tree({"x": x}, {"x": (S.data_axes(mesh), None, None)},
+                          mesh)["x"]
+        seen.clear()
+        L._slots = spy
+        try:
+            with L.use_mesh(mesh, specs):
+                p = L.gathered({"moe": {k: v[0] for k, v in
+                                        local["blocks"]["0"]["moe"].items()}},
+                               "blocks.0", stacked=True)["moe"]
+                y, aux = L.moe_fwd(p, xs, cfg.moe)
+        finally:
+            L._slots = orig
+        out[f"{tag}:valid"] = _np(seen[0])
+        out[f"{tag}:out"] = _np(collectives.gather_rows(
+            y, mesh, S.data_axes(mesh)))
+        out[f"{tag}:aux"] = _np(aux)
+
+
 CASES = {"dp": _dp, "xl": _xl, "sharded": _sharded, "mesh": _mesh,
          "xl_engine": _xl_engine, "codebook": _codebook,
-         "compress": _compress}
+         "compress": _compress, "sharded_train": _sharded_train}
 
 
 def spawn(out_dir, case: str, shape, axes, *, timeout_s: float = 120.0,
