@@ -104,7 +104,8 @@ Phases (each raises on failure, so any fault exits non-zero):
      1e-3 relative. Rounds, wall, the sum of n_recomputed, the final
      validation MSE, peak device memory and the validation MSE against
      the rounds' time are logged (phase 4's tb fit beside them), and the
-     second fit is profiled as phase 4's is. The two
+     second fit is profiled on the device (its kernels, copies and CUDA
+     runtime calls; not the host's operators, as phase 4's are). The two
      tb families run once more shadowed: each round's step is also taken
      with ``bounds="none"`` from the same state, and the labels may
      differ from it only at near-ties (float64 gap within 1e-3
@@ -131,7 +132,7 @@ Phases (each raises on failure, so any fault exits non-zero):
      phase 4's rows and fit, adopted by fresh estimators, with a stream
      of ``infmnist_like(120_000, seed=2)`` rows. (a) The latency design of
      benchmarks/serve_latency.py: 2048-row predicts, 256 stream rows a
-     request, 1,000 timed requests a mode after a warm-up with the
+     request, 500 timed requests a mode after a warm-up with the
      refresh off (before and after the others; the worse p99 counts),
      inline (the serving thread folds 16,384 rows at a time) and in the
      background (a service with 256-row micro-batches); p50, p99, max
@@ -166,7 +167,7 @@ Phases (each raises on failure, so any fault exits non-zero):
      must be <= 1.0 (higher means the roofline model is wrong), and the
      last and mean utilization, each round's bottleneck and the spans'
      totals are logged. (b) After a warm-up, untraced fits, traced fits
-     and fits whose observer is the no-op seam rotate, 4 each; the
+     and fits whose observer is the no-op seam rotate, 2 each; the
      median per-round wall of each (the work clock, which stops before
      the round reaches the sink) is logged beside the JAX package's 3 %
      claim (benchmarks/obs_overhead.py), and each fit's wall is split
@@ -375,18 +376,36 @@ Phases (each raises on failure, so any fault exits non-zero):
      moments laid out by `sharding.param_specs`, each batch by
      `batch_specs`; batch 8, seq 128, 2 microbatches, seed 0): (a)
      granite-moe-1b-a400m at full width on a one-rank NCCL (1, 1) mesh,
-     3 steps: every param, moment, the count and the losses bit-equal to
+     2 steps: every param, moment, the count and the losses bit-equal to
      the local step's; (b) the same on 2 spawned gloo ranks sharing the
      card, ("data", "model") = (1, 2), expert-parallel + TP: losses within
      6e-2 of (a)'s, two runs bit-equal; (c) whisper-tiny at full width on
      4 gloo ranks, (1, 4): context-parallel decoder attention, the
      encoder's attention whole on each rank, TP MLPs; its f32 arm within
      1e-5 of its one-rank step, bf16 within 6e-2; (d) tinyllama-1.1b cut
-     to 4 layers on (2, 2), f32, 2 steps: FSDP + TP + data parallelism,
+     to 2 layers on (2, 2), f32, 2 steps: FSDP + TP + data parallelism,
      within 1e-5 of its one-rank step, two runs bit-equal. Each rank logs
      ms a step, tokens/s, peak memory and the collectives' share of a
      second, timed run (each collective drained before and after). No
      kernel of this repository is on this path.
+  19. sharded serving and the dry run: (a) tinyllama-1.1b and
+     granite-moe-1b-a400m at full width on a one-rank NCCL (1, 1) mesh,
+     phase 13's prompt (4 x 32) and 4 greedy steps through
+     ``make_prefill_step``/``make_decode_step`` with ``mesh=`` (granite:
+     the expert-parallel dispatch at prefill, the global one at decode):
+     tokens and logits bit-equal to the unsharded steps'; (b)
+     tinyllama-1.1b cut to 2 layers, f32, on 2 spawned gloo ranks sharing
+     the card, (1, 2): tokens the one-rank run's, logits within 1e-5
+     relative (Frobenius); (c) ``python -m repro_torch.launch.dryrun`` in
+     subprocesses on the host, started with the script (no card needed):
+     tinyllama-1.1b ``prefill_32k`` and ``decode_32k`` at pod16x16,
+     mamba2-2.7b ``long_500k`` at pod2x16x16 and ``--kmeans``, every
+     record ``ok``, each one's line logged; (d) `op_cost`'s FLOPs over
+     (a)'s tinyllama prefill and one decode step traced on fake tensors
+     equal ``FlopCounterMode``'s over the CUDA run, each step's measured
+     time at least its counted bound, and kmeans_xl's
+     ``kernel_analytic`` bound (213.303 ms) beside phase 6's kernel-4
+     time. No kernel of this repository is on this path.
 
 The last two lines are a JSON object of the kernels (each with its
 main path's ``launches`` and phases 13-17's ``launches_phase13`` ...
@@ -1556,8 +1575,10 @@ def other_paths_phase(X, Xv, tb_curve) -> dict:
         need(labels.shape == (N,) and labels.min() >= 0
              and labels.max() < K, f"{name}: fit labels")
         # the second fit runs under torch.profiler: where its time goes
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # on the device (its kernels, copies and CUDA runtime calls; the
+        # host's operators are left out of this trace to keep its parse
+        # short)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             km2, wall2 = fit_once(X, Xv, **kw)
         same = np.array_equal(km2.cluster_centers_, C) \
             and np.array_equal(km2.labels_, labels)
@@ -1853,7 +1874,7 @@ def resume_phase(X, Xv, unbroken: dict) -> dict:
 #: benchmarks/serve_latency.py (its folder is not ported; this repeats it)
 SERVE_ROWS = 120_000
 QUERY_ROWS, ROWS_PER_REQ, MICRO, COARSE = 2048, 256, 256, 16384
-N_REQ = 1000                 # timed requests a mode
+N_REQ = 500                  # timed requests a mode
 P99_CLAIM = 1.5              # the JAX package's background/off p99 claim
 READ_S = 5.0                 # (b)'s reading window
 N_READERS = 4
@@ -2247,7 +2268,7 @@ def serve_phase(X, outcome) -> dict:
 
 #: fits of each arm of phase 10 (b), after a warm-up (4, not 8: with
 #: phase 15 the script needs the time to stay inside its limit)
-OVERHEAD_PAIRS = 4
+OVERHEAD_PAIRS = 2
 
 
 def _round_ts(km) -> list:
@@ -4927,7 +4948,7 @@ def encdec_vlm_phase(smi: str) -> dict:
 #: decoder attention, the bidirectional encoder's attention whole on every
 #: rank, TP MLPs; (d) tinyllama-1.1b cut to `SHARD_D_LAYERS` layers on
 #: (2, 2): FSDP + TP + data parallelism, `SHARD_D_STEPS` steps
-SHARD_STEPS, SHARD_D_STEPS, SHARD_D_LAYERS = 3, 2, 4
+SHARD_STEPS, SHARD_D_STEPS, SHARD_D_LAYERS = 2, 2, 2
 SHARD_JOIN_S = 600.0
 SHARD_F32_TOL, SHARD_BF16_TOL = 1e-5, 6e-2
 SHARD_ARCHS = {"b": MOE_ARCH, "c": ENCDEC_ARCH, "d": LM_ARCH}
@@ -5187,6 +5208,337 @@ def sharded_train_phase(smi: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
     log(f"    phase 18 took {time.perf_counter() - t0:.1f} s")
 
+# ---------------------------------------------------------------- phase 19
+
+#: phase 19: the sharded serving steps and the dry run. (a) LM_ARCH and
+#: MOE_ARCH at full width on a one-rank NCCL (1, 1) mesh against the
+#: unsharded steps, phase 13's prompt and `SERVE_GEN` greedy steps; (b)
+#: LM_ARCH cut to `SERVE_B_LAYERS` layers, f32, on 2 gloo ranks sharing
+#: the card, (1, 2), against its one-rank run; (c) the dry run's
+#: `DRY_CELLS` and its kmeans cells, each a `python -m
+#: repro_torch.launch.dryrun` subprocess started with the script (no card
+#: needed) and read here; (d) the counter against the card.
+SERVE_GEN, SERVE_B_LAYERS = 4, 2
+SERVE_F32_RTOL = 1e-5        # tests/test_torch_sharded_serve.py's F32_RTOL
+SERVE_JOIN_S = 300.0
+DRY_CELLS = ((LM_ARCH, "prefill_32k", False), (LM_ARCH, "decode_32k", False),
+             ("mamba2-2.7b", "long_500k", True))
+DRY_TIMEOUT_S = 900.0
+
+
+def start_dry_runs() -> dict:
+    """(c)'s subprocesses, started at once: one a cell of `DRY_CELLS`
+    and one for ``--kmeans``, each writing its records to a directory of
+    its own. They need no card, so they run beside the earlier phases."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    runs = {}
+    for i, (arch, shape, mp) in enumerate(DRY_CELLS + ((None, None, None),)):
+        out = os.path.join(root, str(i))
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--out", out]
+        cmd += (["--kmeans"] if arch is None else
+                ["--arch", arch, "--shape", shape]
+                + (["--multi-pod"] if mp else []))
+        runs[i] = (cmd, out, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), time.perf_counter())
+    return {"root": root, "runs": runs}
+
+
+def stop_dry_runs(dry) -> None:
+    """Kill (c)'s subprocesses that are still running and remove their
+    records."""
+    import shutil
+    for _, _, proc, _ in dry["runs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(dry["root"], ignore_errors=True)
+
+
+def _serve_run(cfg, params, tokens, gen: int, mesh=None):
+    """The prefill of ``tokens`` and ``gen`` greedy decode steps through
+    `make_prefill_step`/`make_decode_step` (with ``mesh``, the sharded
+    steps on this rank's blocks, the logits put together by
+    `whole_logits`): (the last position's logits of each step, the
+    tokens, the prefill's ms, the decode steps' ms)."""
+    from repro_torch.launch.serve import cache_len
+    from repro_torch.models import sharding as S
+    from repro_torch.train import step as tstep
+    kw = {} if mesh is None else {"mesh": mesh, "device": DEV}
+    pre = tstep.make_prefill_step(
+        cfg, cache_len=cache_len(cfg, tokens.shape[1], gen), **kw)
+    dec = tstep.make_decode_step(cfg, **kw)
+    rows = tokens
+    if mesh is not None:
+        rows = S.shard_tree({"t": tokens}, {"t": (S.data_axes(mesh), None)},
+                            mesh)["t"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre(params, {"tokens": rows})
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    whole = tstep.whole_logits(logits, cfg, mesh)[:, -1]
+    out, toks, t_dec = [whole], [], []
+    for _ in range(gen):
+        tok = whole.argmax(-1, keepdim=True).int()
+        toks.append(tok)
+        if mesh is not None:
+            tok = S.shard_tree({"t": tok}, {"t": (S.data_axes(mesh), None)},
+                               mesh)["t"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = dec(params, tok, cache)
+        torch.cuda.synchronize()
+        t_dec.append(time.perf_counter() - t0)
+        whole = tstep.whole_logits(logits, cfg, mesh)[:, -1]
+        out.append(whole)
+    return (torch.stack(out), torch.cat(toks, dim=1), t_pre * 1e3,
+            [t * 1e3 for t in t_dec])
+
+
+def _prompt(cfg, batch: int = LM_BATCH):
+    rng = np.random.default_rng(LM_SEED)
+    return torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (batch, LM_PROMPT))).to(DEV)
+
+
+def _flops_counted(cfg, params, tokens, mesh):
+    """(d): FlopCounterMode's FLOPs over the sharded prefill and one
+    decode step on the card, and `op_cost`'s over the same steps traced
+    on fake tensors of the same shapes (FakeTensorMode on the card's
+    device); the cost of each, the fake trace's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.serve import cache_len
+    from repro_torch.roofline import op_cost
+    from repro_torch.train import step as tstep
+    pre = tstep.make_prefill_step(
+        cfg, cache_len=cache_len(cfg, tokens.shape[1], SERVE_GEN),
+        mesh=mesh, device=DEV)
+    dec = tstep.make_decode_step(cfg, mesh=mesh, device=DEV)
+    real = {}
+    with FlopCounterMode(display=False) as fc:
+        _, cache = pre(params, {"tokens": tokens})
+    real["prefill"] = fc.get_total_flops()
+    tok = tokens[:, :1].int()
+    with FlopCounterMode(display=False) as fc:
+        dec(params, tok, cache)
+    real["decode"] = fc.get_total_flops()
+    del cache
+    with FakeTensorMode() as fm:
+        fp = tree_map(fm.from_tensor, params)
+        ft = fm.from_tensor(tokens)
+        c_pre, (_, fcache), _ = op_cost.analyze(pre, fp, {"tokens": ft})
+        c_dec, _, _ = op_cost.analyze(dec, fp, fm.from_tensor(tok), fcache)
+    return real, {"prefill": c_pre, "decode": c_dec}
+
+
+def serve_one_rank(smi: str) -> dict:
+    """(a) and (d): the sharded serving steps on a one-rank NCCL mesh
+    against the unsharded ones, bit for bit; the counts and bounds of
+    tinyllama's prefill and decode step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding as S
+    from repro_torch.launch.input_specs import abstract_params
+    from repro_torch.roofline.analysis import roofline_terms as terms
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=120))
+    counted = {}
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        need(dist.get_backend() == backend, f"the one-rank group is not "
+             f"{backend}")
+        for arch in (LM_ARCH, MOE_ARCH):
+            cfg = _family_config(arch)
+            torch.cuda.reset_peak_memory_stats()
+            params, t_init, n_params = _init_model(cfg)
+            tokens = _prompt(cfg)
+            _serve_run(cfg, params, tokens, 1)            # warm-up
+            want = _serve_run(cfg, params, tokens, SERVE_GEN)
+            local = S.shard_tree(params, S.param_specs(
+                cfg, mesh, abstract_params(cfg)), mesh)
+            got = _serve_run(cfg, local, tokens, SERVE_GEN, mesh)
+            same_l = torch.equal(got[0], want[0])
+            same_t = torch.equal(got[1], want[1])
+            log(f"    (a) {cfg.arch_id} at full width ({n_params:,} "
+                f"parameters from seed {LM_SEED}), batch {LM_BATCH}, prompt "
+                f"{LM_PROMPT}, {SERVE_GEN} greedy steps on a one-rank NCCL "
+                f"(1, 1) mesh: prefill {got[2]:.3f} ms (unsharded "
+                f"{want[2]:.3f}), {np.median(got[3]):.3f} ms a decode step "
+                f"(unsharded {np.median(want[3]):.3f}), peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                f"tokens {got[1][0].tolist()} (row 0); logits bit-equal to "
+                f"the unsharded steps': {same_l}, tokens: {same_t}")
+            need(same_l and same_t, f"(a) {arch}: the one-rank sharded "
+                 f"serving steps differ from the unsharded ones")
+            if arch == LM_ARCH:
+                real, fake = _flops_counted(cfg, local, tokens, mesh)
+                counted = {"real": real, "fake": fake,
+                           "ms": {"prefill": got[2],
+                                  "decode": float(np.median(got[3]))}}
+            del params, local, want, got
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for what in ("prefill", "decode"):
+        c = counted["fake"][what]
+        r = terms(c.flops_by_dtype.get("f32", 0.0), c.bytes,
+                  bf16_flops=c.flops_by_dtype.get("bf16", 0.0))
+        ms, bound = counted["ms"][what], r.step_time_s() * 1e3
+        log(f"    (d) {LM_ARCH} {what} (one rank): FlopCounterMode over the "
+            f"CUDA run {counted['real'][what]:.6g} FLOPs, op_cost over the "
+            f"fake trace {c.flops:.6g} ({c.flops_by_dtype}); bytes "
+            f"{c.bytes:.6g}, peak {c.peak_bytes / 2 ** 30:.2f} GiB; bound "
+            f"{bound:.4f} ms ({r.bottleneck}) against {ms:.3f} ms measured: "
+            f"{bound / ms * 100:.3f} % of it ({smi})")
+        need(c.flops == counted["real"][what], f"(d) {what}: the fake trace "
+             f"counts other FLOPs than the CUDA run")
+        need(bound <= ms, f"(d) {what}: the measured time is below the "
+             f"counted bound (a wrong count or rate)")
+    return counted
+
+
+def serve_rank(rank: int, world: int, root: str, addr: str) -> None:
+    """One of (b)'s 2 gloo ranks on the card: LM_ARCH cut to
+    `SERVE_B_LAYERS` layers, f32, on (1, 2); writes its logits and
+    tokens to ``rank<r>_serve.npz``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.input_specs import abstract_params
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    if not torch.cuda.is_available():
+        raise Failure(f"rank {rank} sees no CUDA device")
+    dist.init_process_group("gloo", init_method=addr, world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh((1, world), ("data", "model"))
+        cfg = _cut(_family_config(LM_ARCH), SERVE_B_LAYERS)
+        params = M.init_params(LM_SEED, cfg, DEV)
+        _upcast_in_place(params)
+        local = S.shard_tree(params, S.param_specs(
+            cfg, mesh, abstract_params(cfg)), mesh)
+        del params
+        logits, toks, t_pre, t_dec = _serve_run(cfg, local, _prompt(cfg),
+                                                SERVE_GEN, mesh)
+        np.savez(os.path.join(root, f"rank{rank}_serve.npz"),
+                 logits=logits.cpu().numpy(), toks=toks.cpu().numpy(),
+                 t_pre=np.float64(t_pre), t_dec=np.array(t_dec))
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_two_ranks() -> None:
+    """(b): 2 gloo ranks on the card against the one-rank run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models import model as M
+    cfg = _cut(_family_config(LM_ARCH), SERVE_B_LAYERS)
+    params = M.init_params(LM_SEED, cfg, DEV)
+    _upcast_in_place(params)
+    want = _serve_run(cfg, params, _prompt(cfg), SERVE_GEN)
+    del params
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        t1 = time.perf_counter()
+        _spawn_ranks(root, serve_rank, 2, SERVE_JOIN_S)
+        ranks = [dict(np.load(os.path.join(root, f"rank{r}_serve.npz")))
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ref = want[0].cpu().numpy().astype(np.float64)
+    rels = [float(np.linalg.norm(r["logits"] - ref) / np.linalg.norm(ref))
+            for r in ranks]
+    same = [bool(np.array_equal(r["toks"], want[1].cpu().numpy()))
+            for r in ranks]
+    log(f"    (b) {cfg.arch_id} cut to {SERVE_B_LAYERS} layers, f32, on 2 "
+        f"gloo ranks sharing the card, ('data', 'model') = (1, 2), "
+        f"{time.perf_counter() - t1:.1f} s with the processes' start: "
+        f"prefill {[round(float(r['t_pre']), 3) for r in ranks]} ms by "
+        f"rank (one rank {want[2]:.3f}), "
+        f"{[round(float(np.median(r['t_dec'])), 3) for r in ranks]} ms a "
+        f"decode step (one rank {np.median(want[3]):.3f}); logits "
+        f"relative (Frobenius) to one rank's {rels} (held to "
+        f"{SERVE_F32_RTOL}); tokens one rank's: {same}")
+    need(all(same), "(b): the 2-rank tokens differ from the one-rank run's")
+    need(max(rels) <= SERVE_F32_RTOL, "(b): the 2-rank logits are not within "
+         "tolerance of the one-rank run's")
+
+
+def dry_run_records(dry, kernel4_ms: float, smi: str) -> None:
+    """(c): wait for the dry run's subprocesses, log each record's line,
+    and (d) set kmeans_xl's ``kernel_analytic`` bound beside phase 6's
+    kernel-4 time."""
+    recs = {}
+    for i, (cmd, out, proc, t0) in dry["runs"].items():
+        try:
+            text, _ = proc.communicate(timeout=DRY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise Failure(f"(c) {' '.join(cmd[2:])} did not end in "
+                          f"{DRY_TIMEOUT_S:.0f} s")
+        lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+        for ln in lines:
+            log(f"    (c) {ln}")
+        log(f"        ({' '.join(cmd[3:])}: rc {proc.returncode}, read "
+            f"{time.perf_counter() - t0:.1f} s after its start)")
+        need(proc.returncode == 0, f"(c) {' '.join(cmd[2:])} failed:\n"
+             + text[-3000:])
+        for f in sorted(Path(out).glob("*.json")):
+            recs[f.stem] = json.loads(f.read_text())
+    need(len(recs) == len(DRY_CELLS) + 3, f"(c): {len(recs)} records")
+    for cell, r in recs.items():
+        need(r.get("ok") is True, f"(c) {cell}: {r.get('error')}")
+        if r["kind"] != "kmeans":
+            log(f"        {cell}: peak {r['memory']['peak_bytes'] / 1e9:.2f} "
+                f"GB a device (fits 80 GB: {r['memory']['fits_hbm']}), "
+                f"wire {r['collectives']}, model FLOPs "
+                f"{r['model_flops_per_device']:.4g} a device")
+    ka = recs["kmeans_xl__round__pod16x16"]["kernel_analytic"]
+    log(f"    (d) kmeans_xl__round__pod16x16's kernel_analytic bound "
+        f"{ka['bound_ms']:.3f} ms ({ka['bottleneck']}; PERF.md's kernel-4 "
+        f"row: 213.303) against phase 6's kernel-4 time {kernel4_ms:.3f} ms "
+        f"in this run: {ka['bound_ms'] / kernel4_ms * 100:.1f} % of it "
+        f"({smi})")
+    need(round(ka["bound_ms"], 3) == 213.303, "(d): kmeans_xl's "
+         "kernel_analytic bound is not the kernel-4 row's 213.303 ms")
+    need(ka["bound_ms"] <= kernel4_ms, "(d): phase 6's kernel 4 ran below "
+         "its bound")
+
+
+def sharded_serve_phase(dry, kernel4_ms: float, smi: str) -> None:
+    """Phase 19: the sharded prefill and decode steps and the dry run."""
+    t0 = time.perf_counter()
+    log(f"[19] sharded serving (make_prefill_step/make_decode_step with "
+        f"mesh=): {LM_ARCH} and {MOE_ARCH} on a one-rank NCCL (1, 1) mesh, "
+        f"{LM_ARCH} cut to {SERVE_B_LAYERS} layers on 2 gloo ranks (1, 2); "
+        f"the dry run (python -m repro_torch.launch.dryrun) on the host "
+        f"({smi})")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        del FakeStore
+    except ImportError as e:
+        raise Failure(f"(c): this torch has no fake process group: {e}")
+    serve_one_rank(smi)
+    serve_two_ranks()
+    dry_run_records(dry, kernel4_ms, smi)
+    log(f"    phase 19 took {time.perf_counter() - t0:.1f} s")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5205,6 +5557,14 @@ def main() -> int:
 
     dev = device_phase()
     took(1)
+    dry = start_dry_runs()
+    try:
+        return _phases(dev, dry, t0, took)
+    finally:
+        stop_dry_runs(dry)
+
+
+def _phases(dev, dry, t0, took) -> int:
     build_phase()
     took(2)
     errs = compare_phase()
@@ -5231,6 +5591,7 @@ def main() -> int:
     rcv1 = rcv1_phase(dev["smi"])
     encdec = encdec_vlm_phase(dev["smi"])
     sharded_train_phase(dev["smi"])
+    sharded_serve_phase(dry, xl["times"]["ms"], dev["smi"])
     # each kernel's launches come from the run of the path it serves
     launches = dict(main["launches"], fused_round=xl["launches"][
         "fused_round"])

@@ -13,6 +13,7 @@ dtypes, and nothing is drawn or allocated.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -67,8 +68,11 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     return {"token": _sds((B, 1), torch.int32), "cache": cache}
 
 
+@functools.lru_cache(maxsize=8)
 def abstract_params(cfg: ModelConfig):
-    """The params tree of ``cfg`` at full width as meta tensors."""
+    """The params tree of ``cfg`` at full width as meta tensors (kept for
+    the last few configs: the dry run asks for each many times; read it,
+    do not change it)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         fake = M.init_params(0, cfg, "cpu")
@@ -77,3 +81,35 @@ def abstract_params(cfg: ModelConfig):
 
 def abstract_opt_state(params_shape) -> adamw.AdamWState:
     return adamw.init(params_shape)
+
+
+def materialize(tree, seed: int = 0, device="cuda"):
+    """Turn a spec tree into real tensors on ``device`` (smoke tests,
+    reduced configs): JAX's rules, leaf by leaf in the tree's order (the
+    nested dicts' key order): an integer leaf uniform in [0, 128), a
+    float leaf N(0, 1) drawn in f32 and cast to the leaf's dtype. JAX
+    folds the leaf's index into ``PRNGKey(seed)``; the port draws every
+    leaf in turn from one `torch.Generator` seeded with ``seed`` on
+    ``device``, so the structure, shapes, dtypes and ranges are JAX's and
+    the bits are not."""
+    from repro_torch.kernels._build import resolve_device
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+
+    def leaf(t):
+        if t.dtype.is_floating_point:
+            return torch.randn(tuple(t.shape), generator=gen,
+                               dtype=torch.float32, device=device).to(t.dtype)
+        if t.dtype == torch.bool:
+            return torch.randint(0, 2, tuple(t.shape), generator=gen,
+                                 device=device).bool()
+        return torch.randint(0, 128, tuple(t.shape), generator=gen,
+                             dtype=t.dtype, device=device)
+
+    def build(node):
+        if isinstance(node, dict):
+            drawn = {k: build(node[k]) for k in sorted(node)}
+            return {k: drawn[k] for k in node}
+        return leaf(node)
+    return build(tree)

@@ -48,6 +48,30 @@ def make_host_mesh(shape: Sequence[int] = (2, 2),
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """16x16 single-pod (256 ranks) over ("data", "model"), or 2x16x16
+    two-pod (512 ranks) over ("pod", "data", "model"), from the process
+    group, which must hold that many ranks (a real one, or the fake group
+    of `init_fake_group` for the dry run)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_host_mesh(shape, axes)
+
+
+def init_fake_group(world_size: int, rank: int = 0) -> None:
+    """Make this process rank ``rank`` of a fake process group of
+    ``world_size`` ranks (`torch.testing._internal.distributed.fake_pg`):
+    its collectives return at once and move nothing. For analysis only
+    (the dry run traces one rank's step over it on fake tensors); a step
+    run on real tensors over it computes nothing right. Tears down a
+    group already up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
+                            world_size=int(world_size))
+
+
 def rank_device(device="cuda") -> torch.device:
     """The device this rank computes on.
 

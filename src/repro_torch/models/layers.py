@@ -78,6 +78,7 @@ def _f32_of(x: torch.Tensor, cdtype: torch.dtype) -> torch.Tensor:
 class _Ambient:
     mesh: Any                       # a DeviceMesh
     specs: Dict[str, tuple]         # param path -> its spec
+    rows: bool = True               # batch rows split over the data dims
 
 
 _AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
@@ -102,20 +103,24 @@ def restored(amb: Optional[_Ambient]):
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, param_specs=None):
+def use_mesh(mesh, param_specs=None, *, rows_sharded: bool = True):
     """Run the layers under ``mesh`` (a `DeviceMesh` whose dims carry
     JAX's axis names): JAX's ``jax.set_mesh``. ``param_specs`` is the
     params' spec tree (`sharding.param_specs`), by which each rank holds
     its blocks; a JAX array carries its sharding, a torch tensor does
     not, so the layout rides here. Without it the params are whole on
-    every rank. ``mesh=None`` is the single-device run."""
+    every rank. ``rows_sharded``: each rank's activations are its share
+    of the batch rows over the data dims (`sharding.batch_specs` where the
+    global batch divides over them), else the whole batch on every rank.
+    ``mesh=None`` is the single-device run."""
     from repro_torch.models.sharding import _path_str, tree_map_with_path
     specs: Dict[str, tuple] = {}
     if param_specs is not None:
         tree_map_with_path(
             lambda path, spec: specs.__setitem__(_path_str(path), spec),
             param_specs)
-    with restored(None if mesh is None else _Ambient(mesh, specs)):
+    with restored(None if mesh is None
+                  else _Ambient(mesh, specs, bool(rows_sharded))):
         yield mesh
 
 
@@ -142,6 +147,13 @@ def _size(axis: str) -> int:
 
 def _dp_total() -> int:
     return math.prod(_size(a) for a in dp_axes())
+
+
+def _rows_split() -> bool:
+    """Are the activations' batch rows this rank's share over the data
+    dims (more than one data rank, rows sharded)?"""
+    amb = _AMBIENT.get()
+    return amb is not None and amb.rows and _dp_total() > 1
 
 
 class Partial:
@@ -311,6 +323,13 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     v = x @ p["wv"]
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if _tp(p, "wk") and _kv_whole(cfg):
+        # a column block of K/V whose heads do not divide "model": made
+        # whole (JAX's constraint drops "tp"), the cotangent summed and
+        # scattered back
+        mesh = _ambient_mesh()
+        k = C.gather_over(k, mesh, "model", k.dim() - 1)
+        v = C.gather_over(v, mesh, "model", v.dim() - 1)
     B, S = x.shape[0], x.shape[1]
     # heads: all of them, or this rank's block under a mesh
     q = constrain(q.reshape(B, S, -1, cfg.head_dim), "dp", None, "tp", None)
@@ -320,17 +339,36 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _heads_sharded(p: Params, cfg: ModelConfig) -> bool:
-    """Are ``p``'s projections this rank's block of the heads? Each
-    rank's query heads then need their own K/V heads."""
-    if not _tp(p, "wq"):
-        return False
-    tp = _size("model")
-    if cfg.n_kv_heads % tp:
-        raise NotImplementedError(
-            f"attention with {cfg.n_kv_heads} K/V heads over a model dim "
-            f"of {tp}: grouped K/V heads that do not divide it are not "
-            f"ported")
-    return True
+    """Are ``p``'s projections this rank's block of the query heads?
+    Where the K/V heads divide the model dim, K and V are the rank's
+    block of them too; where they do not, K and V are whole on every rank
+    (`_qkv`) and each rank's query heads read their group's (`_group_kv`),
+    as JAX's `constrain` drops "tp" on K and V there."""
+    return _tp(p, "wq")
+
+
+def _kv_whole(cfg: ModelConfig) -> bool:
+    """Under the ambient mesh, are K and V whole on every rank of "model"
+    (their heads do not divide it) while the query heads may not be?"""
+    return _size("model") > 1 and cfg.n_kv_heads % _size("model") != 0
+
+
+def _group_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              cfg: ModelConfig):
+    """The K/V heads that this rank's block of query heads reads, from K
+    and V whole over the heads: (k, v) of (B, S, KV', Dh) with the local
+    query heads a multiple of KV' in GQA order."""
+    h_loc, G = q.shape[2], cfg.n_heads // cfg.n_kv_heads
+    h0 = C.axis_index(_ambient_mesh(), "model") * h_loc
+    if G % h_loc == 0:                       # all in one group
+        g = h0 // G
+        return k[:, :, g:g + 1], v[:, :, g:g + 1]
+    if h_loc % G == 0:                       # whole groups
+        g = h0 // G
+        return k[:, :, g:g + h_loc // G], v[:, :, g:g + h_loc // G]
+    idx = torch.div(h0 + torch.arange(h_loc, device=q.device), G,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _pick_chunk(S: int, target: int) -> int:
@@ -448,7 +486,8 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """Full-sequence attention (train / prefill) in ``x``'s dtype, the
     compute dtype: causal, with RoPE, by default; the whisper encoder
     runs it bidirectional and without RoPE, its decoder without RoPE.
-    Returns (out, (k, v)): under a mesh k and v are this rank's heads.
+    Returns (out, (k, v)): under a mesh k and v are this rank's K/V
+    heads, or all of them where those do not divide "model".
 
     Under a mesh whose "model" dim does not divide the heads of a causal
     attention but divides its sequence, the attention is context-parallel
@@ -466,7 +505,9 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         o = _seqpar_flash(q, k, v, causal=causal, q_chunk=q_chunk,
                           kv_chunk=kv_chunk, mesh=mesh, cdtype=x.dtype)
     else:
-        o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+        kq, vq = (_group_kv(q, k, v, cfg) if sharded and _kv_whole(cfg)
+                  else (k, v))
+        o = flash_attention(q, kq, vq, causal=causal, q_chunk=q_chunk,
                             kv_chunk=kv_chunk, cdtype=x.dtype)
     B, S = x.shape[0], x.shape[1]
     out = _row_product(o.reshape(B, S, -1), p["wo"], sharded)
@@ -482,18 +523,67 @@ def attention_decode_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     The new K/V rows are written into ``k_cache``/``v_cache`` at ``pos``
     in place (JAX donates the cache and updates a slice: the same
     semantics, no copy of the cache). Returns (out, (k_cache, v_cache)).
+
+    Under a mesh the cache is laid out by `sharding.cache_specs`: this
+    rank's K/V heads where they divide "model" (the rank's query heads
+    attend to them and the output's shares are summed), else this rank's
+    block of positions with every head (`_decode_seq`).
     """
-    q, k, v = _qkv(p, x, cfg)
+    sharded = _heads_sharded(p, cfg)
+    q, k, v = _qkv(p, _enter(x, sharded), cfg)
     if use_rope:
         ppos = pos.reshape(1, 1).expand(x.shape[0], 1)
         q = apply_rope(q, ppos, cfg.rope_theta)
         k = apply_rope(k, ppos, cfg.rope_theta)
-    at = pos.reshape(1).long()
-    k_cache.index_copy_(1, at, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, at, v.to(v_cache.dtype))
-    o = decode_attention(q, k_cache, v_cache, pos, cdtype=x.dtype)
-    out = o.reshape(x.shape[0], 1, cfg.q_dim()) @ p["wo"]
-    return out, (k_cache, v_cache)
+    B = x.shape[0]
+    if _kv_whole(cfg):
+        o = _decode_seq(q, k, v, k_cache, v_cache, pos, sharded, x.dtype)
+    else:
+        at = pos.reshape(1).long()
+        k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+        o = decode_attention(q, k_cache, v_cache, pos, cdtype=x.dtype)
+    out = _row_product(o.reshape(B, 1, -1), p["wo"], sharded)
+    return constrain(out, "dp", None, None), (k_cache, v_cache)
+
+
+def _decode_seq(q, k, v, k_cache, v_cache, pos, sharded: bool, cdtype):
+    """`decode_attention` against a cache whose positions are split over
+    "model" (K/V heads that do not divide it, `sharding.cache_specs`):
+    rank r holds positions [r n, (r + 1) n) of every head. The new row is
+    written on the rank that holds ``pos`` (the others write back the row
+    they hold). Every rank scores all query heads (gathered where it
+    holds a block of them) against its positions, masked past ``pos``;
+    the softmax is combined over "model" in f32, the maximum first
+    (`collectives.pmax`), then the sums of the exponentials, and each
+    rank's ``p . v`` over its positions is summed. Returns this rank's
+    query heads of the output, (B, 1, H', Dh)."""
+    mesh = _ambient_mesh()
+    n = k_cache.shape[1]
+    r = C.axis_index(mesh, "model")
+    loc = pos - r * n
+    mine = (loc >= 0) & (loc < n)
+    at = torch.clamp(loc, 0, n - 1).reshape(1).long()
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache.index_copy_(1, at, torch.where(mine, new.to(cache.dtype),
+                                             cache.index_select(1, at)))
+    h_loc = q.shape[2]
+    if sharded:
+        q = C.gather_along(q, mesh, ("model",), 2)
+    B, _, H, Dh = q.shape
+    KV = k_cache.shape[2]
+    qh = _f32_of(q, cdtype).reshape(B, KV, H // KV, Dh)
+    s = torch.einsum("bhgd,bshd->bhgs", qh,
+                     _f32_of(k_cache, cdtype)) * Dh ** -0.5
+    kpos = r * n + torch.arange(n, device=q.device)
+    s = torch.where(kpos[None, None, None, :] <= pos, s, -math.inf)
+    m = C.pmax(torch.amax(s, dim=-1, keepdim=True), mesh, "model")
+    e = torch.exp(s - m)
+    l_ = C.psum([torch.sum(e, dim=-1, keepdim=True)], mesh, ["model"])[0]
+    o = torch.einsum("bhgs,bshd->bhgd", _f32_of(e / l_, cdtype),
+                     _f32_of(v_cache, cdtype))
+    o = C.psum([o], mesh, ["model"])[0].reshape(B, 1, H, Dh).to(q.dtype)
+    return o.narrow(2, r * h_loc, h_loc) if sharded else o
 
 
 def init_cross_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -511,6 +601,8 @@ def cross_attention_fwd(p: Params, x: torch.Tensor,
     sharded = _heads_sharded(p, cfg)
     q = (_enter(x, sharded) @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
     k, v = enc_kv
+    if sharded and _kv_whole(cfg):
+        k, v = _group_kv(q, k, v, cfg)
     o = flash_attention(q, k, v, causal=False, cdtype=x.dtype)
     out = _row_product(o.reshape(B, S, -1), p["wo"], sharded)
     return constrain(out, "dp", None, None)
@@ -518,12 +610,17 @@ def cross_attention_fwd(p: Params, x: torch.Tensor,
 
 def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig):
     """The encoder's K/V for the cross attention: (B, S_enc, KV, Dh)
-    each (this rank's KV heads where the mesh shards them)."""
+    each (this rank's KV heads where the mesh shards them and they
+    divide "model", else all of them)."""
     B, S = enc_out.shape[0], enc_out.shape[1]
     e = _enter(enc_out, _heads_sharded(p, cfg))
-    k = (e @ p["wk"]).reshape(B, S, -1, cfg.head_dim)
-    v = (e @ p["wv"]).reshape(B, S, -1, cfg.head_dim)
-    return k, v
+    k, v = e @ p["wk"], e @ p["wv"]
+    if _tp(p, "wk") and _kv_whole(cfg):
+        mesh = _ambient_mesh()
+        k = C.gather_over(k, mesh, "model", 2)
+        v = C.gather_over(v, mesh, "model", 2)
+    return (k.reshape(B, S, -1, cfg.head_dim),
+            v.reshape(B, S, -1, cfg.head_dim))
 
 
 # --------------------------------------------------------------------------
@@ -651,28 +748,59 @@ def moe_fwd(p: Params, x: torch.Tensor, moe: MoEConfig
     """Capacity-based top-k MoE. x: (B, S, D) -> (out in x's dtype, f32
     aux).
 
-    Under a mesh with a "model" dim and S > 1 this routes to
-    ``_moe_fwd_ep``, JAX's expert-parallel dispatch, where the experts
-    divide the dim (a rank's batch rows are always its share of the
-    global batch). Without a mesh JAX's single-device (GShard-style,
-    sort-free) dispatch runs: `moe_route`, then `_experts`.
+    Under a mesh with a "model" dim, S > 1, experts that divide the dim
+    and the batch rows split over the data dims (or one data rank), this
+    routes to ``_moe_fwd_ep``, JAX's expert-parallel dispatch. Otherwise
+    JAX's single-device (GShard-style, sort-free) dispatch runs over the
+    global batch's tokens: `moe_route`, then `_experts`; under a mesh
+    that is `_moe_fwd_global` (S == 1, decode, stays on it in JAX too).
     """
     mesh = _ambient_mesh()
-    if mesh is not None and "model" in _mesh_axes() and x.shape[1] > 1:
-        # S == 1 (decode) stays on the weight-stationary path, as in JAX
-        if moe.n_experts % _size("model") == 0:
+    if mesh is not None and "model" in _mesh_axes():
+        if (x.shape[1] > 1 and moe.n_experts % _size("model") == 0
+                and (_rows_split() or _dp_total() == 1)):
             return _moe_fwd_ep(p, x, moe, mesh)
-        if _dp_total() > 1:
-            raise NotImplementedError(
-                f"the dense MoE dispatch over tokens sharded over the data "
-                f"dims ({moe.n_experts} experts do not divide the model "
-                f"dim): its capacity is the global batch's")
+        return _moe_fwd_global(p, x, moe, mesh)
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     probs, top_p, top_e, valid, slot, cap = moe_route(p, xt, moe)
     out = _experts(p, xt, top_p, valid, slot, moe.n_experts, cap, x.dtype)
     return (out.reshape(B, S, D).to(x.dtype),
             _aux(probs, top_e, moe.n_experts))
+
+
+def _moe_fwd_global(p: Params, x: torch.Tensor, moe: MoEConfig, mesh
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's single-device dispatch (``_moe_fwd_dense``) as GSPMD runs it
+    under a mesh: routing, capacity and each (token, choice)'s rank over
+    the GLOBAL batch's tokens, so the rows split over the data dims are
+    gathered first (each rank's cotangent of them its own rows). Where
+    the expert stacks are this rank's block over "model" (`param_specs`),
+    the rank runs its experts' slots and the combine's shares are summed
+    over "model" in f32; else every rank runs all of them. Each rank keeps
+    its own rows of the output. At one rank it is the single-device
+    dispatch, op for op."""
+    B_loc, S, D = x.shape
+    xt = x.reshape(B_loc * S, D)
+    dp = dp_axes() if _rows_split() else ()
+    for ax in reversed(dp):
+        xt = C.unsplit_over(xt, mesh, ax, 0)
+    E = moe.n_experts
+    probs, top_p, top_e, valid, slot, cap = moe_route(p, xt, moe)
+    if _tp(p, "w_gate"):
+        e_loc = E // _size("model")
+        valid, slot = _slots(top_e.reshape(-1),
+                             C.axis_index(mesh, "model") * e_loc, e_loc, E,
+                             cap)
+        part = _experts(p, _enter(xt, True), _enter(top_p, True), valid,
+                        slot, e_loc, cap, x.dtype)
+        out = C.sum_over(part.float(), mesh, "model")
+    else:
+        out = _experts(p, xt, top_p, valid, slot, E, cap, x.dtype)
+    if dp:
+        n = B_loc * S
+        out = out.narrow(0, C.linear_index(mesh, dp) * n, n)
+    return out.reshape(B_loc, S, D).to(x.dtype), _aux(probs, top_e, E)
 
 
 def _moe_fwd_ep(p: Params, x: torch.Tensor, moe: MoEConfig, mesh
@@ -927,20 +1055,31 @@ def mamba_fwd(p: Params, u: torch.Tensor, ssm: SSMConfig, d: int, *,
 def mamba_decode_fwd(p: Params, u: torch.Tensor, ssm: SSMConfig, d: int,
                      state: Dict[str, Any]):
     """Single-token SSM step. u: (B, 1, D); state: {ssm, conv: {x, bc}}.
-    Returns (out, new state), the state in new tensors."""
+    Returns (out, new state), the state in new tensors. Under a mesh that
+    shards the mixer, the SSM state and the conv state of x hold this
+    rank's heads (`sharding.cache_specs`), as in `mamba_fwd`."""
     B = u.shape[0]
     z, xs, Bm, Cm, dt, d_in, nh, gn, conv_state = \
         _ssd_proj(p, u, ssm, d, state["conv"])
     hd, N, G = ssm.head_dim, ssm.d_state, ssm.n_groups
     hpg = nh // G
-    xh = xs.reshape(B, nh, hd).float()
+    sharded = _mamba_sharded(p)
+    h0, nh_l = 0, nh
+    if sharded:
+        nh_l = xs.shape[-1] // hd
+        h0 = C.axis_index(_ambient_mesh(), "model") * nh_l
+    xh = xs.reshape(B, nh_l, hd).float()
     Bh = torch.repeat_interleave(Bm.reshape(B, G, N), hpg, dim=1).float()
     Ch = torch.repeat_interleave(Cm.reshape(B, G, N), hpg, dim=1).float()
-    dtv = _softplus(dt.float() + p["dt_bias"]).reshape(B, nh)
+    if sharded:
+        Bh, Ch = Bh[:, h0:h0 + nh_l], Ch[:, h0:h0 + nh_l]
+    dtv = _softplus(dt.float() + p["dt_bias"]).reshape(B, nh_l)
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dtv * A[None, :])                        # (B,nh)
     st = state["ssm"] * decay[:, :, None, None] \
         + torch.einsum("bhp,bhn->bhpn", xh * dtv[..., None], Bh)
     y = torch.einsum("bhpn,bhn->bhp", st, Ch) + xh * p["D"][None, :, None]
-    y = _gated_out(p, y.reshape(B, 1, d_in).to(u.dtype), z)
-    return y @ p["out_proj"], {"ssm": st, "conv": conv_state}
+    y = _gated_out(p, y.reshape(B, 1, nh_l * hd).to(u.dtype), z,
+                   d_in if sharded else None)
+    out = constrain(_row_product(y, p["out_proj"], sharded), "dp", None, None)
+    return out, {"ssm": st, "conv": conv_state}

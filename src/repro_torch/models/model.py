@@ -36,8 +36,12 @@ Under a device mesh (`layers.use_mesh`) `train_loss` runs sharded: each
 period's weights are gathered as it runs (`layers.gathered`), the
 residual stream is constrained where JAX constrains it, the embedding
 and the logits are vocab-parallel where the vocabulary divides the
-"model" dim, and the loss is the global batch's mean on every rank. The
-sharded prefill and decode are not ported (they raise under a mesh).
+"model" dim, and the loss is the global batch's mean on every rank.
+`prefill` and `decode_step` run sharded the same way: the cache is this
+rank's blocks as `sharding.cache_specs` lays them out (K/V heads over
+"model" where they divide it, else the positions; the SSM and conv states
+of the rank's heads), and the logits are the rank's block of the
+vocabulary where it divides "model".
 
 Entry points: init_params / train_loss / prefill / make_decode_cache /
 decode_step.
@@ -291,7 +295,7 @@ def _stack_caches(per_period):
 
 def backbone_full(params: Params, x, cfg: ModelConfig, *, positions,
                   enc_out=None, want_cache: bool = False,
-                  remat: bool = True):
+                  remat: bool = True, keep=None):
     """Run the stacked blocks over a full sequence, period by period.
     Returns (x, aux, caches): aux is the periods' MoE aux losses summed
     in f32, in JAX's order; with ``want_cache``, ``caches[t]`` is
@@ -299,7 +303,9 @@ def backbone_full(params: Params, x, cfg: ModelConfig, *, positions,
     ``"ssm"``: the SSM and conv states) stacked over the periods.
     ``enc_out`` is the encdec encoder's output. ``remat`` recomputes
     each period's activations in the backward pass (it changes no
-    value)."""
+    value). ``keep``: a function of a period's cache entries ({t: entry})
+    that gives what is kept of them (the sharded prefill keeps its block
+    of positions)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kept = []
     for pp in _periods(params["blocks"], n_periods(cfg)):
@@ -312,7 +318,7 @@ def backbone_full(params: Params, x, cfg: ModelConfig, *, positions,
                                    enc_out=enc_out, want_cache=want_cache)
         aux = aux + a
         if want_cache:
-            kept.append(c)
+            kept.append(c if keep is None else keep(c))
     return x, aux, (_stack_caches(kept) if want_cache else {})
 
 
@@ -456,24 +462,35 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     and the rest is zero, as JAX pads them; the Mamba positions hold the
     prompt's SSM and conv states; the encdec cache holds the encoder's
     output. The vlm's prompt is its patches and tokens, so ``pos`` and
-    the K/V rows count the patches too.
+    the K/V rows count the patches too. Under a mesh the cache is this
+    rank's blocks (`_local_cache`), and a cache split over positions
+    takes the prompt's rows that fall in the rank's block.
     """
-    _single_device("prefill")
     x, positions, enc_out = embed_inputs(params, batch, cfg)
     S = x.shape[1]
+    keep = None
+    if L._kv_whole(cfg):
+        # K/V whole on every rank, the cache split over positions: each
+        # period keeps only the prompt's rows in this rank's block
+        n = cache_len // L._size("model")
+        lo = C.axis_index(L._ambient_mesh(), "model") * n
+        rows = slice(lo, lo + max(0, min(S - lo, n)))
+
+        def keep(period):
+            return {t: dict(e, kv=tuple(x[:, rows].clone() for x in e["kv"]))
+                    if "kv" in e else e for t, e in period.items()}
     x, _, caches = backbone_full(params, x, cfg, positions=positions,
                                  enc_out=enc_out, want_cache=True,
-                                 remat=False)
+                                 remat=False, keep=keep)
     logits = logits_fn(params, x[:, -1:], cfg)
-    cache = make_decode_cache(cfg, batch=x.shape[0], cache_len=cache_len,
-                              dtype=x.dtype, device=x.device)
+    cache = _local_cache(cfg, x.shape[0], cache_len, x.dtype, x.device)
     cache["pos"].fill_(S)
     for t, c in caches.items():
         ent = cache["blocks"][t]
         if "kv" in c:
-            k_, v_ = c["kv"]   # (n_periods, B, S, KV, Dh)
-            ent["k"][:, :, :S] = k_
-            ent["v"][:, :, :S] = v_
+            k_, v_ = c["kv"]   # (n_periods, B, S or this rank's rows, KV, Dh)
+            ent["k"][:, :, :k_.shape[2]] = k_
+            ent["v"][:, :, :v_.shape[2]] = v_
         if "ssm" in c:
             ent["ssm"].copy_(c["ssm"]["ssm"])
             for part in ("x", "bc"):
@@ -483,10 +500,25 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     return logits, cache
 
 
-def _single_device(what: str) -> None:
-    if L._ambient_mesh() is not None:
-        raise NotImplementedError(f"the sharded {what} is not ported: call "
-                                  f"it outside use_mesh")
+def _local_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                 dtype: torch.dtype, device) -> Dict[str, Any]:
+    """`make_decode_cache` of ``batch`` rows (this rank's), or under a
+    mesh this rank's blocks of the global cache as
+    `sharding.cache_specs` lays it out (the global batch is ``batch``
+    times the data ranks where the rows are split)."""
+    amb = L.ambient()
+    if amb is None:
+        return make_decode_cache(cfg, batch=batch, cache_len=cache_len,
+                                 dtype=dtype, device=device)
+    from repro_torch.models import sharding as SH
+    mesh = amb.mesh
+    rows = batch * (L._dp_total() if L._rows_split() else 1)
+    meta = make_decode_cache(cfg, batch=rows, cache_len=cache_len,
+                             dtype=dtype, device="meta")
+    return SH.tree_map_with_path(
+        lambda _, t, spec: torch.zeros(SH.block_shape(t.shape, spec, mesh),
+                                       dtype=t.dtype, device=device),
+        meta, SH.cache_specs(cfg, mesh, meta))
 
 
 def make_decode_cache(cfg: ModelConfig, *, batch: int, cache_len: int,
@@ -535,15 +567,18 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
     belong to the returned cache, whose ``pos`` is a new tensor one
     higher. Do not reuse the old one. The encdec decoder adds the
     sinusoid's row at ``pos`` and attends to the cache's ``enc_out``.
+    Under a mesh the cache is this rank's blocks (`prefill`'s) and each
+    period's weights are gathered as it runs.
     """
-    _single_device("decode_step")
-    x = params["embed"][token]
+    table, sharded = _top(params, "embed")
+    x = _embed(table, token, sharded)
     pos = cache["pos"]
     if cfg.family == "encdec":
         x = x + sinusoid_at(pos, cfg.d_model, x.dtype)[None, None]
     enc_out = cache.get("enc_out")
     blocks = cache["blocks"]
     for i, pp in enumerate(_periods(params["blocks"], n_periods(cfg))):
+        pp = L.gathered(pp, "blocks", stacked=True)
         for t in range(period_len(cfg)):
             p, ent = pp[str(t)], blocks[str(t)]
             h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)

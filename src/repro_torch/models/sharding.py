@@ -311,6 +311,20 @@ def placements(spec: Spec, mesh) -> list:
     return out
 
 
+def block_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` laid out by
+    ``spec`` (each sharded dim divided by its axes' ranks)."""
+    out = []
+    for d, n in enumerate(shape):
+        axes = _entry_axes(spec[d]) if d < len(spec) else ()
+        m = axis_size(mesh, axes) if axes else 1
+        if n % m:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                             f"over {axes}")
+        out.append(n // m)
+    return tuple(out)
+
+
 def _block(t, spec: Spec, mesh):
     """This rank's block of the whole tensor ``t`` laid out by ``spec``
     (a dim over several axes split row-major over them)."""

@@ -6,7 +6,9 @@ Port of `repro/train/step.py`. ``make_train_step`` builds one step:
   ``accum_dtype`` buffer (f32 by default) in JAX's order -> the mean
   -> AdamW.
 JAX scans the microbatches inside one jitted program; the port loops on
-the host and launches each microbatch's forward and backward in turn.
+the host and launches each microbatch's forward and backward in turn
+(`op_cost.loop`, which the dry run's cost model folds into one traced
+trip, as JAX's cost model multiplies a scan's body by its trips).
 JAX's jitted step takes params and the optimizer state donated
 (``donate_argnums=(0, 1)``); the port's step writes the update into
 their tensors in place (`adamw.update`) and returns them, so one copy
@@ -28,13 +30,17 @@ The serving steps, `make_prefill_step` and `make_decode_step`, run
 under `torch.inference_mode()`. The decode step takes the cache as JAX's
 jitted step takes it donated (``donate_argnums=(2,)``): the new K/V rows
 are written into the cache's tensors in place
-(`repro_torch.models.model.decode_step`).
+(`repro_torch.models.model.decode_step`). With a ``mesh`` they are JAX's
+steps jitted with ``in_shardings`` (`repro/launch/dryrun.py`), each rank
+passing its blocks of the params, the batch or token and the cache, and
+`whole_logits` puts the logits' blocks together.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
@@ -42,6 +48,7 @@ from repro_torch.kernels._build import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.roofline import op_cost
 from repro_torch.util.tree import tree_leaves, tree_map
 
 
@@ -76,7 +83,7 @@ def make_train_step(cfg: ModelConfig, *, n_micro: int = 1,
                                              device=p.device), params)
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
-        for i in range(n_micro):
+        for i in op_cost.loop(n_micro):
             # leaves that share the params' memory and take gradients
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
             loss, _ = M.train_loss(live, {k: v[i] for k, v in mbs.items()},
@@ -130,7 +137,7 @@ def _sharded_train_step(cfg: ModelConfig, mesh, n_micro: int,
                                              device=p.device), params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         with L.use_mesh(mesh, specs):
-            for i in range(n_micro):
+            for i in op_cost.loop(n_micro):
                 live = tree_map(lambda p: p.detach().requires_grad_(),
                                 params)
                 loss, _ = M.train_loss(
@@ -159,15 +166,74 @@ def _sharded_train_step(cfg: ModelConfig, mesh, n_micro: int,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, cache_len: int):
+def _serving_ctx(cfg: ModelConfig, mesh, rows_sharded: bool, device):
+    """(the ambient mesh of a serving step, the check of its tensors):
+    ``mesh`` with the params' specs (`sharding.param_specs`), its tensors
+    on ``device``; no mesh and no check without one."""
+    if mesh is None:
+        return (lambda: L.use_mesh(None)), (lambda *trees: None)
+    from repro_torch.launch.input_specs import abstract_params
+    from repro_torch.models import sharding as S
+    device = resolve_device(device)
+    specs = S.param_specs(cfg, mesh, abstract_params(cfg))
+
+    def check(*trees):
+        for t in pytree.tree_leaves(trees):
+            if isinstance(t, torch.Tensor) and t.device.type != device.type:
+                raise ValueError(f"the sharded step runs on {device}, got "
+                                 f"a tensor on {t.device}")
+    return (lambda: L.use_mesh(mesh, specs, rows_sharded=rows_sharded)), \
+        check
+
+
+def make_prefill_step(cfg: ModelConfig, *, cache_len: int, mesh=None,
+                      rows_sharded: bool = True, device="cuda"):
+    """``prefill_step(params, batch) -> (last-token logits, cache)``.
+    With a ``mesh``, JAX's prefill jitted with the params laid out by
+    `sharding.param_specs` and the batch by `sharding.batch_specs`: each
+    rank passes its blocks (on ``device``) and its rows (``rows_sharded``;
+    the whole batch where the global batch does not divide over the data
+    ranks, ``rows_sharded=False``) and gets the logits of its rows (its
+    block of the vocabulary where that divides "model") and its blocks of
+    the cache as `sharding.cache_specs` lays them out."""
+    ctx, check = _serving_ctx(cfg, mesh, rows_sharded, device)
+
     def prefill_step(params, batch):
-        with torch.inference_mode():
+        check(params, batch)
+        with torch.inference_mode(), ctx():
             return M.prefill(params, batch, cfg, cache_len=cache_len)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, mesh=None,
+                     rows_sharded: bool = True, device="cuda"):
+    """``decode_step(params, token, cache) -> (logits, cache)``, the cache
+    donated (written in place). With a ``mesh``, JAX's decode step jitted
+    with the params by `sharding.param_specs`, the token by ``P(dp,
+    None)`` (each rank's rows; the whole batch with
+    ``rows_sharded=False``, ``P(None, None)``) and the cache by
+    `sharding.cache_specs`, each rank passing its blocks on ``device``."""
+    ctx, check = _serving_ctx(cfg, mesh, rows_sharded, device)
+
     def decode_step(params, token, cache):
-        with torch.inference_mode():
+        check(params, token, cache)
+        with torch.inference_mode(), ctx():
             return M.decode_step(params, token, cache, cfg)
     return decode_step
+
+
+def whole_logits(logits: torch.Tensor, cfg: ModelConfig, mesh,
+                 rows_sharded: bool = True) -> torch.Tensor:
+    """The whole (B, S, V) logits on every rank, from a sharded serving
+    step's block of them: its rows (``rows_sharded``) and its block of
+    the vocabulary where that divides "model" (as `param_specs` lays out
+    the output projection). ``logits`` itself without a mesh."""
+    if mesh is None:
+        return logits
+    from repro_torch.models import sharding as S
+    if "model" in S.describe(mesh).axis_names \
+            and cfg.vocab % S.axis_size(mesh, "model") == 0:
+        logits = C.gather_along(logits, mesh, ("model",), logits.dim() - 1)
+    if rows_sharded:
+        logits = C.gather_rows(logits, mesh, S.data_axes(mesh))
+    return logits

@@ -24,6 +24,7 @@ sharded train step on one rank.
   matching JAX's sharded loss and not the dense dispatch's. The hybrid,
   encdec and vlm families are in tests/test_torch_sharded_train.py.
 """
+import dataclasses
 import functools
 import socket
 
@@ -256,25 +257,41 @@ def test_sharded_step_asked_for_the_card_raises_without_one():
 
 
 def test_sharded_prefill_and_decode_raise():
+    """The sharded serving steps run on their device, as the sharded train
+    step does: asked for the card they raise without one, and a step
+    given tensors on another device than its own raises. (They no longer
+    refuse a mesh: tests/test_torch_sharded_serve.py holds them to JAX.)"""
     cfg = configs.get_reduced("tinyllama-1.1b")
     params = M.init_params(1, cfg, "cpu")
     with _one_rank():
         mesh = make_host_mesh((1, 1), ("data", "model"))
-        with L.use_mesh(mesh), pytest.raises(NotImplementedError):
-            M.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                      cfg, cache_len=8)
+        with pytest.raises(RuntimeError, match="cuda"):
+            tstep.make_prefill_step(cfg, cache_len=8, mesh=mesh)
+        with pytest.raises(RuntimeError, match="cuda"):
+            tstep.make_decode_step(cfg, mesh=mesh)
+        pre = tstep.make_prefill_step(cfg, cache_len=8, mesh=mesh,
+                                      device="meta")
+        with pytest.raises(ValueError, match="runs on meta"):
+            pre(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
 
 
 def test_grouped_kv_heads_that_do_not_divide_the_model_dim_raise(
         monkeypatch):
     """Query heads that shard over "model" with K/V heads that do not
-    (4 heads, 2 K/V heads, 4 model ranks) raise, naming the op."""
-    cfg = configs.get_reduced("tinyllama-1.1b")
+    (8 heads, 2 K/V heads, 4 model ranks) no longer raise: K and V are
+    whole on every rank (JAX's constraint drops "tp" on them) and each
+    rank's 2 query heads read their group's K/V head."""
+    cfg = dataclasses.replace(configs.get_reduced("tinyllama-1.1b"),
+                              n_heads=8, n_kv_heads=2)
     p = L.Local(wq=torch.zeros(1))
     p.tp = frozenset({"wq"})
     monkeypatch.setattr(L, "_size", lambda axis: 4)
-    with pytest.raises(NotImplementedError, match="K/V heads"):
-        L._heads_sharded(p, cfg)
+    assert L._heads_sharded(p, cfg) and L._kv_whole(cfg)
+    k = torch.arange(2.0).reshape(1, 1, 2, 1).expand(1, 3, 2, 1)
+    for rank, group in ((0, 0), (1, 0), (2, 1), (3, 1)):
+        monkeypatch.setattr(L.C, "axis_index", lambda mesh, ax, r=rank: r)
+        kq, vq = L._group_kv(torch.zeros(1, 3, 2, 1), k, k, cfg)
+        assert kq.shape == (1, 3, 1, 1) and float(kq[0, 0, 0, 0]) == group
 
 
 # -- the sharded step against JAX's -------------------------------------------

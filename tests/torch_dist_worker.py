@@ -8,9 +8,11 @@ case on its shard of the inputs the test wrote to ``inputs.npz`` (the
 round cases), or fits the whole of them through the mesh engines (the
 ``mesh`` case, whose parts the test names in ``inputs.npz``) or through
 the serve launcher's `build_codebook` (the ``codebook`` case), sums
-int8-compressed gradients (the ``compress`` case) or runs the sharded
-LM train step (the ``sharded_train`` case, `SHARDED_CELLS`), and writes
-its outputs to ``rank<r>.npz`` beside it. This module imports no JAX:
+int8-compressed gradients (the ``compress`` case), runs the sharded
+LM train step (the ``sharded_train`` case, `SHARDED_CELLS`) or the
+sharded prefill and decode (the ``sharded_serve`` case, `SERVE_CELLS`),
+and writes its outputs to ``rank<r>.npz`` beside it. This module imports
+no JAX:
 only torch, numpy and the port. tests/jax_mesh_oracle.py reads the fit's
 config and the kill schedule from here.
 """
@@ -598,9 +600,13 @@ def sharded_config(arch: str, overrides: dict, cf=None):
 def _sh_params(inp, cell, arm):
     """The cell's JAX weights (every leaf f32 in ``inputs.npz``, bf16
     ones exact) in the port's dtypes, or f32 in the f32 arm."""
+    return _sh_params_of(inp, cell, arm, SHARDED_CELLS)
+
+
+def _sh_params_of(inp, cell, arm, cells):
     from repro_torch.launch.input_specs import abstract_params
     from repro_torch.models.sharding import _path_str, tree_map_with_path
-    arch, _, _, over = SHARDED_CELLS[cell]
+    arch, _, _, over = cells[cell]
     cfg = sharded_config(arch, over)
     return cfg, tree_map_with_path(
         lambda path, t: torch.from_numpy(
@@ -720,9 +726,96 @@ def _ep_layers(inp, out, meshes, L, S):
         out[f"{tag}:aux"] = _np(aux)
 
 
+#: the sharded serving cells: (arch, mesh shape, arm, config overrides):
+#: the six families on (2, 2) in f32, the hybrid one in bf16 too (it
+#: runs attention, the SSD and the MoE); on (1, 4), 8
+#: heads over 2 K/V heads keep the query heads sharded and split the cache
+#: over positions (dense, and MoE), 6 over 2 keep every head whole
+#: (context-parallel prefill) and split the cache over positions too
+SERVE_CELLS = {
+    **{f"{fam}-f32": (arch, (2, 2), "f32", {})
+       for fam, arch in (("dense", "tinyllama-1.1b"),
+                         ("moe", "granite-moe-1b-a400m"),
+                         ("ssm", "mamba2-2.7b"),
+                         ("hybrid", "jamba-v0.1-52b"),
+                         ("encdec", "whisper-tiny"),
+                         ("vlm", "internvl2-76b"))},
+    "hybrid-bf16": ("jamba-v0.1-52b", (2, 2), "bf16", {}),
+    "seqkv-f32": ("tinyllama-1.1b", (1, 4), "f32",
+                  {"n_heads": 8, "n_kv_heads": 2}),
+    "seqkv-moe-f32": ("granite-moe-1b-a400m", (1, 4), "f32",
+                      {"n_heads": 8, "n_kv_heads": 2}),
+    "seqall-f32": ("tinyllama-1.1b", (1, 4), "f32",
+                   {"n_heads": 6, "n_kv_heads": 2}),
+}
+#: prompt rows and length, decode steps
+SV_BATCH, SV_PROMPT, SV_GEN = 4, 16, 3
+
+
+def serve_cache_len(cfg) -> int:
+    """The cell's cache length: the prompt (the vlm's patches too) and
+    the decode steps, rounded up to split over 4 positions' ranks."""
+    n = SV_PROMPT + SV_GEN + (cfg.encoder.n_ctx if cfg.family == "vlm"
+                              else 0)
+    return n + -n % 4
+
+
+def _sharded_serve(_mesh, inp):
+    """Each cell of ``inp["cells"]`` on its own mesh: the sharded prefill
+    of the cell's prompt, then `SV_GEN` decode steps of the tokens
+    ``d:<cell>`` (column i at step i); the whole last-position logits of
+    each step and the whole cache after the prefill and at the end."""
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    from repro_torch.train import step as tstep
+    from repro_torch.util.tree import tree_leaves
+    out, meshes = {}, {}
+    for cell in json.loads(str(inp["cells"])):
+        arch, shape, arm, over = SERVE_CELLS[cell]
+        mesh = meshes.setdefault(shape, make_host_mesh(shape, SH_AXES))
+        cfg = sharded_config(arch, over)
+        _, params = _sh_params_of(inp, cell, arm, SERVE_CELLS)
+        batch = {k: torch.from_numpy(inp[f"b:{cell}:{k}"])
+                 for k in ("tokens", "frames", "patches")
+                 if f"b:{cell}:{k}" in inp}
+        for k in ("frames", "patches"):
+            if k in batch:
+                batch[k] = batch[k].to(params["embed"].dtype)
+        specs = S.param_specs(cfg, mesh, params)
+        local = S.shard_tree(params, specs, mesh)
+        rows = S.shard_tree(batch, S.batch_specs(cfg, mesh, batch), mesh)
+        cache_len = serve_cache_len(cfg)
+        pre = tstep.make_prefill_step(cfg, cache_len=cache_len, mesh=mesh,
+                                      device="cpu")
+        dec = tstep.make_decode_step(cfg, mesh=mesh, device="cpu")
+        logits, cache = pre(local, rows)
+        meta = M.make_decode_cache(cfg, batch=SV_BATCH, cache_len=cache_len,
+                                   dtype=params["embed"].dtype, device="meta")
+        cspecs = S.cache_specs(cfg, mesh, meta)
+
+        def whole_cache(c):
+            return [_np(t.float()) for t in tree_leaves(
+                S.gather_tree(c, cspecs, mesh))]
+
+        for i, t in enumerate(whole_cache(cache)):
+            out[f"{cell}:cache0:{i}"] = t
+        steps = [tstep.whole_logits(logits, cfg, mesh)[:, -1]]
+        toks = torch.from_numpy(inp[f"d:{cell}"])
+        for j in range(SV_GEN):
+            tok = S.shard_tree({"t": toks[:, j:j + 1]},
+                               {"t": (S.data_axes(mesh), None)}, mesh)["t"]
+            logits, cache = dec(local, tok, cache)
+            steps.append(tstep.whole_logits(logits, cfg, mesh)[:, -1])
+        out[f"{cell}:logits"] = _np(torch.stack(steps).float())
+        for i, t in enumerate(whole_cache(cache)):
+            out[f"{cell}:cache:{i}"] = t
+    return out
+
+
 CASES = {"dp": _dp, "xl": _xl, "sharded": _sharded, "mesh": _mesh,
          "xl_engine": _xl_engine, "codebook": _codebook,
-         "compress": _compress, "sharded_train": _sharded_train}
+         "compress": _compress, "sharded_train": _sharded_train,
+         "sharded_serve": _sharded_serve}
 
 
 def spawn(out_dir, case: str, shape, axes, *, timeout_s: float = 120.0,
