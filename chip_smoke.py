@@ -2356,7 +2356,7 @@ def _timed_observer(cost: dict):
             cost["observer"] += time.perf_counter() - t
 
     body = {n: timed(getattr(FitObserver, n)) for n in (
-        "__init__", "round_end", "count", "fit_end", "close")}
+        "__init__", "start", "round_end", "count", "fit_end", "close")}
     return type("TimedFitObserver", (FitObserver,), dict(body, span=span))
 
 
@@ -2387,6 +2387,9 @@ def obs_overhead(X, Xv, root: str) -> None:
 
     class NoSink(ObsSink):
         def __init__(self, *args, **kwargs):
+            pass
+
+        def start(self, **meta):
             pass
 
     plain = obs_pkg.FitObserver

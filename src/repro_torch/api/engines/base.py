@@ -13,11 +13,13 @@ The mesh engines, one rank per process, override them with collectives
 (`api/engines/mesh.py`). The validation MSE is taken here for every
 engine: the centroids are the same bits on every rank, so it needs no
 collective (an engine that shards the stats makes them whole in
-`fetch_stats`). The obs and audit seams, `ObsSink` and `LoopAudit`
-(defined here and re-exported by `api.loop`, whose `run_loop` binds
-them through `bind_obs` and `bind_audit`), let an engine's body report
-spans to the fit's sink and bracket its mid-fit uploads for the fit's
-audit; their no-op instances are a run's defaults.
+`fetch_stats`). The audit seam, `LoopAudit` (defined here and
+re-exported by `api.loop`, whose `run_loop` binds it through
+`bind_audit`), lets an engine's body bracket its mid-fit uploads for the
+fit's audit; its no-op instance is a run's default. The loop's obs seam,
+`ObsSink`, is defined here too; an engine reports its spans through
+`repro_torch.obs.span`, which writes to whatever sink the thread has
+bound.
 """
 from __future__ import annotations
 
@@ -74,9 +76,12 @@ class ObsSink:
     `run_loop` hands every completed round's HOST-landed scalars (the
     `HostRoundInfo`, the schedule's b/capacity/patience values, the
     round's wall time and work clock, the chunk store's read counters)
-    to ``round_end``, brackets eval and checkpoint (and, through
-    `EngineRun.bind_obs`, store ingest) with ``span``, and notes overflow
-    retries with ``count``.
+    to ``round_end`` and notes overflow retries with ``count``. Spans
+    (eval, checkpoint, store ingest, the round's parts) are not the
+    sink's: `repro_torch.obs.span` times them always, and writes them
+    through the ``span`` of the sink bound to the thread
+    (`repro_torch.obs.observe`; `run_loop` binds its ``obs``), which this
+    base class has none of.
 
     The base class is a no-op, so untraced fits pay a few method calls a
     round. The real sink is `repro_torch.obs.FitObserver`, which this
@@ -84,9 +89,6 @@ class ObsSink:
     at a sanctioned point, so tracing adds no synchronisation (the
     host-sync auditor runs with tracing on to show it).
     """
-
-    def span(self, name: str, **attrs):
-        return contextlib.nullcontext()
 
     def count(self, name: str, n: int = 1) -> None:
         pass
@@ -171,18 +173,11 @@ class EngineRun:
         them."""
         return state.stats
 
-    # -- observability and audit (see api.loop; default: no-ops) -----------
+    # -- audit (see api.loop; default: no-op) -------------------------------
 
-    #: the bound obs sink and audit; engine bodies call
-    #: ``self._obs.span(...)`` and ``self._audit.sanctioned_scope(...)``
-    #: unconditionally
-    _obs: "ObsSink" = _NULL_OBS
+    #: the bound audit; engine bodies call
+    #: ``self._audit.sanctioned_scope(...)`` unconditionally
     _audit: "LoopAudit" = _NULL_AUDIT
-
-    def bind_obs(self, obs: Any) -> None:
-        """Attach the fit's obs sink (called by `run_loop` before round
-        0). The sink is only ever handed HOST values, never a tensor."""
-        self._obs = obs if obs is not None else _NULL_OBS
 
     def bind_audit(self, audit: Any) -> None:
         """Attach the fit's `LoopAudit` (called by `run_loop` before

@@ -8,7 +8,9 @@ both packages see the same rows in the same order. A chunk store is
 read lazily into a device buffer in `store_permutation`'s order, only as
 far as the nested prefix has grown. The kernel plan is resolved once
 per fit. `capture`/`restore` write and read the JAX engine's checkpoint
-tree and meta.
+tree and meta. `LocalEngine.begin` is the ``engine.place`` span, with
+``engine.fingerprint``, ``engine.shuffle`` and ``engine.upload`` inside
+it (`repro_torch.obs.span`).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core.state import (ElkanBounds, KMeansState, PointState,
 from repro_torch.data.store import (ChunkStore, dataset_fingerprint,
                                     store_permutation)
 from repro_torch.kernels.plan import resolve_plan
+from repro_torch.obs import span
 
 # rows fetched off a ChunkStore per copy into the device buffer: bounds
 # the host memory in flight
@@ -49,19 +52,27 @@ class _LocalRun(EngineRun):
             self._Xd = torch.zeros((N, self._store.d), dtype=torch.float32,
                                    device=self.device)
             self._filled = 0
-            self.data_fingerprint = self._store.fingerprint()
+            with span("engine.fingerprint"):
+                self.data_fingerprint = self._store.fingerprint()
         else:
             X = np.asarray(X)
             N = X.shape[0]
-            perm = rng.permutation(N) if config.shuffle else np.arange(N)
-            self._Xd = torch.from_numpy(np.ascontiguousarray(
-                X[perm], dtype=np.float32)).to(self.device)
+            with span("engine.shuffle"):
+                perm = (rng.permutation(N) if config.shuffle
+                        else np.arange(N))
+                rows = np.ascontiguousarray(X[perm], dtype=np.float32)
+            with span("engine.upload"):
+                self._Xd = torch.from_numpy(rows).to(self.device)
+            del rows
             self._filled = N
             # on the caller's array, before the shuffle, as in JAX
-            self.data_fingerprint = dataset_fingerprint(X)
-        self._Xv = (torch.from_numpy(np.ascontiguousarray(
-            X_val, dtype=np.float32)).to(self.device)
-            if X_val is not None else None)
+            with span("engine.fingerprint"):
+                self.data_fingerprint = dataset_fingerprint(X)
+        self._Xv = None
+        if X_val is not None:
+            with span("engine.upload"):
+                self._Xv = torch.from_numpy(np.ascontiguousarray(
+                    X_val, dtype=np.float32)).to(self.device)
         self._config = config
         self._perm = perm
         if self._store is not None:
@@ -99,7 +110,7 @@ class _LocalRun(EngineRun):
         and for prefixes already filled: only growth rounds read."""
         if self._store is None or b <= self._filled:
             return
-        with self._obs.span("ingest", rows=b - self._filled), \
+        with span("ingest", rows=b - self._filled), \
                 self._audit.sanctioned_scope("upload"):
             lo = self._filled
             while lo < b:
@@ -204,4 +215,5 @@ class LocalEngine:
 
     def begin(self, X, config: FitConfig, *, X_val=None, init_C=None,
               device="cuda") -> EngineRun:
-        return _LocalRun(X, config, X_val, init_C, device)
+        with span("engine.place"):
+            return _LocalRun(X, config, X_val, init_C, device)

@@ -55,6 +55,7 @@ from repro_torch.data.store import (ChunkStore, StoredShardSource,
                                     dataset_fingerprint)
 from repro_torch.kernels.plan import resolve_plan
 from repro_torch.launch.mesh import rank_device
+from repro_torch.obs import span
 
 
 class _MeshRun(EngineRun):
@@ -158,7 +159,7 @@ class _MeshRun(EngineRun):
         No-op for in-memory fits and prefixes already filled."""
         if self._src is None or b <= self._filled:
             return
-        with self._obs.span("ingest", rows=b - self._filled), \
+        with span("ingest", rows=b - self._filled), \
                 self._audit.sanctioned_scope("upload"):
             lo = self._filled
             while lo < b:
@@ -352,4 +353,5 @@ class MeshEngine:
 
     def begin(self, X, config: FitConfig, *, X_val=None, init_C=None,
               device="cuda") -> EngineRun:
-        return _MeshRun(X, config, self.mesh, X_val, init_C, device)
+        with span("engine.place"):
+            return _MeshRun(X, config, self.mesh, X_val, init_C, device)

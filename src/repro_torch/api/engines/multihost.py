@@ -20,6 +20,7 @@ from repro_torch.api.engines.base import EngineRun
 from repro_torch.api.engines.mesh import _MeshRun
 from repro_torch.launch.mesh import (ensure_multihost_initialized,
                                      make_multihost_mesh)
+from repro_torch.obs import span
 
 
 class _MultiHostRun(_MeshRun):
@@ -44,4 +45,6 @@ class MultiHostEngine:
         if self.mesh is None:
             ensure_multihost_initialized(config, device)
             self.mesh = make_multihost_mesh(config.data_axes)
-        return _MultiHostRun(X, config, self.mesh, X_val, init_C, device)
+        with span("engine.place"):
+            return _MultiHostRun(X, config, self.mesh, X_val, init_C,
+                                 device)

@@ -12,6 +12,7 @@ from repro_torch.api.engines.base import EngineRun
 from repro_torch.api.engines.mesh import _MeshRun
 from repro_torch.core import collectives
 from repro_torch.core.distributed_xl import make_xl_nested_round
+from repro_torch.obs import span
 
 
 class _XLRun(_MeshRun):
@@ -82,4 +83,5 @@ class XLEngine:
 
     def begin(self, X, config: FitConfig, *, X_val=None, init_C=None,
               device="cuda") -> EngineRun:
-        return _XLRun(X, config, self.mesh, X_val, init_C, device)
+        with span("engine.place"):
+            return _XLRun(X, config, self.mesh, X_val, init_C, device)

@@ -16,7 +16,11 @@ falls back to the CPU. ``backend="mesh"`` and ``backend="xl"`` (with a
 rank builds the same estimator and calls it with the same arguments.
 `partial_fit` folds one batch into the running statistics with one
 nested round on any of these backends, as in the JAX package; `adopt`,
-`export_codebook` and `stats_` serve `repro_torch.serve`.
+`export_codebook` and `stats_` serve `repro_torch.serve`. `fit` and
+`predict` (and `partial_fit`) are the roots of the port's spans
+(`repro_torch.obs.span`): ``estimator.fit``, ``estimator.predict`` and
+``estimator.partial_fit``, whose totals the process keeps
+(`repro_torch.obs.recent_roots`).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from repro_torch.data.store import ChunkStore
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels._build import resolve_device
 from repro_torch.kernels.plan import resolve_plan
+from repro_torch.obs import observe, span
 
 # config fields that must agree between a checkpoint manifest and the
 # resuming config for the restored state to be meaningful (max_rounds /
@@ -111,7 +116,7 @@ class NestedKMeans:
         checkpoint's is a loud error (the manifest carries a dataset
         fingerprint).
         """
-        with self._lock:
+        with self._lock, span("estimator.fit"):
             if X is None:
                 if self.config.data_source is None:
                     raise ValueError(
@@ -132,55 +137,67 @@ class NestedKMeans:
             if resume and cfg.checkpoint is None:
                 raise ValueError(
                     "fit(resume=True) requires config.checkpoint")
-            run = self.engine.begin(X, cfg, X_val=X_val, init_C=init_C,
-                                    device=self.device)
-            obs = None
+            observer = None
             if cfg.trace_dir is not None:
-                # built lazily so untraced fits never import
-                # repro_torch.obs; each rank of a mesh fit writes its own
-                # files
+                # looked up at the call, so that a swapped
+                # `repro_torch.obs.FitObserver` (chip_smoke.py's cost
+                # arms) is the one built; built before the engine places
+                # the data, so that the placement's spans reach the
+                # trace; each rank of a mesh fit writes its own files
                 from repro_torch.obs import FitObserver
-                obs = FitObserver(
+                observer = FitObserver(
                     cfg.trace_dir,
                     process_id=dist.get_rank() if dist.is_initialized()
                     else 0, k=cfg.k,
-                    d=int(run.state.stats.C.shape[-1]), bounds=cfg.bounds,
-                    meta={"backend": cfg.backend,
-                          "algorithm": cfg.algorithm,
-                          "bounds": cfg.bounds,
-                          "n_points": run.n_points,
-                          "n_shards": run.n_shards, "seed": cfg.seed})
-            resume_from = None
-            resolved = None
-            if resume:
-                store = CheckpointStore(cfg.checkpoint.checkpoint_dir,
-                                        keep=cfg.checkpoint.keep)
-                step, extra = run.resolve_resume(store)
-                if step is not None:
-                    saved = (extra or {}).get("config")
-                    if saved:
-                        want = cfg.to_dict()
-                        bad = [k for k in _RESUME_KEYS
-                               if k in saved and saved[k] != want[k]]
-                        if bad:
-                            raise ValueError(
-                                f"checkpoint manifest disagrees with the "
-                                f"resuming config on {bad}; refusing to "
-                                f"restore a foreign fit")
-                    resume_from = store
-                    resolved = (step, extra)
+                    d=int(X.d if isinstance(X, ChunkStore)
+                          else np.shape(X)[-1]),
+                    bounds=cfg.bounds, start=False)
             try:
-                out = run_loop(run, cfg, on_round=self.on_round,
-                               resume_from=resume_from,
-                               resolved_resume=resolved, obs=obs)
+                with observe(observer):
+                    out = self._run(X, cfg, X_val, init_C, resume,
+                                    observer)
             finally:
-                if obs is not None:
-                    obs.close()
+                if observer is not None:
+                    observer.close()
             self._outcome = out
             self._stats = out.state.stats
             self._outcome_stale = False
             self.telemetry_ = list(out.telemetry)
             return self
+
+    def _run(self, X, cfg: FitConfig, X_val, init_C, resume: bool,
+             observer) -> FitOutcome:
+        """`fit`'s placement, resume decision and host loop, with
+        ``observer`` (None: untraced) bound to the thread."""
+        run = self.engine.begin(X, cfg, X_val=X_val, init_C=init_C,
+                                device=self.device)
+        if observer is not None:
+            observer.start(backend=cfg.backend,
+                           algorithm=cfg.algorithm, bounds=cfg.bounds,
+                           n_points=run.n_points,
+                           n_shards=run.n_shards, seed=cfg.seed)
+        resume_from = None
+        resolved = None
+        if resume:
+            store = CheckpointStore(cfg.checkpoint.checkpoint_dir,
+                                    keep=cfg.checkpoint.keep)
+            step, extra = run.resolve_resume(store)
+            if step is not None:
+                saved = (extra or {}).get("config")
+                if saved:
+                    want = cfg.to_dict()
+                    bad = [k for k in _RESUME_KEYS
+                           if k in saved and saved[k] != want[k]]
+                    if bad:
+                        raise ValueError(
+                            f"checkpoint manifest disagrees with the "
+                            f"resuming config on {bad}; refusing to "
+                            f"restore a foreign fit")
+                resume_from = store
+                resolved = (step, extra)
+        return run_loop(run, cfg, on_round=self.on_round,
+                        resume_from=resume_from,
+                        resolved_resume=resolved, obs=observer)
 
     def partial_fit(self, X) -> "NestedKMeans":
         """Fold one streaming batch into the codebook (one nested round).
@@ -193,9 +210,10 @@ class NestedKMeans:
         (shuffle, interleave and structural pads, which the round masks
         out) and one full-prefix sharded round runs with the running
         statistics carried in (`EngineRun.place_stats`, which takes the
-        rank's k-slice on xl); every rank passes the same batch.
+        rank's k-slice on xl); every rank passes the same batch. The
+        round's spans lie in the ``estimator.partial_fit`` root.
         """
-        with self._lock:
+        with self._lock, span("estimator.partial_fit"):
             X = np.asarray(X)
             cfg = self.config.resolve(int(X.shape[0]))
             if self._stats is None and X.shape[0] < cfg.k:
@@ -358,14 +376,23 @@ class NestedKMeans:
         return torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
 
     def predict(self, X) -> np.ndarray:
-        """Nearest-centroid index (int32) for each row of ``X``."""
-        stats = self._require_fitted()
-        Xd = self._on_device(X).float()
-        plan = resolve_plan(self.config.kernel_backend, b=Xd.shape[0],
-                            k=stats.C.shape[0], d=Xd.shape[1],
-                            device=self.device)
-        a, _, _ = ops.assign_top2(Xd, stats.C, plan=plan)
-        return a.cpu().numpy()
+        """Nearest-centroid index (int32) for each row of ``X``.
+
+        The ``estimator.predict`` span, with ``predict.upload`` (the rows
+        onto the device), ``predict.assign`` (the plan and kernel 1's
+        launch) and ``predict.labels`` (the labels back, which waits for
+        the kernel) inside it."""
+        with span("estimator.predict"):
+            stats = self._require_fitted()
+            with span("predict.upload"):
+                Xd = self._on_device(X).float()
+            with span("predict.assign"):
+                plan = resolve_plan(self.config.kernel_backend,
+                                    b=Xd.shape[0], k=stats.C.shape[0],
+                                    d=Xd.shape[1], device=self.device)
+                a, _, _ = ops.assign_top2(Xd, stats.C, plan=plan)
+            with span("predict.labels"):
+                return a.cpu().numpy()
 
     def transform(self, X) -> np.ndarray:
         """Euclidean distance of each row to every centroid: (n, k)."""

@@ -12,15 +12,20 @@ scalars are reduced inside the round, and the wall-clock flag and the
 resume decision come from the coordinator.
 
 Two seams make the loop observable and checkable, as in the JAX
-package (both defined in `api.engines.base`, whose `EngineRun` reports
-through them too): `LoopAudit` brackets each round and each sanctioned
-device<->host crossing (`repro_torch.analysis.hostsync` audits a live
-fit through it), and `ObsSink` receives each round's host-landed scalars
-(`repro_torch.obs.FitObserver` writes them to the trace directory of
-``FitConfig(trace_dir=...)``). `repro_torch.analysis` also lints this
-module for branches that do not derive from `HostRoundInfo`, the
-resolved config or the sanctioned `run` primitives (``python -m
-repro_torch.analysis lint``).
+package (both defined in `api.engines.base`): `LoopAudit` brackets each
+round and each sanctioned device<->host crossing
+(`repro_torch.analysis.hostsync` audits a live fit through it, and
+`EngineRun` reports its mid-fit uploads through it too), and `ObsSink`
+receives each round's host-landed scalars (`repro_torch.obs.FitObserver`
+writes them to the trace directory of ``FitConfig(trace_dir=...)``).
+The loop's spans (`repro_torch.obs.span`) are always on: ``loop.issue``
+around each attempt's round call, ``loop.fetch`` around its one host
+read, ``loop.schedule`` around the bookkeeping after it (``eval_mse``
+inside), ``checkpoint``, and ``loop.outcome`` around the outcome's host
+copies; with ``obs`` bound to the thread they reach its trace too.
+`repro_torch.analysis` also lints this module for branches that do not
+derive from `HostRoundInfo`, the resolved config or the sanctioned `run`
+primitives (``python -m repro_torch.analysis lint``).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from repro_torch.api.telemetry import RoundCallback, Telemetry, final_val_mse
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core.state import KMeansState, RoundInfo
 from repro_torch.kernels.plan import next_pow2
+from repro_torch.obs import observe, span
 
 
 # --------------------------------------------------------------------------
@@ -152,9 +158,10 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     uses the no-op scopes.
 
     ``obs``: optional `ObsSink` receiving each round's host-landed
-    scalars, span timings (eval, checkpoint, store ingest) and overflow
-    retries, usually a `repro_torch.obs.FitObserver`. ``None`` uses the
-    no-op sink. The loop does not close the sink; its creator does.
+    scalars and overflow retries, usually a `repro_torch.obs.FitObserver`,
+    which the loop also binds to the thread for its spans and the
+    engine's (`repro_torch.obs.observe`). ``None`` uses the no-op sink.
+    The loop does not close the sink; its creator does.
     """
     audit = audit if audit is not None else _NULL_AUDIT
     obs = obs if obs is not None else _NULL_OBS
@@ -168,7 +175,10 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     quiet_rounds = 0
     converged = False
     start_round = 0
-    run.bind_obs(obs)
+    # entered in each round and around the tail, not around the whole
+    # body: the round loop stays a top-level statement, which is what
+    # `repro_torch.analysis` lints
+    traced = observe(obs)
     run.bind_audit(audit)
 
     ckpt = config.checkpoint
@@ -233,7 +243,7 @@ def run_loop(run: EngineRun, config: FitConfig, *,
         if len(telemetry) % config.eval_every == 0:
             # validation eval is a sanctioned device->host read (outside
             # the paper's timed region, like every eval)
-            with audit.sanctioned_scope("eval_mse"), obs.span("eval_mse"):
+            with audit.sanctioned_scope("eval_mse"), span("eval_mse"):
                 val_mse = run.eval_mse(state)
         rec = Telemetry.from_round(hinfo, round=len(telemetry), t=t_work,
                                    val_mse=val_mse)
@@ -268,7 +278,7 @@ def run_loop(run: EngineRun, config: FitConfig, *,
     for _ in range(start_round, config.max_rounds):
         if converged:        # resumed an already-finished fit
             break
-        with audit.round_scope():
+        with audit.round_scope(), traced:
             if math.isfinite(config.time_budget_s):
                 # the wall clock is the one host-local input to the
                 # schedule: the coordinator decides, every process obeys
@@ -279,18 +289,25 @@ def run_loop(run: EngineRun, config: FitConfig, *,
                     break
             t0 = time.perf_counter()
             if algorithm == "lloyd":
-                new_state, info = run.lloyd_step(state)
-                with audit.sanctioned_scope("round_info"):
+                with span("loop.issue"):
+                    new_state, info = run.lloyd_step(state)
+                with audit.sanctioned_scope("round_info"), \
+                        span("loop.fetch"):
                     hinfo = fetch_round_info(info)
             elif algorithm in ("mb", "mbf"):
-                new_state, info = run.mb_step(state,
-                                              fixed=algorithm == "mbf")
-                with audit.sanctioned_scope("round_info"):
+                with span("loop.issue"):
+                    new_state, info = run.mb_step(
+                        state, fixed=algorithm == "mbf")
+                with audit.sanctioned_scope("round_info"), \
+                        span("loop.fetch"):
                     hinfo = fetch_round_info(info)
             else:  # the tb family (gb is tb with bounds="none")
                 while True:
-                    new_state, info = run.nested_step(state, b, capacity)
-                    with audit.sanctioned_scope("round_info"):
+                    with span("loop.issue"):
+                        new_state, info = run.nested_step(state, b,
+                                                          capacity)
+                    with audit.sanctioned_scope("round_info"), \
+                            span("loop.fetch"):
                         hinfo = fetch_round_info(info)
                     if not hinfo.overflow:
                         break
@@ -301,77 +318,84 @@ def run_loop(run: EngineRun, config: FitConfig, *,
                                 if capacity is None or 2 * capacity >= b
                                 else 2 * capacity)
             dt_s = time.perf_counter() - t0
-            t_work += dt_s
-            state = new_state
-            record(hinfo, dt_s)
+            with span("loop.schedule"):
+                t_work += dt_s
+                state = new_state
+                record(hinfo, dt_s)
 
-            if algorithm == "tb":
-                if bounds == "hamerly2":
-                    need = -(-hinfo.n_recomputed // run.n_shards)
-                    if hinfo.grow and b < run.b_max:
-                        # a doubling adds b new points that always need
-                        # a full pass: start the grown bucket dense
-                        capacity = None
+                if algorithm == "tb":
+                    if bounds == "hamerly2":
+                        need = -(-hinfo.n_recomputed // run.n_shards)
+                        if hinfo.grow and b < run.b_max:
+                            # a doubling adds b new points that always need
+                            # a full pass: start the grown bucket dense
+                            capacity = None
+                        else:
+                            capacity = cap_bucket(need, b,
+                                                  config.capacity_floor)
+                    if hinfo.grow:
+                        b = min(2 * b, run.b_max)
+                    if (hinfo.n_active >= run.n_active_target
+                            and hinfo.n_changed == 0 and hinfo.p_max == 0.0):
+                        quiet_rounds += 1
                     else:
-                        capacity = cap_bucket(need, b,
-                                              config.capacity_floor)
-                if hinfo.grow:
-                    b = min(2 * b, run.b_max)
-                if (hinfo.n_active >= run.n_active_target
-                        and hinfo.n_changed == 0 and hinfo.p_max == 0.0):
-                    quiet_rounds += 1
-                else:
-                    quiet_rounds = 0
-                if trace is not None:
-                    trace.append({"round": len(telemetry) - 1,
-                                  "b_global": b * run.n_shards,
-                                  "capacity": capacity,
-                                  "quiet_rounds": quiet_rounds})
-                if quiet_rounds >= config.converge_patience:
+                        quiet_rounds = 0
+                    if trace is not None:
+                        trace.append({"round": len(telemetry) - 1,
+                                      "b_global": b * run.n_shards,
+                                      "capacity": capacity,
+                                      "quiet_rounds": quiet_rounds})
+                    if quiet_rounds >= config.converge_patience:
+                        converged = True
+                        break
+                elif algorithm == "lloyd" and hinfo.n_changed == 0:
                     converged = True
                     break
-            elif algorithm == "lloyd" and hinfo.n_changed == 0:
-                converged = True
-                break
-            # mb and mbf stop only at max_rounds or the time budget
+                # mb and mbf stop only at max_rounds or the time budget
 
             if store is not None and len(telemetry) % ckpt.save_every == 0:
                 with audit.sanctioned_scope("checkpoint"), \
-                        obs.span("checkpoint"):
+                        span("checkpoint"):
                     save_checkpoint()
 
-    if store is not None:
-        # one final save so a resumed-after-finish fit is a no-op loop
-        with obs.span("checkpoint"):
-            save_checkpoint()
-            if run.is_coordinator:
-                store.wait()
-        run.barrier()
+    with traced:
+        if store is not None:
+            # one final save so a resumed-after-finish fit is a no-op loop
+            with span("checkpoint"):
+                save_checkpoint()
+                if run.is_coordinator:
+                    store.wait()
+            run.barrier()
 
-    # final validation point, unless the last round already evaluated
-    if not (telemetry and telemetry[-1].val_mse is not None):
-        final = run.eval_mse(state)
-        if final is not None:
-            telemetry.append(Telemetry(
-                round=len(telemetry), t=t_work,
-                b=min(b * run.n_shards, run.n_points), batch_mse=None,
-                n_changed=0, n_recomputed=0, grow=False, r_median=None,
-                val_mse=final))
+        # final validation point, unless the last round already evaluated
+        if not (telemetry and telemetry[-1].val_mse is not None):
+            with span("eval_mse"):
+                final = run.eval_mse(state)
+            if final is not None:
+                telemetry.append(Telemetry(
+                    round=len(telemetry), t=t_work,
+                    b=min(b * run.n_shards, run.n_points), batch_mse=None,
+                    n_changed=0, n_recomputed=0, grow=False,
+                    r_median=None, val_mse=final))
 
-    obs.fit_end(rounds=len(telemetry), t_work=t_work, converged=converged)
+        obs.fit_end(rounds=len(telemetry), t_work=t_work,
+                    converged=converged)
 
-    # un-shuffle the final assignments back to the caller's row order
-    a = run.host_points(state)
-    labels = np.full(run.n_points, -1, np.int32)
-    valid = run.orig_index >= 0
-    labels[run.orig_index[valid]] = a[valid]
+        with span("loop.outcome"):
+            # un-shuffle the final assignments back to the caller's row
+            # order
+            a = run.host_points(state)
+            labels = np.full(run.n_points, -1, np.int32)
+            valid = run.orig_index >= 0
+            labels[run.orig_index[valid]] = a[valid]
 
-    # the outcome's state holds the whole stats (the XL engine's rounds
-    # hold a k-slice a rank) and this rank's points
-    stats = run.fetch_stats(state)
-    state = dataclasses.replace(state, stats=stats)
+            # the outcome's state holds the whole stats (the XL engine's
+            # rounds hold a k-slice a rank) and this rank's points
+            stats = run.fetch_stats(state)
+            state = dataclasses.replace(state, stats=stats)
+            C = stats.C.cpu().numpy()
     plan = run.kernel_plan
-    return FitOutcome(C=stats.C.cpu().numpy(), state=state, labels=labels,
+    return FitOutcome(C=C, state=state, labels=labels,
                       telemetry=telemetry, converged=converged,
                       algorithm=config.algorithm, config=config,
                       kernel_plan=plan.to_dict() if plan else None)

@@ -22,6 +22,16 @@ between the plain and the kernel path; elkan's and exponion's (b, k)
 distances are plain matrix products (`ref.pairwise_dist2`), as there.
 Per-cluster float sums go through `ops.cluster_sum`, whose kernel is
 deterministic (a CUDA `index_add_` adds with atomics in no fixed order).
+
+`nested_round`'s parts are spans (`repro_torch.obs.span`):
+``round.decide`` (`_hamerly_settled`), ``round.compact`` (hamerly2's
+argsort and gather, and its scatter back), ``round.assign`` (the
+top-2's kernel call; for elkan and exponion, their whole plain
+assignment, exponion's ``round.decide`` inside it),
+``round.sums`` (the S/v/sse deltas and the round's reductions) and
+``round.update`` (the centroids, the controller and the state's
+copies). They time the host's issue of the work; the device runs it
+later.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from repro_torch.core.state import (ElkanBounds, KMeansState, RoundInfo,
                                    build_exponion_geom, centroid_update)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.plan import KernelPlan
+from repro_torch.obs import span
 from repro_torch.util import tracecount
 
 INF = float("inf")
@@ -193,10 +204,12 @@ def _assign_exhaustive(x, state, valid, *, plan, assign_top2_fn=None):
     collective top-2 (`core.distributed_xl`); the schedule stays the
     same.
     """
-    if assign_top2_fn is None:
-        a_new, d1sq, d2sq = ops.assign_top2(x, state.stats.C, plan=plan)
-    else:
-        a_new, d1sq, d2sq = assign_top2_fn(x)
+    with span("round.assign"):
+        if assign_top2_fn is None:
+            a_new, d1sq, d2sq = ops.assign_top2(x, state.stats.C,
+                                                plan=plan)
+        else:
+            a_new, d1sq, d2sq = assign_top2_fn(x)
     n_rec = (_scalar(x.shape[0], x) if valid is None
              else valid.sum(dtype=torch.int32))
     return (a_new, _euclid(d1sq), _euclid(d2sq), n_rec,
@@ -219,25 +232,27 @@ def _hamerly_settled(x, state, a_prev, valid, *, use_shalf: bool,
 
     Returns (settled, lb_dec, d_a, n_need).
     """
-    C = state.stats.C
-    b = x.shape[0]
-    seen = a_prev >= 0
-    if p_max is None:
-        p_max = torch.max(state.stats.p)
-    lb_dec = state.points.lb[:b] - p_max
-    d_a = (_dist_to_assigned(x, C, a_prev) if d_assigned is None
-           else d_assigned)
-    thresh = lb_dec
-    if use_shalf:
-        if s_half is None:
-            s_half = _half_intercentroid(C)
-        thresh = torch.maximum(lb_dec, s_half[a_prev.clamp_min(0).long()])
-    settled = seen & (d_a <= thresh)
-    if valid is not None:
-        # masked pads never need recompute; the caller forces their
-        # outputs back to the never-assigned sentinel
-        settled = settled | ~valid
-    n_need = (~settled).sum(dtype=torch.int32)
+    with span("round.decide"):
+        C = state.stats.C
+        b = x.shape[0]
+        seen = a_prev >= 0
+        if p_max is None:
+            p_max = torch.max(state.stats.p)
+        lb_dec = state.points.lb[:b] - p_max
+        d_a = (_dist_to_assigned(x, C, a_prev) if d_assigned is None
+               else d_assigned)
+        thresh = lb_dec
+        if use_shalf:
+            if s_half is None:
+                s_half = _half_intercentroid(C)
+            thresh = torch.maximum(lb_dec,
+                                   s_half[a_prev.clamp_min(0).long()])
+        settled = seen & (d_a <= thresh)
+        if valid is not None:
+            # masked pads never need recompute; the caller forces their
+            # outputs back to the never-assigned sentinel
+            settled = settled | ~valid
+        n_need = (~settled).sum(dtype=torch.int32)
     return settled, lb_dec, d_a, n_need
 
 
@@ -258,8 +273,10 @@ def _fused_dense_round(x, state, a_prev, valid, *, bounds: str,
                  else valid.sum(dtype=torch.int32))
     vmask = (torch.ones((b,), dtype=torch.bool, device=x.device)
              if valid is None else valid)
-    a_new, d_new, lb_new, dS, dv, sse = ops.fused_nested_round(
-        x, state.stats.C, a_prev, settled, d_a, lb_dec, vmask, plan=plan)
+    with span("round.assign"):
+        a_new, d_new, lb_new, dS, dv, sse = ops.fused_nested_round(
+            x, state.stats.C, a_prev, settled, d_a, lb_dec, vmask,
+            plan=plan)
     return (a_new, d_new, lb_new, n_rec, _scalar(False, x, torch.bool),
             (dS, dv, sse))
 
@@ -295,28 +312,33 @@ def _assign_hamerly2(x, state, a_prev, valid, *, capacity: Optional[int],
     needs = ~settled
 
     if capacity is None or capacity >= b:
-        a_full, d1sq, d2sq = assign_top2_fn(x)
-        a_new = torch.where(settled, a_prev, a_full)
-        d_new = torch.where(settled, d_a, _euclid(d1sq))
-        lb_new = torch.where(settled, lb_dec, _euclid(d2sq))
+        with span("round.assign"):
+            a_full, d1sq, d2sq = assign_top2_fn(x)
+            a_new = torch.where(settled, a_prev, a_full)
+            d_new = torch.where(settled, d_a, _euclid(d1sq))
+            lb_new = torch.where(settled, lb_dec, _euclid(d2sq))
         return (a_new, d_new, lb_new, n_need, _scalar(False, x, torch.bool),
                 None)
 
     # compact-and-batch: unsettled points first (the stable sort keeps
     # their order)
-    order = torch.argsort((~needs).to(torch.int32), stable=True)
-    idx_cap = order[:capacity]
-    a_cap, d1sq, d2sq = assign_top2_fn(x[idx_cap])
+    with span("round.compact"):
+        order = torch.argsort((~needs).to(torch.int32), stable=True)
+        idx_cap = order[:capacity]
+        x_cap = x[idx_cap]
+    with span("round.assign"):
+        a_cap, d1sq, d2sq = assign_top2_fn(x_cap)
 
     # settled points carry the decayed bound + exact distance; the
     # recomputed buffer is scattered back (exact for every entry,
     # including settled points that padded the buffer)
-    a_new = a_prev.clone()
-    d_new = torch.where(settled, d_a, state.points.d[:b])
-    lb_new = torch.where(settled, lb_dec, state.points.lb[:b])
-    a_new[idx_cap] = a_cap
-    d_new[idx_cap] = _euclid(d1sq)
-    lb_new[idx_cap] = _euclid(d2sq)
+    with span("round.compact"):
+        a_new = a_prev.clone()
+        d_new = torch.where(settled, d_a, state.points.d[:b])
+        lb_new = torch.where(settled, lb_dec, state.points.lb[:b])
+        a_new[idx_cap] = a_cap
+        d_new[idx_cap] = _euclid(d1sq)
+        lb_new[idx_cap] = _euclid(d2sq)
     overflow = n_need > capacity
     return (a_new, d_new, lb_new, torch.clamp_max(n_need, capacity),
             overflow, None)
@@ -465,11 +487,13 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
             x, state, a_prev, valid, capacity=capacity,
             use_shalf=use_shalf, plan=plan)
     elif bounds == "elkan":
-        a_new, d_new, lb2, n_rec, overflow, l_new = _assign_elkan(
-            x, state, a_prev, valid)
+        with span("round.assign"):
+            a_new, d_new, lb2, n_rec, overflow, l_new = _assign_elkan(
+                x, state, a_prev, valid)
     elif bounds == "exponion":
-        a_new, d_new, lb2, n_rec, overflow, _ = _assign_exponion(
-            x, state, a_prev, valid, use_shalf=use_shalf)
+        with span("round.assign"):
+            a_new, d_new, lb2, n_rec, overflow, _ = _assign_exponion(
+                x, state, a_prev, valid, use_shalf=use_shalf)
     else:
         raise ValueError(f"unknown bounds {bounds!r}")
 
@@ -484,46 +508,50 @@ def nested_round(X: torch.Tensor, state: KMeansState, *, b: int,
             l_new = torch.where(valid[:, None], l_new,
                                 torch.zeros_like(l_new))
 
-    if fused_acc is not None:
-        dS, dv, sse = fused_acc
-    else:
-        dS, dv = _delta_sv(x, a_prev, a_new, k, plan)
-        sse = _refresh_sse(d_new, a_new, k, plan)
-    mse_num = torch.sum(d_new * d_new)
-    n_changed = ((a_prev >= 0) & (a_new != a_prev)).sum(dtype=torch.int32)
-    n_active = (_scalar(b, x) if valid is None
-                else valid.sum(dtype=torch.int32))
-    # the batch MSE's denominator is n_active: a count, reduced with the
-    # integers, where f32 would be exact only to 2^24 rows
-    dS, dv, sse, mse_num, n_changed, n_active, n_rec, overflow = \
-        collectives.psum((dS, dv, sse, mse_num, n_changed, n_active, n_rec,
-                          overflow), mesh, data_axes)
+    with span("round.sums"):
+        if fused_acc is not None:
+            dS, dv, sse = fused_acc
+        else:
+            dS, dv = _delta_sv(x, a_prev, a_new, k, plan)
+            sse = _refresh_sse(d_new, a_new, k, plan)
+        mse_num = torch.sum(d_new * d_new)
+        n_changed = ((a_prev >= 0) & (a_new != a_prev)).sum(
+            dtype=torch.int32)
+        n_active = (_scalar(b, x) if valid is None
+                    else valid.sum(dtype=torch.int32))
+        # the batch MSE's denominator is n_active: a count, reduced with
+        # the integers, where f32 would be exact only to 2^24 rows
+        dS, dv, sse, mse_num, n_changed, n_active, n_rec, overflow = \
+            collectives.psum((dS, dv, sse, mse_num, n_changed, n_active,
+                              n_rec, overflow), mesh, data_axes)
 
-    stats = dataclasses.replace(state.stats, S=state.stats.S + dS,
-                                v=state.stats.v + dv, sse=sse)
-    stats = centroid_update(stats)
-    grow, r_med = controller.should_grow(stats.sse, stats.v, stats.p, rho)
+    with span("round.update"):
+        stats = dataclasses.replace(state.stats, S=state.stats.S + dS,
+                                    v=state.stats.v + dv, sse=sse)
+        stats = centroid_update(stats)
+        grow, r_med = controller.should_grow(stats.sse, stats.v, stats.p,
+                                             rho)
 
-    a_all = state.points.a.clone()
-    d_all = state.points.d.clone()
-    a_all[:b] = a_new
-    d_all[:b] = d_new
-    points = dataclasses.replace(state.points, a=a_all, d=d_all)
-    if lb2 is not None:
-        lb_all = state.points.lb.clone()
-        lb_all[:b] = lb2
-        points = dataclasses.replace(points, lb=lb_all)
-    elkan = state.elkan
-    if l_new is not None:
-        l_all = state.elkan.l.clone()
-        l_all[:b] = l_new
-        elkan = ElkanBounds(l=l_all)
+        a_all = state.points.a.clone()
+        d_all = state.points.d.clone()
+        a_all[:b] = a_new
+        d_all[:b] = d_new
+        points = dataclasses.replace(state.points, a=a_all, d=d_all)
+        if lb2 is not None:
+            lb_all = state.points.lb.clone()
+            lb_all[:b] = lb2
+            points = dataclasses.replace(points, lb=lb_all)
+        elkan = state.elkan
+        if l_new is not None:
+            l_all = state.elkan.l.clone()
+            l_all[:b] = l_new
+            elkan = ElkanBounds(l=l_all)
 
-    info = RoundInfo(
-        batch_mse=mse_num / torch.clamp_min(n_active.float(), 1.0),
-        n_changed=n_changed, n_recomputed=n_rec.to(torch.int32),
-        n_active=n_active, overflow=overflow.to(torch.bool), grow=grow,
-        r_median=r_med, p_max=torch.max(stats.p))
-    new_state = dataclasses.replace(state, stats=stats, points=points,
-                                    elkan=elkan, round=state.round + 1)
+        info = RoundInfo(
+            batch_mse=mse_num / torch.clamp_min(n_active.float(), 1.0),
+            n_changed=n_changed, n_recomputed=n_rec.to(torch.int32),
+            n_active=n_active, overflow=overflow.to(torch.bool), grow=grow,
+            r_median=r_med, p_max=torch.max(stats.p))
+        new_state = dataclasses.replace(state, stats=stats, points=points,
+                                        elkan=elkan, round=state.round + 1)
     return new_state, info

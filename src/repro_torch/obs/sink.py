@@ -1,12 +1,14 @@
 """`FitObserver` — the concrete obs sink a traced fit writes through.
 
 Port of `repro/obs/sink.py`. `repro_torch.api.loop.ObsSink` is the
-*seam*: a no-op base class `run_loop` and the engines call
-unconditionally. This module is the *implementation* wired in when
-``FitConfig(trace_dir=...)`` is set: every round's host-landed scalars go
-to a `SpanTracer` JSONL stream, a `MetricsRegistry` aggregates counters,
-gauges and histograms (written to ``metrics-p<pid>.json`` at close), and
-a `WorkModel` prices each round against the H100 roofline.
+*seam*: a no-op base class `run_loop` calls unconditionally. This module
+is the *implementation* wired in when ``FitConfig(trace_dir=...)`` is
+set: every round's host-landed scalars go to a `SpanTracer` JSONL
+stream, and so does every `repro_torch.obs.span` of a thread the
+observer is bound to (`repro_torch.obs.observe`); a `MetricsRegistry`
+aggregates counters, gauges and histograms (written to
+``metrics-p<pid>.json`` at close), and a `WorkModel` prices each round
+against the H100 roofline.
 
 The observer is **duck-typed** (it does not import `api.loop`) and
 imports no torch: every value handed to `round_end` is already
@@ -41,8 +43,9 @@ def _safe(v):
 class FitObserver:
     """Observability sink for one fit (one per process).
 
-    Satisfies the `api.loop.ObsSink` duck-type surface — ``span`` /
-    ``count`` / ``round_end`` / ``fit_end`` / ``close`` — and writes:
+    Satisfies the `api.loop.ObsSink` duck-type surface — ``count`` /
+    ``round_end`` / ``fit_end`` / ``close`` — and the ``span`` that
+    `repro_torch.obs.span` writes its records through, and writes:
 
       * ``trace-p<pid>-<seq>.jsonl``  — the span/event stream;
       * ``metrics-p<pid>.json``       — the registry export, at close.
@@ -53,6 +56,12 @@ class FitObserver:
     elkan/exponion rounds count individual pair distances in
     ``n_recomputed`` (annulus scans, not full k rows), and pricing them
     as k-scans would overstate the work by exactly the pruning factor.
+
+    The ``fit_start`` event (``meta``, the schema, ``k`` and ``d``) is
+    written at construction, or with ``start=False`` by `start`, once
+    the caller knows the rest of it: the estimator builds its observer
+    before the engine places the data, so that the placement's spans
+    reach the trace.
     """
 
     def __init__(self, trace_dir: Union[str, Path], *, process_id: int = 0,
@@ -60,7 +69,7 @@ class FitObserver:
                  bounds: Optional[str] = None,
                  meta: Optional[Dict[str, Any]] = None,
                  registry: Optional[MetricsRegistry] = None,
-                 rotate_bytes: int = 8 << 20):
+                 rotate_bytes: int = 8 << 20, start: bool = True):
         self.tracer = SpanTracer(trace_dir, process_id=process_id,
                                  rotate_bytes=rotate_bytes)
         self.registry = registry if registry is not None else \
@@ -87,14 +96,21 @@ class FitObserver:
             "fit_roofline_utilization",
             "last round's bound_s / wall_s vs the H100 roofline model")
         self._g_b = r.gauge("fit_b_global", "current global nested batch")
-        attrs = dict(meta or {})
-        attrs.update(obs_schema=OBS_SCHEMA, k=k, d=d)
-        self.tracer.event("fit_start", **attrs)
+        self._k, self._d = k, d
+        if start:
+            self.start(**(meta or {}))
+
+    def start(self, **meta) -> None:
+        """Write the ``fit_start`` event."""
+        meta.update(obs_schema=OBS_SCHEMA, k=self._k, d=self._d)
+        self.tracer.event("fit_start", **meta)
 
     # -- the ObsSink duck-type surface ---------------------------------------
 
     @contextlib.contextmanager
     def span(self, name: str, **attrs):
+        """One span's record and its wall-time histogram; entered by
+        `repro_torch.obs.span` while this observer is bound."""
         t0 = time.monotonic()
         with self.tracer.span(name, **attrs):
             yield

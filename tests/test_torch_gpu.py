@@ -393,6 +393,35 @@ def test_fit_on_card_matches_cpu(cuda):
     assert np.array_equal(again.cluster_centers_, gpu.cluster_centers_)
 
 
+
+@pytest.mark.gpu
+def test_spans_lie_on_the_host_side_of_a_profiled_fit(cuda):
+    """Under `torch.profiler` the program's spans are ranges of the host's
+    timeline only: no device event carries a span's name (a user
+    annotation would be mirrored onto the device and read as busy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.data.synthetic import gaussian_blobs
+    X, _ = gaussian_blobs(20000, k=16, dim=64, spread=5.0, seed=0)
+    km = NestedKMeans(FitConfig(k=16, b0=2000), device=cuda)
+    km.fit(X)                                     # builds and warms up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        km.fit(X)
+        km.predict(X)
+    spans = ("estimator.", "engine.", "loop.", "round.", "predict.",
+             "eval_mse")
+    events = prof.events()
+    dev = [e.name for e in events if str(e.device_type).endswith("CUDA")]
+    host = {e.name for e in events
+            if not str(e.device_type).endswith("CUDA")}
+    assert dev and not [n for n in dev if n.startswith(spans)]
+    assert {"estimator.fit", "engine.upload", "loop.issue", "loop.fetch",
+            "round.assign", "estimator.predict",
+            "predict.labels"} <= host
+
+
 # -- the plain path and the round on the card --------------------------------
 
 

@@ -324,3 +324,154 @@ def test_store_fit_traces_ingest_like_jax(tmp_path):
         assert sum(r["store_bytes_read"] for r in rounds) > 0
     assert spans["port"] == spans["jax"] and spans["port"]
     assert sum(spans["port"]) <= 3000
+
+
+# ---------------------------------------------------------------------------
+# the port's spans: always-on root totals, the JSONL, the profiler
+# ---------------------------------------------------------------------------
+
+#: small enough for a fit in about a second on one CPU thread
+SPAN_FIT = dict(k=4, b0=128, seed=0, max_rounds=14, eval_every=4,
+                capacity_floor=16)
+
+
+def _span_data():
+    rng = np.random.default_rng(5)
+    X = (rng.normal(size=(1500, 8)) + 6.0 * rng.integers(
+        0, 4, size=(1500, 1))).astype(np.float32)
+    return X, X[:200].copy()
+
+
+@pytest.fixture(scope="module")
+def spanned_fit(tmp_path_factory):
+    """One traced estimator fit and predict on the CPU; every round
+    attempt counted where the engine makes it (`rounds.nested_round`)."""
+    from repro_torch import obs
+    from repro_torch.core import rounds
+    X, X_val = _span_data()
+    td = tmp_path_factory.mktemp("spans")
+    calls = []
+    orig = rounds.nested_round
+
+    def counted(*args, **kw):
+        calls.append(kw["capacity"])
+        return orig(*args, **kw)
+    rounds.nested_round = counted
+    try:
+        km = NestedKMeans(FitConfig(trace_dir=str(td), **SPAN_FIT),
+                          device="cpu").fit(X, X_val=X_val)
+    finally:
+        rounds.nested_round = orig
+    km.predict(X)
+    return {"km": km, "fit": obs.recent_roots("estimator.fit")[-1],
+            "predict": obs.recent_roots("estimator.predict")[-1],
+            "attempts": len(calls), "dir": td}
+
+
+def test_a_fit_spans_its_placement_once_and_each_round_attempt(
+        spanned_fit):
+    root, km = spanned_fit["fit"], spanned_fit["km"]
+    assert root.ok and root.name == "estimator.fit"
+    for name in ("engine.place", "engine.shuffle", "engine.fingerprint",
+                 "loop.outcome"):
+        assert root.total(name)[1] == 1, name
+    assert root.total("engine.upload")[1] == 2          # X and X_val
+    attempts = spanned_fit["attempts"]
+    rounds = [r for r in km.telemetry_ if r.batch_mse is not None]
+    assert attempts >= len(rounds) > 3
+    for name in ("loop.issue", "loop.fetch", "round.decide",
+                 "round.assign", "round.sums", "round.update"):
+        assert root.total(name)[1] == attempts, name
+    assert root.total("loop.schedule")[1] == len(rounds)
+    # the rounds' work clock is the attempts' issue and wait
+    t = km.telemetry_[-1].t
+    waited = root.total("loop.issue")[0] + root.total("loop.fetch")[0]
+    assert waited == pytest.approx(t, rel=0.05)
+    # the evals of the cadence and the final one
+    evals = [r for r in km.telemetry_ if r.val_mse is not None]
+    assert root.total("eval_mse")[1] == len(evals)
+    assert root.seconds == root.total("estimator.fit")[0] > t
+    pred = spanned_fit["predict"]
+    assert {n: c for n, (_, c) in pred.totals().items()} == {
+        "estimator.predict": 1, "predict.upload": 1, "predict.assign": 1,
+        "predict.labels": 1}
+    assert pred.id != root.id
+
+
+def test_a_trace_dir_fit_writes_its_placement_spans(spanned_fit):
+    spans = [e for e in read_events(spanned_fit["dir"])
+             if e.get("ph") == "span"]
+    place = [e for e in spans if e["name"] == "engine.place"]
+    assert len(place) == 1
+    inside = sorted(e["name"] for e in spans
+                    if e["parent"] == place[0]["id"])
+    assert inside == ["engine.fingerprint", "engine.shuffle",
+                      "engine.upload", "engine.upload"]
+    names = {e["name"] for e in spans}
+    assert {"loop.issue", "loop.fetch", "loop.schedule", "eval_mse",
+            "round.decide", "loop.outcome"} <= names
+    # the fit_start event keeps the engine's fields, written after it
+    # placed the data
+    start = next(e for e in read_events(spanned_fit["dir"])
+                 if e.get("name") == "fit_start")["attrs"]
+    assert (start["n_points"], start["n_shards"], start["d"]) == \
+        (1500, 1, 8)
+
+
+def test_spans_are_plain_cpu_ops_under_the_profiler_and_absent_without():
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    X, _ = _span_data()
+    cfg = FitConfig(**dict(SPAN_FIT, max_rounds=3))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        NestedKMeans(cfg, device="cpu").fit(X)
+    mine = [e for e in prof.events()
+            if e.name.split(".")[0] in ("estimator", "engine", "loop",
+                                        "round")]
+    assert {"estimator.fit", "engine.place", "loop.issue", "loop.fetch",
+            "round.decide", "round.assign"} <= {e.name for e in mine}
+    assert not any(e.is_user_annotation for e in mine)
+    # a fit in the profiler's warm-up step, which records nothing, and
+    # none outside it: no span reaches the trace
+    got = {}
+    prof = profile(activities=[ProfilerActivity.CPU],
+                   schedule=schedule(wait=0, warmup=1, active=1),
+                   on_trace_ready=lambda p: got.update(
+                       names={e.name for e in p.events()}))
+    NestedKMeans(cfg, device="cpu").fit(X)
+    with prof:
+        NestedKMeans(cfg, device="cpu").fit(X)
+        prof.step()
+        torch.ones(4).sum()
+        prof.step()
+    assert got["names"] and not any(
+        n.startswith(("estimator.", "engine.", "loop.", "round."))
+        for n in got["names"])
+
+
+def test_roots_on_two_threads_keep_their_own_totals():
+    import threading
+    from repro_torch.obs import recent_roots, span
+    both_open = threading.Barrier(2, timeout=30)
+    done = threading.Barrier(2, timeout=30)
+
+    def work(inner, n):
+        with span("test.two_threads"):
+            both_open.wait()
+            for _ in range(n):
+                with span(inner):
+                    pass
+            done.wait()
+
+    threads = [threading.Thread(target=work, args=("test.a", 3)),
+               threading.Thread(target=work, args=("test.b", 5))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    a, b = sorted(recent_roots("test.two_threads")[-2:],
+                  key=lambda r: r.total("test.a")[1], reverse=True)
+    assert (a.total("test.a")[1], a.total("test.b")[1]) == (3, 0)
+    assert (b.total("test.a")[1], b.total("test.b")[1]) == (0, 5)
+    assert a.id != b.id and a.thread != b.thread
