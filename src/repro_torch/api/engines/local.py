@@ -4,13 +4,18 @@ Port of `repro/api/engines/local.py`. In-memory rows are shuffled with
 the same numpy permutation as the JAX engine
 (``default_rng(seed).permutation(N)``), and mb's batches come from the
 next permutations of the same generator, drawn in the same order, so
-both packages see the same rows in the same order. A chunk store is
-read lazily into a device buffer in `store_permutation`'s order, only as
-far as the nested prefix has grown. The kernel plan is resolved once
-per fit. `capture`/`restore` write and read the JAX engine's checkpoint
-tree and meta. `LocalEngine.begin` is the ``engine.place`` span, with
-``engine.fingerprint``, ``engine.shuffle`` and ``engine.upload`` inside
-it (`repro_torch.obs.span`).
+both packages see the same rows in the same order. The permutation is
+applied on the device: the caller's rows go up in their own order, one
+staging segment at a time, and each segment is scattered to its
+shuffled rows there (`_upload_rows`). A chunk store is read lazily into
+a device buffer in `store_permutation`'s order, only as far as the
+nested prefix has grown. The kernel plan is resolved once per fit.
+`capture`/`restore` write and read the JAX engine's checkpoint tree and
+meta. `LocalEngine.begin` is the ``engine.place`` span, with
+``engine.fingerprint``, ``engine.shuffle`` (the permutation and its
+inverse, on the host) and ``engine.upload`` inside it, and one
+``engine.scatter`` a segment inside X's ``engine.upload``
+(`repro_torch.obs.span`).
 """
 from __future__ import annotations
 
@@ -32,6 +37,10 @@ from repro_torch.obs import span
 # rows fetched off a ChunkStore per copy into the device buffer: bounds
 # the host memory in flight
 _IO_SEG_ROWS = 65536
+# bytes of an in-memory fit's rows staged on the device per segment
+# before they are scattered to their shuffled places: bounds the device
+# memory the shuffle adds to the placed rows
+_STAGE_BYTES = 32 << 20
 
 
 class _LocalRun(EngineRun):
@@ -58,12 +67,14 @@ class _LocalRun(EngineRun):
             X = np.asarray(X)
             N = X.shape[0]
             with span("engine.shuffle"):
-                perm = (rng.permutation(N) if config.shuffle
-                        else np.arange(N))
-                rows = np.ascontiguousarray(X[perm], dtype=np.float32)
+                if config.shuffle:
+                    perm = rng.permutation(N)
+                    inv = np.empty_like(perm)
+                    inv[perm] = np.arange(N)
+                else:
+                    perm, inv = np.arange(N), None
             with span("engine.upload"):
-                self._Xd = torch.from_numpy(rows).to(self.device)
-            del rows
+                self._Xd = self._upload_rows(X, inv)
             self._filled = N
             # on the caller's array, before the shuffle, as in JAX
             with span("engine.fingerprint"):
@@ -103,6 +114,35 @@ class _LocalRun(EngineRun):
         self._mb_pos = 0
         self._mb_perm = rng.permutation(N)
         self._mb_idx = None
+
+    def _upload_rows(self, X: np.ndarray, inv) -> torch.Tensor:
+        """X's rows as float32 on the device, storage row ``inv[j]``
+        holding ``X[j]`` (so row i holds ``X[perm[i]]``; ``inv`` None:
+        row i holds ``X[i]``). The rows go up in the caller's order, a
+        segment of at most `_STAGE_BYTES` at a time, and each is
+        scattered from one staging buffer to its rows on the device: the
+        host never forms ``X[perm]``."""
+        N, d = X.shape
+        Xd = torch.empty((N, d), dtype=torch.float32, device=self.device)
+        seg = max(1, _STAGE_BYTES // max(1, 4 * d))
+        if inv is not None:
+            inv = torch.from_numpy(inv).to(self.device)
+            stage = torch.empty((min(seg, N), d), dtype=torch.float32,
+                                device=self.device)
+        for lo in range(0, N, seg):
+            hi = min(N, lo + seg)
+            # a view where X is C-ordered float32
+            rows = torch.from_numpy(np.ascontiguousarray(
+                X[lo:hi], dtype=np.float32))
+            if inv is None:
+                Xd[lo:hi].copy_(rows)
+                continue
+            # from pageable memory, in stream order: the copy lands after
+            # the previous segment's scatter has read the staging buffer
+            stage[:hi - lo].copy_(rows)
+            with span("engine.scatter"):
+                Xd.index_copy_(0, inv[lo:hi], stage[:hi - lo])
+        return Xd
 
     def _ensure_prefix(self, b: int) -> None:
         """Copy shuffled rows [filled, b) off the store into the device

@@ -115,3 +115,50 @@ def test_unported_backend_and_resume_are_refused(tmp_path, blobs):
     with pytest.raises(ValueError, match="out-of-core"):
         NestedKMeans(FitConfig(k=4, algorithm="lloyd"),
                      device="cpu").fit(str(tmp_path / "st"))
+
+
+# (N, dtype, order, shuffle) at 64 rows a staging segment
+PLACEMENTS = {
+    "f32_c": (650, np.float32, "C", True),
+    "f64": (650, np.float64, "C", True),
+    "fortran": (650, np.float32, "F", True),
+    "exact_multiple": (640, np.float32, "C", True),
+    "below_one_segment": (50, np.float32, "C", True),
+    "no_shuffle": (650, np.float32, "C", False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLACEMENTS))
+def test_engine_places_the_shuffled_rows_bit_for_bit(monkeypatch, name):
+    """The in-memory engine uploads the caller's rows a staging segment
+    at a time and scatters them on the device: storage row i holds
+    float32(X[perm[i]]) bit for bit, as the host's X[perm] and the JAX
+    engine give it, and the permutations are the seed's draws in the
+    JAX engine's order. One ``engine.scatter`` a segment, none
+    unshuffled."""
+    from repro.api.engines.local import LocalEngine as JEngine
+    from repro_torch import obs
+    from repro_torch.api.engines import local
+    N, dtype, order, shuffle = PLACEMENTS[name]
+    d, seg = 8, 64
+    monkeypatch.setattr(local, "_STAGE_BYTES", seg * 4 * d)
+    rng = np.random.default_rng(N)
+    X = np.asarray(rng.normal(size=(N, d)) * 1e3, dtype=dtype, order=order)
+    X_val = X[:20].copy()
+    cfg = FitConfig(k=4, b0=32, seed=7, shuffle=shuffle).resolve(N)
+    run = local.LocalEngine().begin(X, cfg, X_val=X_val, device="cpu")
+    draws = np.random.default_rng(7)
+    perm = draws.permutation(N) if shuffle else np.arange(N)
+    assert np.array_equal(run._Xd.numpy(),
+                          np.ascontiguousarray(X[perm], np.float32))
+    np.testing.assert_array_equal(run.orig_index, perm)
+    np.testing.assert_array_equal(run._mb_perm, draws.permutation(N))
+    assert np.array_equal(run._Xv.numpy(), X_val.astype(np.float32))
+    place = obs.recent_roots("engine.place")[-1]
+    assert place.total("engine.scatter")[1] == (
+        -(-N // seg) if shuffle else 0)
+    assert place.total("engine.upload")[1] == 2
+    jrun = JEngine().begin(X, JConfig(k=4, b0=32, seed=7,
+                                      shuffle=shuffle).resolve(N))
+    np.testing.assert_array_equal(jrun.orig_index, run.orig_index)
+    assert np.array_equal(np.asarray(jrun._Xd), run._Xd.numpy())

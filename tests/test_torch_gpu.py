@@ -395,6 +395,50 @@ def test_fit_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_engine_shuffles_the_rows_on_the_card(cuda):
+    """At infMNIST's width (d = 784, several staging segments) the
+    in-memory engine's scatter on the card places X[perm] bit for bit;
+    placing holds at most the staging budget and the int64 index beyond
+    what the run keeps (the rows, X_val, the state); and a fit is bitwise
+    the fit of the host's X[perm] placed unshuffled."""
+    from repro_torch import obs
+    from repro_torch.api import FitConfig, NestedKMeans
+    from repro_torch.api.engines import local
+    from repro_torch.data.synthetic import gaussian_blobs
+    N, d = 50000, 784
+    X, _ = gaussian_blobs(N, k=50, dim=d, spread=5.0, seed=0)
+    X_val = X[:1000].copy()
+    seg = local._STAGE_BYTES // (4 * d)
+    assert N > 4 * seg
+    cfg = FitConfig(k=50, b0=5000, seed=3).resolve(N)
+    torch.cuda.synchronize(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    run = local.LocalEngine().begin(X, cfg, X_val=X_val, device=cuda)
+    torch.cuda.synchronize(cuda)
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    held = torch.cuda.memory_allocated(cuda) - base
+    perm = np.random.default_rng(3).permutation(N)
+    assert np.array_equal(run._Xd.cpu().numpy(), X[perm])
+    np.testing.assert_array_equal(run.orig_index, perm)
+    assert obs.recent_roots("engine.place")[-1].total(
+        "engine.scatter")[1] == -(-N // seg)
+    # the allocator rounds each block up to 512 bytes
+    assert peak - held <= local._STAGE_BYTES + 8 * N + 2 * 512, (peak, held)
+    del run
+    small = dict(k=50, b0=5000, seed=3, max_rounds=40)
+    shuffled = NestedKMeans(FitConfig(**small), device=cuda).fit(
+        X, X_val=X_val)
+    placed = NestedKMeans(FitConfig(shuffle=False, **small),
+                          device=cuda).fit(X[perm], X_val=X_val)
+    assert np.array_equal(shuffled.cluster_centers_,
+                          placed.cluster_centers_)
+    assert np.array_equal(shuffled.labels_[perm], placed.labels_)
+    assert [r.n_recomputed for r in shuffled.telemetry_] == \
+        [r.n_recomputed for r in placed.telemetry_]
+
+
+@pytest.mark.gpu
 def test_spans_lie_on_the_host_side_of_a_profiled_fit(cuda):
     """Under `torch.profiler` the program's spans are ranges of the host's
     timeline only: no device event carries a span's name (a user

@@ -368,14 +368,38 @@ def spanned_fit(tmp_path_factory):
             "attempts": len(calls), "dir": td}
 
 
+@pytest.fixture(scope="module")
+def unshuffled_fit(tmp_path_factory):
+    """A short traced fit of the same rows with ``shuffle=False``."""
+    from repro_torch import obs
+    X, X_val = _span_data()
+    td = tmp_path_factory.mktemp("unshuffled")
+    cfg = dict(SPAN_FIT, max_rounds=2)
+    NestedKMeans(FitConfig(trace_dir=str(td), shuffle=False, **cfg),
+                 device="cpu").fit(X, X_val=X_val)
+    return {"fit": obs.recent_roots("estimator.fit")[-1], "dir": td}
+
+
+def _segments(n, d):
+    """The staging segments of an in-memory placement of n rows of d."""
+    from repro_torch.api.engines import local
+    return -(-n // max(1, local._STAGE_BYTES // (4 * d)))
+
+
 def test_a_fit_spans_its_placement_once_and_each_round_attempt(
-        spanned_fit):
+        spanned_fit, unshuffled_fit):
     root, km = spanned_fit["fit"], spanned_fit["km"]
     assert root.ok and root.name == "estimator.fit"
     for name in ("engine.place", "engine.shuffle", "engine.fingerprint",
                  "loop.outcome"):
         assert root.total(name)[1] == 1, name
     assert root.total("engine.upload")[1] == 2          # X and X_val
+    # one scatter of a staging segment to its shuffled rows, none
+    # unshuffled
+    assert root.total("engine.scatter")[1] == _segments(1500, 8)
+    plain = unshuffled_fit["fit"]
+    assert plain.total("engine.upload")[1] == 2
+    assert plain.total("engine.scatter") == (0.0, 0)
     attempts = spanned_fit["attempts"]
     rounds = [r for r in km.telemetry_ if r.batch_mse is not None]
     assert attempts >= len(rounds) > 3
@@ -398,7 +422,8 @@ def test_a_fit_spans_its_placement_once_and_each_round_attempt(
     assert pred.id != root.id
 
 
-def test_a_trace_dir_fit_writes_its_placement_spans(spanned_fit):
+def test_a_trace_dir_fit_writes_its_placement_spans(spanned_fit,
+                                                    unshuffled_fit):
     spans = [e for e in read_events(spanned_fit["dir"])
              if e.get("ph") == "span"]
     place = [e for e in spans if e["name"] == "engine.place"]
@@ -407,6 +432,16 @@ def test_a_trace_dir_fit_writes_its_placement_spans(spanned_fit):
                     if e["parent"] == place[0]["id"])
     assert inside == ["engine.fingerprint", "engine.shuffle",
                       "engine.upload", "engine.upload"]
+    # the scatters lie inside X's upload, the first of the two
+    uploads = sorted((e for e in spans if e["name"] == "engine.upload"),
+                     key=lambda e: e["id"])
+    scatters = [e for e in spans if e["name"] == "engine.scatter"]
+    assert len(scatters) == _segments(1500, 8)
+    assert {e["parent"] for e in scatters} == {uploads[0]["id"]}
+    plain = [e["name"] for e in read_events(unshuffled_fit["dir"])
+             if e.get("ph") == "span"]
+    assert plain.count("engine.upload") == 2
+    assert "engine.scatter" not in plain
     names = {e["name"] for e in spans}
     assert {"loop.issue", "loop.fetch", "loop.schedule", "eval_mse",
             "round.decide", "loop.outcome"} <= names
